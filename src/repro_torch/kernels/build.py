@@ -1,0 +1,92 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with nvcc for sm_90a into its own shared
+library with a plain C interface, loaded through ctypes. A library is
+keyed by a hash of its source and the flags, so the first use after a
+change rebuilds it and later uses load it as built. The libraries go to
+``build/kernels/`` at the repository root.
+
+``LAUNCHES`` counts kernel launches: each wrapper adds one where it
+launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("paged_attention", "sparse_gather")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+LAUNCHES: Dict[str, int] = {"paged_attention": 0, "sparse_gather_matvec": 0}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH): the CUDA "
+                           "kernels build on a machine with the toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives for its current
+    source and flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> str:
+    """Compile every named source whose library is missing: one nvcc per
+    source, all started together. Returns nvcc's diagnostics (the
+    ``-Xptxas=-v`` register and shared-memory report); raises with nvcc's
+    stderr when a build fails."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        jobs.append((name, tmp, out,
+                     subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)))
+    logs, errors = [], []
+    for name, tmp, out, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"{name}.cu: nvcc exited {proc.returncode}\n"
+                          f"{stdout}{stderr}")
+            continue
+        os.replace(tmp, out)     # atomic: a reader never sees half a file
+        logs.append(f"{name}.cu:\n{stdout}{stderr}")
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    return "\n".join(logs)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build((name,))
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

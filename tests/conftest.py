@@ -9,6 +9,11 @@ import jax  # noqa: E402
 jax.config.update("jax_default_matmul_precision", "highest")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips on a host without one")
+
+
 # --- optional-hypothesis stand-ins -----------------------------------------
 # Property tests degrade to a single skipped test when hypothesis is not
 # installed (clean environments must still collect and run the suite).
