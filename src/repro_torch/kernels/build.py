@@ -22,11 +22,14 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention", "sparse_gather")
+SOURCES = ("paged_attention", "sparse_gather", "decode_attention",
+           "relu_ffn", "nmce_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-LAUNCHES: Dict[str, int] = {"paged_attention": 0, "sparse_gather_matvec": 0}
+LAUNCHES: Dict[str, int] = {"paged_attention": 0, "sparse_gather_matvec": 0,
+                            "decode_attention": 0, "relu_ffn": 0,
+                            "nmce_matmul": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

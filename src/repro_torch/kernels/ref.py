@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import quant
+
 NEG_INF = -1e30
 
 
@@ -62,3 +64,44 @@ def sparse_gather_matvec_plain(h: torch.Tensor, idx: torch.Tensor,
     rows = wpad.index_select(0, idx.reshape(-1).long())
     rows = rows.reshape(*idx.shape, d)
     return torch.einsum("bk,bkd->bd", h.float(), rows.float())
+
+
+def relu_ffn_plain(x: torch.Tensor, w_up: torch.Tensor,
+                   w_down: torch.Tensor) -> torch.Tensor:
+    """Fused ReLU-FFN (non-GLU): relu(x @ w_up) @ w_down. x f[M, d];
+    w_up f[d, f]; w_down f[f, d]. Returns f32[M, d]. A d_ff block whose
+    hidden values are all <= 0 adds exactly zero, so the kernel's skip of
+    such blocks needs no counterpart here."""
+    return (torch.relu(x @ w_up) @ w_down).float()
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor,
+                           kv_len: torch.Tensor) -> torch.Tensor:
+    """GQA decode attention over a contiguous cache, softmax in f32.
+
+    q f[B, Hq, Dh]; k, v f[B, S, Kv, Dh] (f32 or bf16); kv_len i32[B].
+    Position s of row b is visible iff s < kv_len[b], so kv_len >= S shows
+    all S positions (and kv_len <= 0, with every score at NEG_INF, spreads
+    the softmax evenly over all S). Returns f32[B, Hq, Dh]."""
+    B, Hq, Dh = q.shape
+    S, Kv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Kv, Hq // Kv, Dh).float() * Dh ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
+    vis = torch.arange(S, device=q.device)[None, :] < kv_len[:, None].long()
+    s = s.masked_fill(~vis[:, None, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return o.reshape(B, Hq, Dh)
+
+
+def nmce_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor,
+                      x_scale: torch.Tensor, w_scale: torch.Tensor,
+                      saturate_int16: bool = False) -> torch.Tensor:
+    """W8A8 matmul: x_q i8[M, K] @ w_q i8[K, N] with exact integer
+    accumulation, then f32 ``acc * x_scale * w_scale`` (x_scale f32[M, 1],
+    w_scale f32[1, N]), in that order. ``saturate_int16`` clips each
+    64-wide K chunk (K zero-padded to a multiple of 64) to int16 before the
+    cross-chunk sum. Bit-exact on either device (``quant.int_matmul``)."""
+    acc = quant.int_matmul(x_q, w_q, saturate_int16)
+    return acc.to(torch.int32).float() * x_scale * w_scale

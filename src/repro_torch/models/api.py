@@ -1,4 +1,5 @@
-"""Public model API of the port: init / paged cache / serving step."""
+"""Public model API of the port: init / slot cache, prefill and decode /
+paged cache and serving step."""
 
 from __future__ import annotations
 
@@ -20,6 +21,28 @@ class Model:
     def init(self, generator: torch.Generator,
              device: Optional[Union[str, torch.device]] = None) -> dict:
         return transformer.init_params(self.cfg, generator, device=device)
+
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.float32,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> dict:
+        return transformer.init_cache(self.cfg, batch, max_len, dtype=dtype,
+                                      device=device)
+
+    def prefill(self, params: dict, tokens: torch.Tensor, cache: dict):
+        """Process a prompt tokens i32[B, S], fill the cache, return the
+        logits f32[B, 1, V] of the last position and the updated cache
+        (the reference takes a batch dict {"tokens": ...})."""
+        hidden, new_cache = transformer.forward(params, self.cfg, tokens,
+                                                cache=cache)
+        logits = transformer.project_logits(params, self.cfg,
+                                            hidden[:, -1:])
+        return logits, new_cache
+
+    def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
+        """One token per row at cache["lens"]; returns (logits f32[B, 1,
+        V], the cache with lens + 1)."""
+        return transformer.decode_step(params, self.cfg, tokens, cache)
 
     def init_paged_cache(self, batch: int, n_blocks: int, block_size: int,
                          max_blocks_per_seq: int,

@@ -1,6 +1,9 @@
-"""Paged multi-head attention (MHA/GQA) for the serving step."""
+"""Multi-head attention (MHA/GQA) with a KV cache: the contiguous slot
+cache (prefill and single-token decode) and the paged serving step."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -19,6 +22,14 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig,
             "wo": layers.dense_init(generator, (nq * dh, d), dtype, device)}
 
 
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype: torch.dtype, device: torch.device) -> dict:
+    """Contiguous per-slot KV storage [batch, max_len, Kv, Dh]."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_paged_kv_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
                         dtype: torch.dtype, device: torch.device) -> dict:
     """Block-pool KV storage (fp pools only): requests own scattered
@@ -35,6 +46,71 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
     v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
     return q, k, v
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal GQA attention, softmax in f32: query i sees keys
+    [0, i]. q [B, S, Hq, Dh]; k, v [B, S, Kv, Dh]. Returns f32[B, S, Hq, Dh].
+
+    The reference computes this with ``models/flash.blockwise_attention``,
+    an online softmax in pure JAX (no Pallas kernel); one masked softmax
+    over all keys is the same function."""
+    B, S, Hq, Dh = q.shape
+    Kv = k.shape[2]
+    qg = q.reshape(B, S, Kv, Hq // Kv, Dh).float() * Dh ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    pos = torch.arange(S, device=q.device)
+    s = s.masked_fill(pos[None, :] > pos[:, None], ref.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, S, Hq, Dh)
+
+
+def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 cos: torch.Tensor, sin: torch.Tensor,
+                 cache: Optional[dict] = None) -> torch.Tensor:
+    """Attention for a prefill (full sequence, causal, starting at
+    position 0). x: [B, S, d]; cos/sin: [B, S, dh//2]. With ``cache`` the
+    segment's K/V are written at [0, S) of it in place (the reference
+    returns the updated cache instead). Returns [B, S, d]."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x)
+    q = rope.apply_rope(q, cos, sin)
+    k = rope.apply_rope(k, cos, sin)
+    if cache is not None:
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
+    o = causal_attention(q, k, v).to(x.dtype)
+    return o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"]
+
+
+def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                cos: torch.Tensor, sin: torch.Tensor, cache: dict,
+                lens: torch.Tensor) -> torch.Tensor:
+    """One-token decode: x [B, 1, d]; ``lens`` i32[B] is each row's
+    current context length. The new K/V are written at position lens[b]
+    in place (a row whose lens[b] is past the cache drops its write, as
+    the reference's ``mode="drop"`` does) and the query attends to the
+    first lens[b]+1 positions through the decode-attention kernel
+    (``ops.decode_attention``), which clamps that count to the cache
+    length. Returns [B, 1, d]."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, cfg, x)
+    q = rope.apply_rope(q, cos, sin)
+    k = rope.apply_rope(k, cos, sin)
+    rows = torch.arange(B, device=x.device)
+    # a dropped write rewrites the slot's last entry with itself: no
+    # boolean indexing, so no device-to-host sync
+    at = lens.long().clamp(max=cache["k"].shape[1] - 1)
+    keep = (lens.long() < cache["k"].shape[1])[:, None, None]
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        c[rows, at] = torch.where(keep, new[:, 0].to(c.dtype), c[rows, at])
+    o = ops.decode_attention(q[:, 0].float().contiguous(), cache["k"],
+                             cache["v"], lens + 1)
+    o = o.reshape(B, 1, cfg.n_heads * cfg.d_head).to(x.dtype)
+    return o @ p["wo"]
 
 
 def _store_paged(pool: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,

@@ -6,6 +6,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparsity
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 
 
@@ -20,8 +21,14 @@ def init_ffn(generator: torch.Generator, cfg: ModelConfig,
 
 
 def ffn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Dense path (prefill)."""
+    """Dense path (prefill). A non-GLU ReLU FFN, the nectar family's, is
+    the fused ReLU-FFN kernel's function (``ops.relu_ffn_fused``); GLU and
+    other activations stay dense."""
     act = "relu" if cfg.relu_sparse else cfg.act
+    if act == "relu" and "w_gate" not in p:
+        out = ops.relu_ffn_fused(x.reshape(-1, x.shape[-1]).contiguous(),
+                                 p["w_up"], p["w_down"])
+        return out.reshape(x.shape[:-1] + out.shape[-1:]).to(x.dtype)
     return sparsity.dense_ffn(x, p["w_up"], p["w_down"], act=act,
                               w_gate=p.get("w_gate"))
 

@@ -1,4 +1,5 @@
-"""The decoder stack's paged serving step.
+"""The decoder stack: slot-cache prefill and decode, and the paged serving
+step.
 
 Parameters keep the reference's stacked layout: every per-layer leaf of
 ``params["units"]["b0"]`` carries a leading [n_units] axis, as
@@ -75,6 +76,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.float32,
+               device: Optional[Union[str, torch.device]] = None) -> dict:
+    """Contiguous decode cache of the slot engine: one [batch, max_len, Kv,
+    Dh] K/V pair per layer, stacked over units, plus per-row context
+    lengths (slots advance independently)."""
+    device = resolve_device(device)
+    check_supported(cfg)
+    kv = _stack([attention.init_kv_cache(cfg, batch, max_len, dtype, device)
+                 for _ in range(cfg.n_units)])
+    return {"lens": torch.zeros(batch, dtype=torch.int32, device=device),
+            "units": {"b0": kv}}
+
+
 def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
                      block_size: int, max_blocks_per_seq: int,
                      dtype: torch.dtype = torch.float32,
@@ -100,6 +115,72 @@ def _embed_inputs(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
     return rope.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+
+
+def block_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
+                  cache: Optional[dict]) -> torch.Tensor:
+    """One attention block over a whole prompt: causal attention (writing
+    the cache at [0, S) when given), then the dense FFN."""
+    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + attention.attn_forward(p["attn"], cfg, h, ctx["cos"],
+                                   ctx["sin"], cache=cache)
+    h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + ffn.ffn_forward(p["ffn"], cfg, h)
+
+
+def block_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
+                 cache: dict) -> torch.Tensor:
+    """One attention block for one token per row: decode attention over
+    the slot cache, then the decode FFN (sparse gather under
+    relu_sparse)."""
+    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + attention.attn_decode(p["attn"], cfg, h, ctx["cos"], ctx["sin"],
+                                  cache, ctx["lens"])
+    h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + ffn.ffn_decode(p["ffn"], cfg, h)
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: Optional[dict] = None):
+    """Full-sequence forward (prefill) of tokens i32[B, S] at positions
+    [0, S). With ``cache`` each layer's K/V land at [0, S) of it in place
+    and the returned cache has lens = S. Returns (hidden [B, S, d],
+    cache or None); the reference also returns an MoE aux loss, which an
+    attention-only stack does not have."""
+    x = _embed_inputs(params, tokens)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None, :].expand(B, S)
+    cos, sin = _rope_tables(cfg, positions)
+    ctx = {"cos": cos, "sin": sin}
+    units = params["units"]["b0"]
+    for i in range(cfg.n_units):
+        x = block_forward(_index(units, i), cfg, x, ctx,
+                          None if cache is None
+                          else _index(cache["units"]["b0"], i))
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cache is None:
+        return x, None
+    return x, {"lens": torch.full_like(cache["lens"], S),
+               "units": cache["units"]}
+
+
+def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: dict):
+    """One-token decode of every row: tokens i32[B, 1] at positions
+    cache["lens"]. The cache's K/V are written in place. Returns (logits
+    f32[B, 1, V], the cache with lens + 1)."""
+    x = _embed_inputs(params, tokens)
+    lens = cache["lens"]
+    cos, sin = _rope_tables(cfg, lens[:, None])
+    ctx = {"cos": cos, "sin": sin, "lens": lens}
+    units = params["units"]["b0"]
+    for i in range(cfg.n_units):
+        x = block_decode(_index(units, i), cfg, x, ctx,
+                         _index(cache["units"]["b0"], i))
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (project_logits(params, cfg, x),
+            {"lens": lens + 1, "units": cache["units"]})
 
 
 def block_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,

@@ -1,15 +1,22 @@
-"""Inference engine: a host-side scheduler over the batched ModelRunner.
+"""Inference engine: the paged scheduler engine and the legacy slot engine.
 
-The port of the reference engine's synchronous paged path: every phase of
-every request — chunked prefill and single-token decode — is a ROW of one
-batched ``ModelRunner.step`` per tick. The engine is pure host policy:
-admission (serve.scheduler), block accounting (serve.paged_kv), building
-the per-tick ``StepBatch`` and committing greedy tokens.
+The port of the reference engine's two synchronous modes:
+
+  * ``ServeConfig(paged=True)``: every phase of every request — chunked
+    prefill and single-token decode — is a ROW of one batched
+    ``ModelRunner.step`` per tick. The engine is pure host policy:
+    admission (serve.scheduler), block accounting (serve.paged_kv),
+    building the per-tick ``StepBatch`` and committing greedy tokens.
+  * ``ServeConfig(paged=False)``, the default: fixed slots over a
+    contiguous [max_batch, max_seq] KV cache. ``add_request`` prefills the
+    prompt at once into a batch-1 cache and splices it into a free slot;
+    each ``step`` decodes one token for every slot.
 
 Speculative decoding, the async tick pipeline, sharded serving, disagg
-handoff, the prefix cache, int8 KV, prompt log-probabilities, tracing,
-sampled rows and the legacy slot engine (``paged=False``) are later slices
-of the port: asking for any of them raises ``NotImplementedError``.
+handoff, the prefix cache, int8 KV, prompt log-probabilities, tracing and
+sampled rows are later slices of the port: asking for any of them raises
+``NotImplementedError`` (or ``ValueError`` where the reference's slot mode
+refuses them too).
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
-from repro_torch.serve import metrics as metrics_mod, paged_kv, sampling
+from repro_torch.serve import (kv_cache, metrics as metrics_mod, paged_kv,
+                               sampling)
 from repro_torch.serve.runner import DECODE, PREFILL, ModelRunner
 from repro_torch.serve.scheduler import Request, SchedEntry, Scheduler, State
 
@@ -33,11 +41,23 @@ def _to(tree: dict, device: torch.device) -> dict:
             for k, v in tree.items()}
 
 
+def _paged_only(scfg: ServeConfig) -> List[str]:
+    """The features ``scfg`` asks for that the reference serves in paged
+    mode only: its slot engine refuses them with a ValueError."""
+    return [name for name, on in (
+        ("async serving (ServeConfig.async_cfg)",
+         scfg.async_cfg is not None and scfg.async_cfg.enabled),
+        ("speculative decode (ServeConfig.spec)", scfg.spec is not None),
+        ("roofline profiling (ObsConfig.profile)", scfg.obs.profile),
+        ("prefix_cache", scfg.prefix_cache),
+        ("sharded serving (ServeConfig.mesh)",
+         scfg.mesh is not None and scfg.mesh.n_devices > 1)) if on]
+
+
 def _unsupported(scfg: ServeConfig) -> List[str]:
     """The ServeConfig features outside this slice that ``scfg`` asks
     for."""
     return [name for name, on in (
-        ("paged=False (legacy slot engine)", not scfg.paged),
         ("spec", scfg.spec is not None),
         ("async_cfg", scfg.async_cfg is not None
          and scfg.async_cfg.enabled),
@@ -48,7 +68,8 @@ def _unsupported(scfg: ServeConfig) -> List[str]:
 
 
 class Engine:
-    """The serving front door: host-side policy over one ModelRunner.
+    """The serving front door: host-side policy over one ModelRunner
+    (paged mode) or over the slot cache (slot mode, the default).
 
     Construct with a ModelConfig, its params and a ServeConfig; submit
     work with ``add_request(Request)`` (or the batch loop ``run``),
@@ -59,6 +80,10 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params: dict, scfg: ServeConfig,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
+        paged_only = [] if scfg.paged else _paged_only(scfg)
+        if paged_only:
+            raise ValueError(f"{', '.join(paged_only)} requires the paged "
+                             f"engine (paged=True)")
         missing = _unsupported(scfg)
         if missing:
             raise NotImplementedError(
@@ -70,11 +95,16 @@ class Engine:
         self.metrics = metrics_mod.MetricsCollector()
         self._requests: Dict[int, Request] = {}
         self._rids = itertools.count()
-        self.pool = paged_kv.PagedKVCache(
-            n_blocks=scfg.pool_blocks, block_size=scfg.block_size,
-            max_batch=scfg.max_batch, max_blocks_per_seq=scfg.blocks_per_seq)
-        self.sched = Scheduler(scfg, self.pool)
-        self.runner = ModelRunner(self.model, self.params, scfg, self.device)
+        if scfg.paged:
+            self.pool = paged_kv.PagedKVCache(
+                n_blocks=scfg.pool_blocks, block_size=scfg.block_size,
+                max_batch=scfg.max_batch,
+                max_blocks_per_seq=scfg.blocks_per_seq)
+            self.sched = Scheduler(scfg, self.pool)
+            self.runner = ModelRunner(self.model, self.params, scfg,
+                                      self.device)
+        else:
+            self._init_slots()
 
     def new_rid(self) -> int:
         """Engine-global request id: every front end draws from here."""
@@ -103,8 +133,19 @@ class Engine:
             steps += 1
         return done
 
+    @property
+    def admission_free(self) -> int:
+        """How many more requests ``add_request`` would take right now:
+        the scheduler's queue headroom in paged mode, the free slots in
+        slot mode."""
+        if self.scfg.paged:
+            return max(self.scfg.max_queue - len(self.sched.waiting), 0)
+        return len(self.alloc.free)
+
     def _busy(self) -> bool:
-        return not self.sched.idle
+        if self.scfg.paged:
+            return not self.sched.idle
+        return bool(self._active) or bool(self._done_at_admit)
 
     def can_serve(self, req: Request) -> bool:
         """False means no amount of waiting will ever admit ``req``."""
@@ -117,12 +158,18 @@ class Engine:
                 f"request id {req.rid} is already in flight; use "
                 f"Engine.new_rid() to allocate ids")
         if req.sampling.prompt_logprobs:
+            if not self.scfg.paged:
+                raise ValueError(
+                    "prompt_logprobs needs the paged engine's all-position "
+                    "prefill logits (ServeConfig(paged=True))")
             raise NotImplementedError("prompt_logprobs is a later slice")
         sampling.check_greedy(sampling.effective_params(req.sampling))
         if not self.can_serve(req):
             return False
         if req.sampling.max_tokens is not None:
             req.max_new = min(req.max_new, req.sampling.max_tokens)
+        if not self.scfg.paged:
+            return self._add_request_slots(req)
         if not self.sched.submit(req):
             return False                       # queue full: shed load
         self._requests[req.rid] = req
@@ -138,7 +185,9 @@ class Engine:
 
     def step(self) -> List[int]:
         """One engine tick; returns the rids that finished this tick."""
-        return self._tick_paged()
+        if self.scfg.paged:
+            return self._tick_paged()
+        return self._step_slots()
 
     # ------------------------------------------------------------------
     # one tick
@@ -289,3 +338,84 @@ class Engine:
         self.metrics.on_finish(e.req.rid)
         self.sched.finish(e)
         finished.append(e.req.rid)
+
+    # ------------------------------------------------------------------
+    # legacy fixed-slot mode
+
+    def _init_slots(self) -> None:
+        scfg = self.scfg
+        self.alloc = kv_cache.SlotAllocator(scfg.max_batch)
+        self.cache = self.model.init_cache(scfg.max_batch, scfg.max_seq,
+                                           device=self.device)
+        self._active: Dict[int, Request] = {}
+        self._done_at_admit: List[int] = []    # finished during prefill
+
+    def _finish_slot(self, req: Request) -> None:
+        req.done = True
+        self.alloc.release(req.rid)
+        self._active.pop(req.rid, None)
+        self.metrics.on_finish(req.rid)
+
+    def _add_request_slots(self, req: Request) -> bool:
+        slot = self.alloc.alloc(req.rid)
+        if slot is None:
+            return False
+        self._requests[req.rid] = req
+        self._active[req.rid] = req
+        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        self.metrics.on_arrival(req.rid, len(prompt))
+        # prefill into a batch-1 cache, then splice that row into the live
+        # cache at ``slot`` (slots advance independently via lens[b])
+        tmp = self.model.init_cache(1, len(prompt), device=self.device)
+        with torch.no_grad():
+            logits, tmp = self.model.prefill(
+                self.params, torch.tensor(prompt[None], device=self.device),
+                tmp)
+        self._merge_slot(tmp, slot, len(prompt))
+        tok, lp = sampling.sample_np(logits[0, 0].cpu().numpy(),
+                                     sampling.effective_params(req.sampling))
+        status = self._append_token(req, tok, lp)
+        if status != "stop":
+            self.metrics.on_first_token(req.rid)
+        if status != "ok":                     # same checks the paged
+            self._finish_slot(req)             # path makes after prefill
+            self._done_at_admit.append(req.rid)
+        return True
+
+    def _merge_slot(self, tmp: dict, slot: int, prompt_len: int) -> None:
+        """Write tmp's single row into row ``slot`` of the live cache, in
+        place. Positions past the prompt are zeroed, so the row ends as the
+        reference's splice of a fresh max_seq-long cache leaves it."""
+        for name, leaf in self.cache["units"]["b0"].items():
+            leaf[:, slot, :prompt_len] = tmp["units"]["b0"][name][:, 0]
+            leaf[:, slot, prompt_len:] = 0
+        self.cache["lens"][slot] = prompt_len
+
+    def _step_slots(self) -> List[int]:
+        """One batched decode step across all slots (idle slots decode a
+        padding token that nobody reads)."""
+        finished = self._done_at_admit
+        self._done_at_admit = []
+        if not self._active:
+            return finished
+        reqs = list(self._active.values())
+        slots = {req.rid: self.alloc.active[req.rid] for req in reqs}
+        tok = np.zeros((self.scfg.max_batch, 1), np.int32)
+        for req in reqs:
+            tok[slots[req.rid], 0] = req.tokens_out[-1]
+        with torch.no_grad():
+            logits, self.cache = self.model.decode_step(
+                self.params, torch.tensor(tok, device=self.device),
+                self.cache)
+        tok_np, lp_np = self._sample_rows(logits[:, 0])
+        done_now = []
+        for req in reqs:
+            slot = slots[req.rid]
+            status = self._append_token(req, int(tok_np[slot]), lp_np[slot])
+            if status != "stop":
+                self.metrics.on_token(req.rid)
+            if status != "ok":
+                self._finish_slot(req)
+                done_now.append(req.rid)
+        self.metrics.on_decode_step()
+        return finished + done_now

@@ -1,5 +1,5 @@
-"""Per-request sampling: ``SamplingParams``, the stop-sequence helpers and
-the batched greedy path.
+"""Per-request sampling: ``SamplingParams``, the stop-sequence helpers, the
+batched greedy path and the host greedy sample of one row (``sample_np``).
 
 Greedy rows reduce to ``argmax(logits)`` plus the log-probability of the
 chosen token, as in the reference. Rows that sample (temperature > 0) or
@@ -99,6 +99,20 @@ def stop_holdback(tokens: Sequence[int],
                 best = max(best, m)
                 break
     return best
+
+
+def sample_np(logits: np.ndarray, sp: SamplingParams,
+              rng: Optional[np.random.Generator] = None,
+              seen: Sequence[int] = ()) -> Tuple[int, float]:
+    """Host sampling of one row (the slot engine's batch-1 prefill uses
+    it): (token, its log-probability). Greedy is a plain argmax, as in
+    the reference; sampled rows raise (``check_greedy``), so ``rng`` and
+    ``seen`` (the repetition-penalty history) are unused in this slice."""
+    check_greedy(sp)
+    z = np.asarray(logits, np.float64)
+    tok = int(np.argmax(z))
+    lse = z.max() + np.log(np.exp(z - z.max()).sum())    # f64, as the
+    return tok, float(z[tok] - lse)                       # reference
 
 
 def greedy_batch(logits: torch.Tensor

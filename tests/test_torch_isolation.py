@@ -61,9 +61,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
         transformer.init_params(cfg, gen)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         Model(cfg).init_paged_cache(2, 8, 8, 4)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Model(cfg).init_cache(2, 8)
     params = Model(cfg).init(gen, device="cpu")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         Engine(cfg, params, ServeConfig(paged=True))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Engine(cfg, params, ServeConfig())
     with pytest.raises(RuntimeError, match='device="cpu"'):
         from_jax_params({}, cfg)
     Engine(cfg, params, ServeConfig(paged=True), device="cpu")

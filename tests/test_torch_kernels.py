@@ -15,7 +15,9 @@ import torch
 
 from repro.core import sparsity as jsparsity
 from repro.kernels import ref as jref
+from repro.kernels.decode_attn import decode_attention as jax_decode_attention
 from repro.kernels.decode_attn import paged_attention as jax_paged_attention
+from repro.kernels.relu_ffn import relu_ffn as jax_relu_ffn
 from repro.kernels.sparse_ffn import sparse_gather_matvec as jax_sparse
 from repro_torch.core import sparsity as tsparsity
 from repro_torch.kernels import ops, ref
@@ -140,6 +142,93 @@ def test_down_sparse_matches_reference(active):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+def _relu_ffn_case(seed, M, d, f, dead_blocks=()):
+    """x, W_up, W_down; the W_up columns of each dead block of 128 are
+    zero, so relu(x @ W_up) is 0 there and the kernels skip the block."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, d)).astype(np.float32)
+    w_up = (rng.standard_normal((d, f)) * 0.1).astype(np.float32)
+    for blk in dead_blocks:
+        w_up[:, blk * 128:(blk + 1) * 128] = 0.0
+    w_dn = (rng.standard_normal((f, d)) * 0.1).astype(np.float32)
+    return x, w_up, w_dn
+
+
+@pytest.mark.parametrize("M,d,f,bf,dead", [
+    (2, 64, 512, 128, (1, 3)),   # test_relu_ffn_skips_dead_blocks_exactly
+    (8, 128, 640, 128, (2,)),    # nectar prefill widths (the reference's
+    (37, 128, 640, 128, ()),     # default block_f=512 does not divide 640)
+    (4, 128, 1024, 128, ()),     # test_relu_ffn_fused_shapes
+    (8, 64, 512, 256, ()),
+])
+def test_relu_ffn_plain_matches_pallas(M, d, f, bf, dead):
+    x, w_up, w_dn = _relu_ffn_case(M + f, M, d, f, dead)
+    want = np.asarray(jax_relu_ffn(jnp.asarray(x), jnp.asarray(w_up),
+                                   jnp.asarray(w_dn), block_f=bf,
+                                   interpret=True))
+    got = ref.relu_ffn_plain(torch.from_numpy(x), torch.from_numpy(w_up),
+                             torch.from_numpy(w_dn)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    oracle = np.asarray(jref.relu_ffn_ref(jnp.asarray(x), jnp.asarray(w_up),
+                                          jnp.asarray(w_dn)))
+    np.testing.assert_allclose(got, oracle, **TOL)
+
+
+def _decode_case(seed, B, Hq, Kv, Dh, S):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Hq, Dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, Kv, Dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, Kv, Dh)).astype(np.float32)
+    kv_len = rng.integers(1, S + 1, B).astype(np.int32)
+    kv_len[0] = S                       # the whole cache visible
+    return q, k, v, kv_len
+
+
+@pytest.mark.parametrize("B,Hq,Kv,Dh,S,bs", [
+    (1, 4, 4, 16, 32, 16),    # the shapes of test_decode_attention_shapes
+    (2, 8, 2, 32, 128, 32),
+    (3, 8, 1, 16, 64, 16),
+    (4, 4, 4, 32, 96, 32),    # nectar slot decode (Hq = Kv = 4, Dh 32)
+])
+def test_decode_attention_plain_matches_pallas(B, Hq, Kv, Dh, S, bs):
+    q, k, v, kv_len = _decode_case(B * S, B, Hq, Kv, Dh, S)
+    want = np.asarray(jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv_len),
+        block_s=bs, interpret=True))
+    got = ref.decode_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(kv_len)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_decode_attention_plain_bf16_kv_matches_pallas():
+    """bf16 q/K/V (rounded the same way on both sides), f32 softmax; the
+    reference's own bf16 tolerance, 2e-2."""
+    q, k, v, _ = _decode_case(7, 2, 4, 2, 32, 64)
+    kv_len = np.array([17, 64], np.int32)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    want = np.asarray(jax_decode_attention(*jb, jnp.asarray(kv_len),
+                                           block_s=16, interpret=True))
+    got = ref.decode_attention_plain(*tb, torch.from_numpy(kv_len))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_decode_attention_plain_masks_past_the_cache_like_the_oracle():
+    """kv_len > S (an idle slot of the slot engine, whose lens ran past
+    max_seq) shows all S positions; kv_len = 0 masks every position, which
+    leaves a uniform softmax over all S. Both as the jnp oracle does."""
+    q, k, v, _ = _decode_case(9, 3, 4, 2, 16, 48)
+    kv_len = np.array([48 + 7, 0, 1], np.int32)
+    want = np.asarray(jref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv_len)))
+    got = ref.decode_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(kv_len)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_ops_send_cpu_tensors_to_plain_versions():
     """On CPU tensors the dispatch computes the plain versions and launches
     no kernel."""
@@ -153,4 +242,9 @@ def test_ops_send_cpu_tensors_to_plain_versions():
     sargs = [torch.from_numpy(a) for a in (h, idx, w)]
     assert torch.equal(ops.sparse_gather_matvec(*sargs),
                        ref.sparse_gather_matvec_plain(*sargs))
+    fargs = [torch.from_numpy(a) for a in _relu_ffn_case(8, 5, 32, 200)]
+    assert torch.equal(ops.relu_ffn_fused(*fargs), ref.relu_ffn_plain(*fargs))
+    dargs = [torch.from_numpy(a) for a in _decode_case(9, 2, 4, 2, 16, 40)]
+    assert torch.equal(ops.decode_attention(*dargs),
+                       ref.decode_attention_plain(*dargs))
     assert ops.LAUNCHES == before

@@ -167,7 +167,6 @@ def test_stop_sequences_and_max_tokens(nectar):
 
 
 @pytest.mark.parametrize("scfg_kw", [
-    dict(paged=False),
     dict(paged=True, spec=SpecConfig()),
     dict(paged=True, prefix_cache=True),
     dict(paged=True, kv_quant=True),
@@ -176,6 +175,26 @@ def test_engine_raises_for_features_of_later_slices(nectar, scfg_kw):
     _, _, tcfg, tparams = nectar
     with pytest.raises(NotImplementedError):
         Engine(tcfg, tparams, ServeConfig(**scfg_kw), device="cpu")
+
+
+@pytest.mark.parametrize("scfg_kw", [
+    dict(spec=SpecConfig()),
+    dict(prefix_cache=True),
+])
+def test_slot_engine_serves_and_raises_for_paged_only_features(nectar,
+                                                               scfg_kw):
+    """``paged=False`` (the default) builds the slot engine, which serves;
+    spec and the prefix cache need the paged engine, and the slot engine
+    refuses them with a ValueError, as the reference does."""
+    _, _, tcfg, tparams = nectar
+    eng = Engine(tcfg, tparams, ServeConfig(max_batch=2, max_seq=32),
+                 device="cpu")
+    assert not eng.scfg.paged
+    out = list(api.generate(eng, np.arange(5, dtype=np.int32), max_new=3))
+    assert len(out) == 3
+    with pytest.raises(ValueError, match="paged=True"):
+        Engine(tcfg, tparams, ServeConfig(paged=False, **scfg_kw),
+               device="cpu")
 
 
 @pytest.mark.parametrize("sp", [
