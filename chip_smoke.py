@@ -12,8 +12,14 @@ Phases, each reporting on lines of its own:
                at nectar-relu-llama-1.7m's shapes and at llama3.2-1b's
                widths (sentinel table entries and indices, an idle slot
                past the cache, dead d_ff blocks, int16 saturation); times
-               of kernel, plain version and a library yardstick, and the
-               kernel's device time per launch from torch.profiler.
+               of kernel, plain version and a library yardstick, the
+               kernel's and the yardstick's device time per call from
+               torch.profiler; then kernels 1 and 2 at the edges of their
+               split designs (one-block rows, rows ending on a block
+               boundary, uneven splits, IDLE and all-empty rows, block
+               sizes 8/16/32, S*G 1-128, k not a multiple of the split).
+               Kernels 1-3 are launched twice on the same inputs and must
+               give the same bits.
   4. ops     — the public W8A8 entry point ``ops.nmce_matmul`` on card
                tensors launches its kernel and equals its CPU result bit
                for bit.
@@ -61,15 +67,20 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 rate outside the tensor cores
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 PROFILE_ITERS = 20
+PROFILE_TRIES = 3             # runs of a profiled window that saw no device
+#                               activity at all (see ``profiled``)
 TOP_DEVICE = 6                # device-time leaders listed per profiled serve
 
-# kernel -> the names of its CUDA kernels (as the profiler reports them),
-# its source and the TPU kernel it replaces
+# kernel -> the names of its CUDA kernels (as the profiler reports them;
+# the first names the one launched once per wrapper call, a substring of
+# each of its variants), its source and the TPU kernel it replaces
 KERNELS = {
-    "paged_attention": (("paged_attention_kernel",),
+    "paged_attention": (("paged_attention_kernel",
+                         "paged_attention_combine"),
                         "src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/decode_attn.py:75"),
-    "sparse_gather_matvec": (("sparse_gather_kernel",),
+    "sparse_gather_matvec": (("sparse_gather_kernel",
+                              "sparse_gather_combine"),
                              "src/repro_torch/csrc/sparse_gather.cu",
                              "src/repro/kernels/sparse_ffn.py:31"),
     "relu_ffn": (("relu_ffn_blocks", "relu_ffn_reduce"),
@@ -112,13 +123,25 @@ def time_ms(fn, iters=100, warmup=5):
 
 def profiled(fn):
     """Run ``fn`` under torch.profiler (CPU and CUDA activity); returns
-    (its result, the profiler's per-name averages)."""
+    (its result, the profiler's per-name averages). On some machines the
+    profiler now and then returns a window with no device activity at all
+    although kernels ran in it: such a window runs again, up to
+    PROFILE_TRIES times in all. A window that shows device activity but
+    none for a given kernel still fails the run (``kernel_device``)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, prof.key_averages()
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            print("profiler: a window showed no device activity; running "
+                  "it again")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        if any(e.self_device_time_total > 0
+               for e in device_events(averages)):
+            break
+    return out, averages
 
 
 def kernel_device(averages, kernel):
@@ -131,17 +154,42 @@ def kernel_device(averages, kernel):
              if any(n in e.key for n in names))
     count = sum(e.count for e in averages if names[0] in e.key)
     check(us > 0 and count > 0,
-          f"{kernel}: torch.profiler attributes no device time to {names}")
+          f"{kernel}: torch.profiler attributes no device time to {names} "
+          f"({len(device_events(averages))} device events in the window)")
     return us, count
+
+
+def device_events(averages):
+    """The profiler's CUDA events (kernels and copies), most device time
+    first."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in averages if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: -e.self_device_time_total)
+
+
+def window_averages(fn):
+    """torch.profiler's per-name averages over PROFILE_ITERS calls of
+    ``fn``, after one call outside the window."""
+    fn()
+    torch.cuda.synchronize()
+    return profiled(lambda: [fn() for _ in range(PROFILE_ITERS)])[1]
 
 
 def device_ms(fn, kernel):
     """The kernel's own device time per call: the CUDA time torch.profiler
     attributes to its kernels over PROFILE_ITERS calls, averaged."""
-    fn()
-    torch.cuda.synchronize()
-    _, averages = profiled(lambda: [fn() for _ in range(PROFILE_ITERS)])
-    return kernel_device(averages, kernel)[0] / PROFILE_ITERS / 1e3
+    return kernel_device(window_averages(fn), kernel)[0] \
+        / PROFILE_ITERS / 1e3
+
+
+def library_device_ms(fn):
+    """A library call's device time per call: all the CUDA time
+    torch.profiler sees in the window of PROFILE_ITERS calls, averaged."""
+    total = sum(e.self_device_time_total
+                for e in device_events(window_averages(fn)))
+    check(total > 0, "torch.profiler saw no device time in a library call")
+    return total / PROFILE_ITERS / 1e3
 
 
 def bound(n_bytes, ops, ops_per_s=F32_FLOPS_PER_S):
@@ -154,18 +202,37 @@ def bound(n_bytes, ops, ops_per_s=F32_FLOPS_PER_S):
 def measure(kernel, label, err, kernel_fn, plain_fn, library_fn, n_bytes,
             ops, ops_per_s=F32_FLOPS_PER_S):
     """One phase-3 row: the times of kernel, plain version and library
-    yardstick (None where there is none), the device time and the bound."""
+    yardstick (None where there is none), the device times of kernel and
+    yardstick, and the bound."""
     bound_ms, bound_by = bound(n_bytes, ops, ops_per_s)
     return {"case": label, "max_abs_err": err, "ms": time_ms(kernel_fn),
             "device_ms": device_ms(kernel_fn, kernel),
             "plain_ms": time_ms(plain_fn),
             "library_ms": None if library_fn is None else time_ms(library_fn),
+            "library_device_ms": None if library_fn is None
+            else library_device_ms(library_fn),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": n_bytes, "ops": ops}
 
 
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
+
+
+def held(label, kernel_fn, plain_fn, zero_rows=()):
+    """Launch ``kernel_fn`` twice and hold it against ``plain_fn``: within
+    KERNEL_ATOL, the same bits both times, exact zeros in ``zero_rows``.
+    Returns the max abs error."""
+    got, again, want = kernel_fn(), kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    check(torch.isfinite(got).all().item(), f"{label}: non-finite output")
+    err = (got - want).abs().max().item()
+    check(err <= KERNEL_ATOL, f"{label}: max_abs_err {err}")
+    check(torch.equal(got, again), f"{label}: not deterministic")
+    for r in zero_rows:
+        check(torch.equal(got[r], torch.zeros_like(got[r])),
+              f"{label}: row {r} must be exact zeros")
+    return err
 
 
 def attention_case(dev, rng, B, S, Hq, Kv, Dh, bs, MB, max_ctx):
@@ -210,12 +277,10 @@ def run_attention(dev, rng, label, **shape):
     from repro_torch.kernels import decode_attn, ref
     import torch.nn.functional as F
     q, kp, vp, tables, lens = attention_case(dev, rng, **shape)
-    got = decode_attn.paged_attention(q, kp, vp, tables, lens)
-    want = ref.paged_attention_plain(q, kp, vp, tables, lens)
-    torch.cuda.synchronize()
-    check(torch.isfinite(got).all().item(), f"{label}: non-finite output")
-    err = (got - want).abs().max().item()
-    check(err <= KERNEL_ATOL, f"{label}: paged_attention max_abs_err {err}")
+    err = held(f"{label}: paged_attention",
+               lambda: decode_attn.paged_attention(q, kp, vp, tables, lens),
+               lambda: ref.paged_attention_plain(q, kp, vp, tables, lens),
+               zero_rows=(q.shape[0] - 1,))
     # the library yardstick: SDPA over the gathered, masked sequence
     kg = ref._gather_paged(kp, tables).transpose(1, 2)
     vg = ref._gather_paged(vp, tables).transpose(1, 2)
@@ -243,12 +308,9 @@ def run_sparse(dev, rng, label, B, k, d_ff, d, empty_frac):
     w = torch.tensor(rng.standard_normal((d_ff, d)) * d_ff ** -0.5,
                      dtype=torch.float32, device=dev)
     i = torch.tensor(idx, dtype=torch.int32, device=dev)
-    got = sparse_ffn.sparse_gather_matvec(h, i, w)
-    want = ref.sparse_gather_matvec_plain(h, i, w)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    check(err <= KERNEL_ATOL,
-          f"{label}: sparse_gather_matvec max_abs_err {err}")
+    err = held(f"{label}: sparse_gather_matvec",
+               lambda: sparse_ffn.sparse_gather_matvec(h, i, w),
+               lambda: ref.sparse_gather_matvec_plain(h, i, w))
     wpad = torch.cat([w, w.new_zeros(1, d)])
     il = i.long()
     valid = idx < d_ff
@@ -363,13 +425,84 @@ def run_nmce(dev, rng, label, M, K, N, sat):
         INT8_OPS_PER_S)
 
 
+def attention_edges(dev, rng):
+    """Kernel 1 at the edges of its split design. Rows: one block (where
+    S <= bs), ending exactly on a block boundary, a long context that
+    splits unevenly over warps and CTAs, a short one, an IDLE row (all
+    sentinel: exact zeros); block sizes 8/16/32, S*G from 1 to 128, every
+    head dim, a narrow table (MB 4: no split). Returns the cases' count
+    and their largest error."""
+    from repro_torch.kernels import decode_attn, ref
+    n, worst = 0, 0.0
+    shapes = [(S, G, MB) for S, G in ((1, 1), (1, 4), (3, 4), (4, 4),
+                                      (5, 4), (9, 4), (32, 1), (32, 4))
+              for MB in (96,)] + [(1, 1, 4), (4, 4, 4)]
+    for bs in (8, 16, 32):
+        for i, (S, G, MB) in enumerate(shapes):
+            Dh, Kv = (32, 64, 128)[(i + bs) % 3], 2
+            cap = MB * bs - S
+            lens = [max(0, min(cap, x)) for x in (
+                bs - S, 3 * bs - S, cap - 11, 37 * bs + 5, 0)]
+            B = len(lens)
+            n_blocks = B * MB
+            tables = np.full((B, MB), n_blocks, np.int32)
+            free = list(rng.permutation(n_blocks))
+            for b in range(B - 1):                 # the last row is IDLE
+                m = -(-(lens[b] + S) // bs)
+                tables[b, :m] = [free.pop() for _ in range(m)]
+            q = torch.tensor(rng.standard_normal((B, S, Kv * G, Dh)),
+                             dtype=torch.float32, device=dev)
+            kp, vp = (torch.tensor(rng.standard_normal((n_blocks, bs, Kv,
+                                                        Dh)),
+                                   dtype=torch.float32, device=dev)
+                      for _ in range(2))
+            t = torch.tensor(tables, device=dev)
+            ln = torch.tensor(np.asarray(lens, np.int32), device=dev)
+            worst = max(worst, held(
+                f"edges paged_attention bs={bs} S={S} G={G} Dh={Dh} "
+                f"MB={MB}",
+                lambda: decode_attn.paged_attention(q, kp, vp, t, ln),
+                lambda: ref.paged_attention_plain(q, kp, vp, t, ln),
+                zero_rows=(B - 1,)))
+            n += 1
+    return n, worst
+
+
+def gather_edges(dev, rng):
+    """Kernel 2 at the edges of its split design: k not a multiple of the
+    split (or of the 8 warps), a ragged column tile, tiny and wide k, many
+    rows; the last row of each case is all empty (exact zeros). Returns
+    the cases' count and their largest error."""
+    from repro_torch.kernels import ref, sparse_ffn
+    worst = 0.0
+    cases = ((3, 1001, 8192, 2048), (4, 130, 640, 128), (2, 7, 50, 96),
+             (300, 128, 640, 128), (1, 4097, 9000, 68), (5, 129, 700, 36))
+    for B, k, d_ff, d in cases:
+        idx = np.stack([rng.permutation(d_ff)[:k] for _ in range(B)])
+        idx = np.where(rng.random((B, k)) < 0.2, d_ff, idx)
+        idx[B - 1] = d_ff
+        h = torch.tensor(rng.standard_normal((B, k)), dtype=torch.float32,
+                         device=dev)
+        w = torch.tensor(rng.standard_normal((d_ff, d)) * d_ff ** -0.5,
+                         dtype=torch.float32, device=dev)
+        i = torch.tensor(idx, dtype=torch.int32, device=dev)
+        worst = max(worst, held(
+            f"edges sparse_gather_matvec B={B} k={k} d={d}",
+            lambda: sparse_ffn.sparse_gather_matvec(h, i, w),
+            lambda: ref.sparse_gather_matvec_plain(h, i, w),
+            zero_rows=(B - 1,)))
+    return len(cases), worst
+
+
 def print_rows(kernel, rows):
     for r in rows:
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+        lib, lib_dev = ("none" if r[key] is None else f"{r[key]:.5f}"
+                        for key in ("library_ms", "library_device_ms"))
         print(f"kernel {kernel} [{r['case']}]: max_abs_err="
               f"{r['max_abs_err']:.3g} ms={r['ms']:.5f} device_ms="
               f"{r['device_ms']:.5f} plain_ms="
-              f"{r['plain_ms']:.5f} library_ms={lib} bound_ms="
+              f"{r['plain_ms']:.5f} library_ms={lib} library_device_ms="
+              f"{lib_dev} bound_ms="
               f"{r['bound_ms']:.6f} ({r['bound_by']})")
 
 
@@ -442,7 +575,6 @@ def profile_serve(label, engine, prompts, max_new, tokens, launches, wall):
     copy), its share of the first, unprofiled serve's ``wall`` and the
     TOP_DEVICE names that took most of it; for the slot engine also the
     range of kv_len its decode attention saw."""
-    from torch.autograd import DeviceType
     kv_lens = []
     if not engine.scfg.paged:
         decode_step = engine.model.decode_step
@@ -464,10 +596,7 @@ def profile_serve(label, engine, prompts, max_new, tokens, launches, wall):
             check(count == n, f"{label}: the profiler saw {key} run {count} "
                   f"times, its counter {n}")
             per_launch[key] = us / n / 1e3
-    on_device = sorted(
-        (e for e in averages if e.device_type == DeviceType.CUDA
-         and not getattr(e, "is_user_annotation", False)),
-        key=lambda e: -e.self_device_time_total)
+    on_device = device_events(averages)
     device_total = sum(e.self_device_time_total for e in on_device) / 1e3
     check(device_total > 0, f"{label}: the profiler saw no device time")
     out = {"kernel_device_ms": per_launch, "device_ms": device_total,
@@ -621,6 +750,14 @@ def main():
     for key, rs in rows.items():
         print_rows(key, rs)
     details["kernels"] = rows
+    # the edges draw from a stream of their own too
+    erng = np.random.default_rng(SEED + 2)
+    edges = {"paged_attention": attention_edges(dev, erng),
+             "sparse_gather_matvec": gather_edges(dev, erng)}
+    print("edges: " + "; ".join(
+        f"{key} {n} cases, max_abs_err {err:.3g}, each launched twice "
+        f"with the same bits" for key, (n, err) in edges.items()))
+    details["edges"] = edges
 
     # ---- 4) the public W8A8 entry point --------------------------------------
     w_np = krng.standard_normal((cfg.d_model, cfg.d_ff)).astype(np.float32)
@@ -756,17 +893,21 @@ def main():
     kernels = []
     for key, (_, src, replaces) in KERNELS.items():
         r = main_case[key]
+        errs = [x["max_abs_err"] for x in rows[key]]
+        if key in edges:
+            errs.append(edges[key][1])
         kernels.append({
             "name": key, "route": "cuda", "source": src,
             "replaces": replaces, "launches": path_launches[key],
-            "max_abs_err": max(x["max_abs_err"] for x in rows[key]),
+            "max_abs_err": max(errs),
             "ms": r["ms"], "device_ms": r["device_ms"],
             "serve_device_ms": {
                 e: pr["kernel_device_ms"][key]
                 for e, pr in profiles.items()
                 if key in pr["kernel_device_ms"]} or None,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_device_ms": r["library_device_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

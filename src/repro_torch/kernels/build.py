@@ -13,6 +13,7 @@ launches its kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -84,6 +85,14 @@ def build(names: Iterable[str] = SOURCES) -> str:
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return "\n".join(logs)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, read once: the
+    kernels' wrappers size their grids by it on every call."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -20,17 +20,54 @@ import torch
 from repro_torch.kernels import build
 
 _SMEM_LIMIT = 232_448        # bytes of shared memory one block may use
-_MAX_BLOCK_TOKENS = 32       # kMaxBlockTokens in paged_attention.cu
 _HEAD_DIMS = (32, 64, 128)
 _CHUNK = 32                  # kChunk in decode_attention.cu
 _DECODE_WARPS = 4            # kWarps in decode_attention.cu
+# paged_attention.cu: 4 warps a CTA; S*G >= _TILE_MIN_ROWS query rows per
+# KV head take the tile kernel (tiles of 32 or 64 rows, 32-key chunks,
+# padded P rows of 40 floats); fewer take the rows kernel (each warp its
+# own two-stage ring of chunks of 32 / (Dh / 32) keys, rows padded to 1,
+# 4 or 16)
+_PAGED_WARPS = 4
+_TILE_MIN_ROWS = 16
+_TILE_CHUNK = 32
+_TILE_PS = 40
+_CTAS_PER_SM = 2             # the split aims at this many CTAs per SM
+
+
+def paged_plan(B: int, S: int, Hq: int, Kv: int, Dh: int, bs: int, MB: int,
+               n_sm: int) -> dict:
+    """The launch paged_attention.cu makes for these shapes: which kernel
+    ("rows" or "tile"), the rows it pads to (``rows``), its grid, the
+    context split ``n_split`` (from MB, never from lens) and its dynamic
+    shared memory in bytes (the layout in the .cu source)."""
+    R = S * (Hq // Kv)
+    table = -(-MB // 4) * 4
+    if R >= _TILE_MIN_ROWS:
+        rt = 32 if R <= 32 else 64
+        kc, ks = _TILE_CHUNK, Dh + 4
+        smem = table + rt * ks + 2 * kc * (ks + Dh) + rt * _TILE_PS
+        n_rt, min_chunks, kind = -(-R // rt), 2, "tile"
+    else:
+        rt = 1 if R == 1 else 4 if R <= 4 else 16
+        lpk = Dh // 32
+        kc, ks = 32 // lpk, Dh + 4 * lpk
+        smem = table + rt * Dh + _PAGED_WARPS * (2 * kc * (ks + Dh)
+                                                 + rt * kc)
+        n_rt, min_chunks, kind = 1, _PAGED_WARPS, "rows"
+    base = B * Kv * n_rt
+    n_chunks = -(-MB * bs // kc)
+    n_split = max(1, min(-(-_CTAS_PER_SM * n_sm // base),
+                         -(-n_chunks // min_chunks)))
+    return {"kind": kind, "rows": rt, "grid": (n_split, Kv * n_rt, B),
+            "n_split": n_split, "smem": 4 * smem}
 
 
 def _fn():
     fn = build.load("paged_attention").paged_attention_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
@@ -59,21 +96,22 @@ def _check(q, k_pool, v_pool, tables, lens):
             f"paged_attention: shapes q{tuple(q.shape)} "
             f"pools{tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
             f"tables{tuple(tables.shape)} lens{tuple(lens.shape)}")
-    if Dh not in _HEAD_DIMS or bs > _MAX_BLOCK_TOKENS:
-        raise ValueError(f"paged_attention: needs d_head in {_HEAD_DIMS} "
-                         f"and block_size <= {_MAX_BLOCK_TOKENS}, got "
-                         f"d_head={Dh}, block_size={bs}")
-    R = S * (Hq // Kv)
-    smem = 4 * (2 * R * Dh + 2 * R + _MAX_BLOCK_TOKENS * (2 * Dh + 1))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_attention: {R} query rows per KV head need "
-                         f"{smem} bytes of shared memory (> {_SMEM_LIMIT})")
+    if Dh not in _HEAD_DIMS:
+        raise ValueError(f"paged_attention: needs d_head in {_HEAD_DIMS}, "
+                         f"got d_head={Dh}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_attention: the pools need a 16-byte aligned "
+                         "base (16-byte cp.async copies)")
+    if B > 65535 or Kv * -(-S * (Hq // Kv) // 32) > 65535:
+        raise ValueError(f"paged_attention: grid too large for B={B}, "
+                         f"S={S}, Hq={Hq}, Kv={Kv}")
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, tables: torch.Tensor,
                     lens: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronise).
+    """Launch the CUDA kernel (and its combine pass when the context is
+    split across CTAs) on the current stream, no synchronise.
 
     q f32[B, S, Hq, Dh]; k_pool/v_pool f32[n_blocks, bs, Kv, Dh]; tables
     i32[B, MB] with sentinel ``n_blocks``; lens i32[B] (context committed
@@ -81,14 +119,30 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _check(q, k_pool, v_pool, tables, lens)
     B, S, Hq, Dh = q.shape
     n_blocks, bs, Kv, _ = k_pool.shape
+    MB = tables.shape[1]
     out = torch.empty_like(q)
-    if B == 0 or S == 0 or tables.shape[1] == 0:
+    if B == 0 or S == 0 or MB == 0 or n_blocks == 0:
         return out.zero_()
+    plan = paged_plan(B, S, Hq, Kv, Dh, bs, MB,
+                      build.sm_count(q.device.index))
+    if plan["smem"] > _SMEM_LIMIT:
+        raise ValueError(f"paged_attention: a table of {MB} entries needs "
+                         f"{plan['smem']} bytes of shared memory "
+                         f"(> {_SMEM_LIMIT})")
+    n_split = plan["n_split"]
+    part_o = part_ml = part = None
+    if n_split > 1:
+        # the partial state of every split: acc f32[n_split, B, S, Hq, Dh]
+        # then (m, l) f32[n_split, B, S, Hq, 2], in one allocation
+        n = n_split * B * S * Hq
+        part = torch.empty(n * (Dh + 2), dtype=torch.float32,
+                           device=q.device)
+        part_o, part_ml = part.data_ptr(), part.data_ptr() + 4 * n * Dh
     fn = _fn()
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                 B, S, Hq, Kv, Dh, n_blocks, bs, tables.shape[1],
+                 part_o, part_ml, B, S, Hq, Kv, Dh, n_blocks, bs, MB, n_split,
                  Dh ** -0.5, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "

@@ -72,6 +72,80 @@ def test_sparse_gather_kernel_matches_plain(cuda, B, k, d_ff, d):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
 
 
+def _paged_edge_inputs(rng, cuda, S, Hq, Kv, Dh, bs, MB, lens):
+    """Pools and scattered tables covering each row's causal limit; the
+    last row is IDLE (all sentinel)."""
+    B = len(lens)
+    nb = B * MB
+    tables = np.full((B, MB), nb, np.int32)
+    free = list(rng.permutation(nb))
+    for b in range(B - 1):
+        n = -(-(lens[b] + S) // bs)
+        tables[b, :n] = [free.pop() for _ in range(n)]
+    q = torch.tensor(rng.standard_normal((B, S, Hq, Dh)), dtype=torch.float32,
+                     device=cuda)
+    kp, vp = (torch.tensor(rng.standard_normal((nb, bs, Kv, Dh)),
+                           dtype=torch.float32, device=cuda) for _ in range(2))
+    return (q, kp, vp, torch.tensor(tables, device=cuda),
+            torch.tensor(np.asarray(lens, np.int32), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("S,G,MB", [(1, 1, 64), (1, 4, 64), (3, 4, 64),
+                                    (4, 4, 64), (5, 4, 64), (32, 1, 64),
+                                    (32, 4, 64), (1, 1, 4), (4, 4, 4)])
+def test_paged_attention_kernel_split_edges(cuda, bs, S, G, MB):
+    """The edges of the split design: a row of one block (where S <= bs),
+    rows ending exactly on a block boundary, a long context split unevenly
+    over warps and CTAs, an IDLE row (exact zeros); S*G from 1 to 128
+    (rows kernel below 16, tile kernel from 16), a narrow table (MB 4: no
+    split). Launched twice: the same bits."""
+    rng = np.random.default_rng(bs * 100 + S * 10 + G)
+    Dh, Kv = (32, 64, 128)[(S + G + bs) % 3], 2
+    cap = MB * bs - S
+    lens = [max(0, min(cap, x))
+            for x in (bs - S, 3 * bs - S, cap - 11, 37 * bs + 5, 0)]
+    args = _paged_edge_inputs(rng, cuda, S, Kv * G, Kv, Dh, bs, MB, lens)
+    got = decode_attn.paged_attention(*args)
+    again = decode_attn.paged_attention(*args)
+    want = ref.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[:-1].cpu().numpy(),
+                               want[:-1].cpu().numpy(), **TOL)
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,k,d_ff,d", [
+    (3, 1001, 8192, 2048),    # k not a multiple of the split
+    (4, 130, 640, 128),       # k not a multiple of the 8 warps
+    (2, 7, 50, 96),           # k below one slot per warp, a ragged tile
+    (300, 128, 640, 128),     # many rows
+    (1, 4097, 9000, 68),      # the last row is also the only row
+])
+def test_sparse_gather_kernel_split_edges(cuda, B, k, d_ff, d):
+    """k that no split divides, ragged column tiles, and an all-empty last
+    row (exact zeros). Launched twice: the same bits."""
+    rng = np.random.default_rng(k + d)
+    idx = np.stack([rng.permutation(d_ff)[:k] for _ in range(B)])
+    idx = np.where(rng.random((B, k)) < 0.2, d_ff, idx)
+    idx[B - 1] = d_ff
+    h = torch.tensor(rng.standard_normal((B, k)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.tensor(rng.standard_normal((d_ff, d)) * d_ff ** -0.5,
+                     dtype=torch.float32, device=cuda)
+    i = torch.tensor(idx, dtype=torch.int32, device=cuda)
+    got = sparse_ffn.sparse_gather_matvec(h, i, w)
+    again = sparse_ffn.sparse_gather_matvec(h, i, w)
+    want = ref.sparse_gather_matvec_plain(h, i, w)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Hq,Kv,Dh,S,dtype", [
     (4, 4, 32, 2048, torch.float32),      # nectar slot decode

@@ -20,7 +20,7 @@ from repro.kernels.decode_attn import paged_attention as jax_paged_attention
 from repro.kernels.relu_ffn import relu_ffn as jax_relu_ffn
 from repro.kernels.sparse_ffn import sparse_gather_matvec as jax_sparse
 from repro_torch.core import sparsity as tsparsity
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import decode_attn, ops, ref, sparse_ffn
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -97,6 +97,34 @@ def test_paged_attention_plain_idle_row_is_finite():
     assert torch.isfinite(out).all()
 
 
+@pytest.mark.parametrize("S,Hq,Kv,bs,lens", [
+    # contexts over 8+ blocks of 16; rows 1 and 2 end on a block boundary
+    # (15 + 1 = 16, 127 + 1 = 128)
+    (1, 4, 4, 16, [150, 15, 127]),
+    # GQA G = 4 at S = 5 (S*G = 20: the card's tile kernel); 27 + 5 = 32
+    # ends on a boundary
+    (5, 16, 4, 16, [140, 27, 0]),
+    # a verify-shaped row; 62 + 2 = 64 ends on a boundary
+    (2, 8, 2, 16, [200, 30, 62]),
+])
+def test_paged_attention_plain_matches_pallas_at_split_edges(S, Hq, Kv, bs,
+                                                             lens):
+    """The structure of the card's split cases: long contexts that the
+    kernel splits over warps and CTAs, rows ending exactly on a block
+    boundary, GQA rows sharing a KV head."""
+    nb, MB, Dh = 48, 14, 32
+    q, kp, vp, tables, lens = _paged_case(S * Hq, 3, S, Hq, Kv, Dh, nb, bs,
+                                          MB, lens=lens)
+    want = np.asarray(jax_paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(lens), block_size=bs,
+        interpret=True))
+    got = ref.paged_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(lens)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def _sparse_case(seed, B, k, d_ff, d, n_empty):
     rng = np.random.default_rng(seed)
     h = rng.standard_normal((B, k)).astype(np.float32)
@@ -122,6 +150,25 @@ def test_sparse_gather_matvec_plain_matches_pallas_and_oracle(
         jnp.asarray(h), jnp.asarray(idx), jnp.asarray(w)))
     np.testing.assert_allclose(got, pallas, **TOL)
     np.testing.assert_allclose(got, oracle, **TOL)
+
+
+@pytest.mark.parametrize("B,k,d_ff,d,n_empty", [
+    (3, 13, 64, 32, 2),       # k not a multiple of 8 (the kernel's warps)
+    (2, 130, 640, 128, 5),    # k = 130: the card splits it unevenly
+])
+def test_sparse_gather_matvec_plain_matches_pallas_at_split_edges(
+        B, k, d_ff, d, n_empty):
+    """k that no split divides, and an all-sentinel last row, whose output
+    is exact zeros on both sides."""
+    h, idx, w = _sparse_case(B * k, B, k, d_ff, d, n_empty)
+    idx[B - 1] = d_ff
+    got = ref.sparse_gather_matvec_plain(
+        torch.from_numpy(h), torch.from_numpy(idx),
+        torch.from_numpy(w)).numpy()
+    pallas = np.asarray(jax_sparse(jnp.asarray(h), jnp.asarray(idx),
+                                   jnp.asarray(w), interpret=True))
+    np.testing.assert_allclose(got, pallas, **TOL)
+    assert not got[B - 1].any() and not pallas[B - 1].any()
 
 
 @pytest.mark.parametrize("active", [400, 90])
@@ -248,3 +295,74 @@ def test_ops_send_cpu_tensors_to_plain_versions():
     assert torch.equal(ops.decode_attention(*dargs),
                        ref.decode_attention_plain(*dargs))
     assert ops.LAUNCHES == before
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("S,Hq,Kv,Dh,kind,rows,n_split", [
+    (1, 4, 4, 32, "rows", 1, 9),      # nectar decode
+    (32, 4, 4, 32, "tile", 32, 9),    # nectar prefill chunk
+    (1, 32, 8, 64, "rows", 4, 5),     # llama3.2-1b decode
+    (5, 32, 8, 64, "tile", 32, 5),    # S*G = 20
+    (32, 32, 8, 64, "tile", 64, 3),   # S*G = 128
+    (3, 8, 2, 128, "rows", 16, 17),   # S*G = 12
+])
+def test_paged_plan_picks_kernel_and_split(S, Hq, Kv, Dh, kind, rows,
+                                           n_split):
+    """The wrapper's launch plan: the rows kernel below 16 query rows per
+    KV head, the tile kernel from there; the split from the table width
+    (MB 128, block 16) and the SM count, within the shared-memory limit."""
+    plan = decode_attn.paged_plan(8, S, Hq, Kv, Dh, 16, 128, H100_SMS)
+    assert (plan["kind"], plan["rows"], plan["n_split"]) == \
+        (kind, rows, n_split)
+    grid = plan["grid"]
+    assert grid[0] == n_split and grid[2] == 8
+    assert grid[1] * plan["rows"] >= Kv * S * (Hq // Kv) or kind == "rows"
+    assert plan["smem"] <= decode_attn._SMEM_LIMIT
+
+
+def test_paged_plan_takes_long_prefill_chunks_of_gqa_models():
+    """The old kernel kept every query row of a KV head in one block's
+    shared memory and refused S*G past ~200 at d_head 128; the tile kernel
+    splits the rows over CTAs, so its shared memory does not grow with S."""
+    small = decode_attn.paged_plan(2, 64, 32, 8, 128, 16, 256, H100_SMS)
+    big = decode_attn.paged_plan(2, 2048, 32, 8, 128, 16, 256, H100_SMS)
+    assert big["smem"] == small["smem"] <= decode_attn._SMEM_LIMIT
+    assert big["grid"][1] == 8 * (2048 * 4 // 64)
+
+
+@pytest.mark.parametrize("MB,bs", [(1, 8), (4, 8), (128, 16), (4096, 16)])
+def test_paged_plan_never_splits_past_the_table(MB, bs):
+    """Each split of the rows kernel gets at least one chunk per warp and
+    each split of the tile kernel two chunks, counted on the table width;
+    lens never enters the plan."""
+    for S, Hq, Kv, chunk, least in ((1, 4, 4, 32, 4), (32, 8, 2, 32, 2)):
+        plan = decode_attn.paged_plan(1, S, Hq, Kv, 32, bs, MB, H100_SMS)
+        n_chunks = -(-MB * bs // chunk)
+        assert 1 <= plan["n_split"] <= max(1, -(-n_chunks // least))
+
+
+@pytest.mark.parametrize("B,k,d,n_split", [
+    (8, 128, 128, 1),       # nectar decode: one CTA per row, 8 warps
+    (256, 128, 128, 1),     # nectar mixed tick
+    (8, 1024, 2048, 5),     # llama3.2-1b: 16 column tiles x 5 splits
+    (3, 1001, 2048, 8),     # 7 splits of 126 slots and one of 119
+    (1, 7, 96, 1),
+])
+def test_gather_plan_splits_k_without_empty_splits(B, k, d, n_split):
+    """The kernel cuts k into n_split splits of ceil(k / n_split) slots:
+    none may be empty, and each split's h and idx fit shared memory."""
+    plan = sparse_ffn.gather_plan(B, k, d, H100_SMS)
+    assert plan["n_split"] == n_split
+    per = -(-k // plan["n_split"])
+    assert per == plan["per"] and (plan["n_split"] - 1) * per < k
+    assert plan["grid"] == (B, -(-(d // 4) // 32), n_split)
+    assert plan["smem"] <= sparse_ffn._SMEM_LIMIT
+
+
+def test_gather_plan_splits_a_huge_k_to_fit_shared_memory():
+    plan = sparse_ffn.gather_plan(64, 100_000, 128, H100_SMS)
+    assert plan["smem"] <= sparse_ffn._SMEM_LIMIT
+    assert (plan["n_split"] - 1) * plan["per"] < 100_000 \
+        <= plan["n_split"] * plan["per"]
