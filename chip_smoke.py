@@ -14,12 +14,15 @@ Phases, each reporting on lines of its own:
                past the cache, dead d_ff blocks, int16 saturation); times
                of kernel, plain version and a library yardstick, the
                kernel's and the yardstick's device time per call from
-               torch.profiler; then kernels 1 and 2 at the edges of their
-               split designs (one-block rows, rows ending on a block
+               torch.profiler; then kernels 1, 2, 3 and 5 at the edges of
+               their split designs (one-block rows, rows ending on a block
                boundary, uneven splits, IDLE and all-empty rows, block
-               sizes 8/16/32, S*G 1-128, k not a multiple of the split).
-               Kernels 1-3 are launched twice on the same inputs and must
-               give the same bits.
+               sizes 8/16/32, S*G 1-128, k not a multiple of the split;
+               kv_len 0/1/31-33/S-1/S/S+5 and contexts either side of a
+               split round, G 1/4/8, Dh 32/64/128, f32 and bf16; M 1-200,
+               d_ff tails, unaligned rows, all-dead and all-live blocks).
+               Kernels 1, 2, 3 and 5 are launched twice on the same inputs
+               and must give the same bits.
   4. ops     — the public W8A8 entry point ``ops.nmce_matmul`` on card
                tensors launches its kernel and equals its CPU result bit
                for bit.
@@ -59,12 +62,14 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 KERNEL_ATOL = 1e-4   # kernel vs plain version: the same f32 terms (bf16
 #                      K/V widened exactly) summed in another order;
-#                      errors seen are ~1e-6
+#                      errors seen are ~1e-6, and up to ~2e-5 for the
+#                      fused FFN's 3xTF32 products at d 2048
 LOGIT_ATOL = 1e-3    # card vs CPU logits of one whole forward step
 NEAR_TIE = 1e-3      # a token flip with a CPU top-2 margin at most this
 #                      is a summation-order near-tie, not a fault
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 rate outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 PROFILE_ITERS = 20
 PROFILE_TRIES = 3             # runs of a profiled window that saw no device
@@ -83,13 +88,14 @@ KERNELS = {
                               "sparse_gather_combine"),
                              "src/repro_torch/csrc/sparse_gather.cu",
                              "src/repro/kernels/sparse_ffn.py:31"),
-    "relu_ffn": (("relu_ffn_blocks", "relu_ffn_reduce"),
+    "relu_ffn": (("relu_ffn_kernel", "relu_ffn_combine"),
                  "src/repro_torch/csrc/relu_ffn.cu",
                  "src/repro/kernels/relu_ffn.py:31"),
     "nmce_matmul": (("nmce_matmul_kernel",),
                     "src/repro_torch/csrc/nmce_matmul.cu",
                     "src/repro/kernels/nmce_matvec.py:40"),
-    "decode_attention": (("decode_attention_kernel",),
+    "decode_attention": (("decode_attention_kernel",
+                          "decode_attention_combine"),
                          "src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attn.py:28"),
 }
@@ -177,10 +183,15 @@ def window_averages(fn):
 
 
 def device_ms(fn, kernel):
-    """The kernel's own device time per call: the CUDA time torch.profiler
-    attributes to its kernels over PROFILE_ITERS calls, averaged."""
-    return kernel_device(window_averages(fn), kernel)[0] \
-        / PROFILE_ITERS / 1e3
+    """The kernel's own device time per call, and the part of it its
+    combine pass takes (0 where it has none or did not split): the CUDA
+    time torch.profiler attributes to its kernels over PROFILE_ITERS
+    calls, averaged."""
+    averages = window_averages(fn)
+    combine = sum(e.device_time_total for e in averages
+                  if any(n in e.key for n in KERNELS[kernel][0][1:]))
+    return (kernel_device(averages, kernel)[0] / PROFILE_ITERS / 1e3,
+            combine / PROFILE_ITERS / 1e3)
 
 
 def library_device_ms(fn):
@@ -205,8 +216,9 @@ def measure(kernel, label, err, kernel_fn, plain_fn, library_fn, n_bytes,
     yardstick (None where there is none), the device times of kernel and
     yardstick, and the bound."""
     bound_ms, bound_by = bound(n_bytes, ops, ops_per_s)
+    dev_ms, combine_ms = device_ms(kernel_fn, kernel)
     return {"case": label, "max_abs_err": err, "ms": time_ms(kernel_fn),
-            "device_ms": device_ms(kernel_fn, kernel),
+            "device_ms": dev_ms, "combine_device_ms": combine_ms,
             "plain_ms": time_ms(plain_fn),
             "library_ms": None if library_fn is None else time_ms(library_fn),
             "library_device_ms": None if library_fn is None
@@ -335,12 +347,9 @@ def run_decode(dev, rng, label, B, S, Hq, Kv, Dh, kv_len, dtype):
     k, v = (torch.tensor(rng.standard_normal((B, S, Kv, Dh)), dtype=dtype,
                          device=dev) for _ in range(2))
     ln = torch.tensor(np.asarray(kv_len, np.int32), device=dev)
-    got = decode_attn.decode_attention(q, k, v, ln)
-    want = ref.decode_attention_plain(q, k, v, ln)
-    torch.cuda.synchronize()
-    check(torch.isfinite(got).all().item(), f"{label}: non-finite output")
-    err = (got - want).abs().max().item()
-    check(err <= KERNEL_ATOL, f"{label}: decode_attention max_abs_err {err}")
+    err = held(f"{label}: decode_attention",
+               lambda: decode_attn.decode_attention(q, k, v, ln),
+               lambda: ref.decode_attention_plain(q, k, v, ln))
     # the library yardstick: SDPA with a key mask, in the cache's dtype
     vis = torch.arange(S, device=dev)[None, :] < ln[:, None].long()
     qt = q.to(dtype)[:, :, None]
@@ -359,36 +368,39 @@ def run_decode(dev, rng, label, B, S, Hq, Kv, Dh, kv_len, dtype):
         n_bytes, 4 * Dh * Hq * int(n.sum()))
 
 
-def run_relu_ffn(dev, rng, label, M, d, f, dead_blocks):
-    """Kernel 3; the W_up columns of ``dead_blocks`` (blocks of 128) are
-    zero, so their hidden values are 0 and their down MAC is skipped."""
-    from repro_torch.kernels import ref, relu_ffn
+def ffn_case(dev, rng, M, d, f, dead_blocks):
+    """Inputs for kernel 3; the W_up columns of ``dead_blocks`` (blocks of
+    128) are zero, so their hidden values are 0 and their down MAC is
+    skipped."""
     w_up = rng.standard_normal((d, f)) * d ** -0.5
     for blk in dead_blocks:
         w_up[:, blk * 128:(blk + 1) * 128] = 0.0
-    x, wu, wd = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (
+    return (torch.tensor(a, dtype=torch.float32, device=dev) for a in (
         rng.standard_normal((M, d)), w_up,
         rng.standard_normal((f, d)) * f ** -0.5))
-    got = relu_ffn.relu_ffn(x, wu, wd)
-    want = ref.relu_ffn_plain(x, wu, wd)
-    again = relu_ffn.relu_ffn(x, wu, wd)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    check(err <= KERNEL_ATOL, f"{label}: relu_ffn max_abs_err {err}")
-    check(torch.equal(got, again), f"{label}: relu_ffn not deterministic")
+
+
+def run_relu_ffn(dev, rng, label, M, d, f, dead_blocks):
+    """Kernel 3 at one shape (see ``ffn_case``)."""
+    from repro_torch.kernels import ref, relu_ffn
+    x, wu, wd = ffn_case(dev, rng, M, d, f, dead_blocks)
+    err = held(f"{label}: relu_ffn", lambda: relu_ffn.relu_ffn(x, wu, wd),
+               lambda: ref.relu_ffn_plain(x, wu, wd))
     # what these inputs need: x, W_up and the output once, and the W_down
-    # rows of the hidden units a live block holds (a d_ff block with every
-    # hidden value <= 0 needs no down MAC)
+    # rows of the hidden units a live block holds (a d_ff block of the
+    # kernel's 64 with every hidden value <= 0 needs no down MAC)
     live = (torch.relu(x @ wu) > 0).any(dim=0).cpu().numpy()
-    n_live = sum(min(128, f - j) for j in range(0, f, 128)
-                 if live[j:j + 128].any())
+    n_live = sum(min(64, f - j) for j in range(0, f, 64)
+                 if live[j:j + 64].any())
     n_bytes = (x.numel() + wu.numel() + n_live * d + M * d) * 4
     return measure(
         "relu_ffn", label, err,
         lambda: relu_ffn.relu_ffn(x, wu, wd),
         lambda: ref.relu_ffn_plain(x, wu, wd),
         lambda: torch.matmul(torch.relu(torch.matmul(x, wu)), wd),
-        n_bytes, 2 * M * d * f + 2 * M * d * n_live)
+        n_bytes, 2 * M * d * f + 2 * M * d * n_live,
+        # 3xTF32: three tensor-core products for each f32-accurate one
+        ops_per_s=TF32_FLOPS_PER_S / 3)
 
 
 def run_nmce(dev, rng, label, M, K, N, sat):
@@ -494,13 +506,73 @@ def gather_edges(dev, rng):
     return len(cases), worst
 
 
+def decode_edges(dev, rng):
+    """Kernel 5 at the edges of its split design, for G in {1, 4, 8}, Dh
+    in {32, 64, 128}, f32 and bf16 K/V, S = 333 (no multiple of a chunk):
+    kv_len 0 (a mean over all S), 1, 31/32/33, S-1, S, S+5 (an idle slot)
+    and contexts one key either side of the last chunk of a round over the
+    splits and over the warps of ``decode_plan``. Returns the cases' count
+    and their largest error."""
+    from repro_torch.kernels import build, decode_attn, ref
+    n, worst, S, Kv = 0, 0.0, 333, 2
+    n_sm = build.sm_count(dev.index)
+    for dtype in (torch.float32, torch.bfloat16):
+        for G in (1, 4, 8):
+            for Dh in (32, 64, 128):
+                plan = decode_attn.decode_plan(12, S, Kv * G, Kv, Dh,
+                                               dtype.itemsize, n_sm)
+                kc, ns = plan["chunk"], plan["n_split"]
+                lens = [0, 1, 31, 32, 33, S - 1, S, S + 5,
+                        kc * ns - 1, kc * ns + 1, kc * ns * 4 + 1,
+                        min(S, kc * ns * 4) - 1]
+                B = len(lens)
+                q = torch.tensor(rng.standard_normal((B, Kv * G, Dh)),
+                                 dtype=torch.float32, device=dev)
+                k, v = (torch.tensor(rng.standard_normal((B, S, Kv, Dh)),
+                                     dtype=dtype, device=dev)
+                        for _ in range(2))
+                ln = torch.tensor(np.asarray(lens, np.int32), device=dev)
+                worst = max(worst, held(
+                    f"edges decode_attention {dtype} G={G} Dh={Dh} "
+                    f"n_split={ns}",
+                    lambda: decode_attn.decode_attention(q, k, v, ln),
+                    lambda: ref.decode_attention_plain(q, k, v, ln)))
+                n += 1
+    return n, worst
+
+
+def ffn_edges(dev, rng):
+    """Kernel 3 at the edges of its design: M 1/16/64/65/200 (one row tile
+    up to 64, then several), d_ff with a tail (200, 642), d = 96, rows that
+    are not 16-byte aligned (d 30, 126), every block dead, every block
+    live, llama3.2-1b widths at M 1 and 65. Returns the cases' count and
+    their largest error."""
+    from repro_torch.kernels import ref, relu_ffn
+    everything = tuple(range(64))
+    cases = ((1, 128, 640, ()), (16, 128, 200, (1,)), (64, 96, 640, (0, 3)),
+             (65, 128, 640, everything), (200, 96, 200, ()),
+             (200, 128, 640, everything), (16, 96, 640, ()),
+             (65, 96, 200, (1,)), (5, 30, 70, ()), (16, 126, 200, (0,)),
+             (8, 128, 642, ()), (1, 2048, 8192, ()),
+             (65, 2048, 8192, (5,)))
+    worst = 0.0
+    for M, d, f, dead in cases:
+        x, wu, wd = ffn_case(dev, rng, M, d, f, dead)
+        worst = max(worst, held(
+            f"edges relu_ffn M={M} d={d} f={f} dead={len(dead)}",
+            lambda: relu_ffn.relu_ffn(x, wu, wd),
+            lambda: ref.relu_ffn_plain(x, wu, wd)))
+    return len(cases), worst
+
+
 def print_rows(kernel, rows):
     for r in rows:
         lib, lib_dev = ("none" if r[key] is None else f"{r[key]:.5f}"
                         for key in ("library_ms", "library_device_ms"))
         print(f"kernel {kernel} [{r['case']}]: max_abs_err="
               f"{r['max_abs_err']:.3g} ms={r['ms']:.5f} device_ms="
-              f"{r['device_ms']:.5f} plain_ms="
+              f"{r['device_ms']:.5f} (combine {r['combine_device_ms']:.5f})"
+              f" plain_ms="
               f"{r['plain_ms']:.5f} library_ms={lib} library_device_ms="
               f"{lib_dev} bound_ms="
               f"{r['bound_ms']:.6f} ({r['bound_by']})")
@@ -753,7 +825,9 @@ def main():
     # the edges draw from a stream of their own too
     erng = np.random.default_rng(SEED + 2)
     edges = {"paged_attention": attention_edges(dev, erng),
-             "sparse_gather_matvec": gather_edges(dev, erng)}
+             "sparse_gather_matvec": gather_edges(dev, erng),
+             "decode_attention": decode_edges(dev, erng),
+             "relu_ffn": ffn_edges(dev, erng)}
     print("edges: " + "; ".join(
         f"{key} {n} cases, max_abs_err {err:.3g}, each launched twice "
         f"with the same bits" for key, (n, err) in edges.items()))

@@ -14,6 +14,7 @@ to the first kv_len[b] positions. Its plain version is
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,8 +22,11 @@ from repro_torch.kernels import build
 
 _SMEM_LIMIT = 232_448        # bytes of shared memory one block may use
 _HEAD_DIMS = (32, 64, 128)
-_CHUNK = 32                  # kChunk in decode_attention.cu
-_DECODE_WARPS = 4            # kWarps in decode_attention.cu
+# decode_attention.cu: 4 warps a CTA, each with its own two-stage ring of
+# chunks of 32 / (Dh / 32) keys; a CTA takes 1, 4, 8 or 16 query heads of
+# one KV head (more heads take more CTAs)
+_DECODE_WARPS = 4
+_DECODE_ROWS = (1, 4, 8, 16)
 # paged_attention.cu: 4 warps a CTA; S*G >= _TILE_MIN_ROWS query rows per
 # KV head take the tile kernel (tiles of 32 or 64 rows, 32-key chunks,
 # padded P rows of 40 floats); fewer take the rows kernel (each warp its
@@ -151,23 +155,41 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+@functools.cache
+def decode_plan(B: int, S: int, Hq: int, Kv: int, Dh: int,
+                dtype_bytes: int, n_sm: int) -> dict:
+    """The launch decode_attention.cu makes for these shapes: the query
+    heads per CTA it pads to (``rows``), its grid, the context split
+    ``n_split`` (from S, B*Kv and the SM count, never from kv_len) and its
+    dynamic shared memory in bytes (the layout in the .cu source: the
+    queries, then per warp a two-stage ring of K and V chunks and P). One
+    plan per shape is kept, and callers must not change it."""
+    G = Hq // Kv
+    rm = next(r for r in _DECODE_ROWS if r >= min(G, _DECODE_ROWS[-1]))
+    n_gt = -(-G // rm)
+    lpk = Dh // 32
+    kc = 32 // lpk
+    ks = Dh + (16 // dtype_bytes) * lpk
+    stage = kc * (ks + Dh) * dtype_bytes
+    smem = 4 * rm * Dh + _DECODE_WARPS * (2 * stage + 4 * rm * kc)
+    base = B * Kv * n_gt
+    n_chunks = -(-S // kc)
+    n_split = max(1, min(-(-_CTAS_PER_SM * n_sm // base),
+                         -(-n_chunks // _DECODE_WARPS)))
+    return {"rows": rm, "chunk": kc, "grid": (n_split, Kv * n_gt, B),
+            "n_split": n_split, "smem": smem}
+
+
 def _decode_fn(kv_dtype: torch.dtype):
     lib = build.load("decode_attention")
     fn = lib.decode_attention_bf16 if kv_dtype == torch.bfloat16 \
         else lib.decode_attention_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                       ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
-
-
-def _decode_smem(G: int, Dh: int) -> int:
-    """Shared-memory bytes of one block (the layout in the .cu source:
-    the queries, then per warp a padded K chunk, a V chunk and the
-    softmax state)."""
-    per_warp = _CHUNK * (Dh + 1) + _CHUNK * Dh + G * Dh + 2 * G
-    return 4 * (G * Dh + _DECODE_WARPS * per_warp)
 
 
 def _decode_check(q, k, v, kv_len):
@@ -192,16 +214,17 @@ def _decode_check(q, k, v, kv_len):
     if Dh not in _HEAD_DIMS:
         raise ValueError(f"decode_attention: needs d_head in {_HEAD_DIMS}, "
                          f"got {Dh}")
-    smem = _decode_smem(Hq // k.shape[2], Dh)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"decode_attention: {Hq // k.shape[2]} query heads "
-                         f"per KV head need {smem} bytes of shared memory "
-                         f"(> {_SMEM_LIMIT})")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention: k and v need a 16-byte aligned "
+                         "base (16-byte cp.async copies)")
+    if B > 65535:
+        raise ValueError(f"decode_attention: grid too large for B={B}")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronise).
+    """Launch the CUDA kernel (and its combine pass when the context is
+    split across CTAs) on the current stream, no synchronise.
 
     q f32[B, Hq, Dh]; k, v [B, S, Kv, Dh] in f32 or bf16; kv_len i32[B]
     (positions [0, min(kv_len, S)) are visible). Returns f32[B, Hq, Dh]."""
@@ -211,11 +234,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out.zero_()
+    plan = decode_plan(B, S, Hq, Kv, Dh, k.element_size(),
+                       build.sm_count(q.device.index))
+    if plan["smem"] > _SMEM_LIMIT or plan["grid"][1] > 65535:
+        raise ValueError(f"decode_attention: {Hq // Kv} query heads per KV "
+                         f"head need grid {plan['grid']} and {plan['smem']} "
+                         f"bytes of shared memory (limits 65535, "
+                         f"{_SMEM_LIMIT})")
+    n_split = plan["n_split"]
+    part_o = part_ml = part = None
+    if n_split > 1:
+        # the partial state of every split: acc f32[n_split, B, Hq, Dh]
+        # then (m, l) f32[n_split, B, Hq, 2], in one allocation
+        n = n_split * B * Hq
+        part = torch.empty(n * (Dh + 2), dtype=torch.float32,
+                           device=q.device)
+        part_o, part_ml = part.data_ptr(), part.data_ptr() + 4 * n * Dh
     fn = _decode_fn(k.dtype)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                 out.data_ptr(), B, S, Hq, Kv, Dh, Dh ** -0.5,
-                 torch.cuda.current_stream().cuda_stream)
+                 out.data_ptr(), part_o, part_ml, B, S, Hq, Kv, Dh, n_split,
+                 Dh ** -0.5, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {err}")

@@ -5,7 +5,8 @@ the card and without JAX, run them with
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerance atol=rtol=1e-5: kernel and plain version sum the same f32
 terms in another order (bf16 K/V too: both widen the same bf16 values
-exactly to f32; 1e-4 for the fused FFN's two chained products). The W8A8
+exactly to f32; 1e-4 for the fused FFN's two chained products, which its
+kernel runs as 3xTF32 on the tensor cores: ~2e-5 at d 2048). The W8A8
 matmul is exact: its kernel must equal its plain version bit for bit.
 """
 
@@ -164,9 +165,44 @@ def test_decode_attention_kernel_matches_plain(cuda, Hq, Kv, Dh, S, dtype):
                          device=cuda) for _ in range(2))
     ln = torch.tensor(kv_len, device=cuda)
     got = decode_attn.decode_attention(q, k, v, ln)
+    again = decode_attn.decode_attention(q, k, v, ln)
     want = ref.decode_attention_plain(q, k, v, ln)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4, 8, 20])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_decode_attention_kernel_split_edges(cuda, dtype, G, Dh):
+    """The edges of the split design (``decode_plan``): kv_len 0, 1,
+    31-33, S-1, S, S+5, and one key either side of the last chunk of a
+    round over the splits and over the warps; S = 333 is no multiple of a
+    chunk; G = 20 takes two CTAs per KV head. Launched twice: the same
+    bits."""
+    from repro_torch.kernels import build
+    rng = np.random.default_rng(G * 1000 + Dh)
+    S, Kv = 333, 2
+    plan = decode_attn.decode_plan(12, S, Kv * G, Kv, Dh, dtype.itemsize,
+                                   build.sm_count(cuda.index or 0))
+    kc, ns = plan["chunk"], plan["n_split"]
+    kv_len = np.array([0, 1, 31, 32, 33, S - 1, S, S + 5, kc * ns - 1,
+                       kc * ns + 1, kc * ns * 4 + 1,
+                       min(S, kc * ns * 4) - 1], np.int32)
+    B = len(kv_len)
+    q = torch.tensor(rng.standard_normal((B, Kv * G, Dh)),
+                     dtype=torch.float32, device=cuda)
+    k, v = (torch.tensor(rng.standard_normal((B, S, Kv, Dh)), dtype=dtype,
+                         device=cuda) for _ in range(2))
+    ln = torch.tensor(kv_len, device=cuda)
+    got = decode_attn.decode_attention(q, k, v, ln)
+    again = decode_attn.decode_attention(q, k, v, ln)
+    want = ref.decode_attention_plain(q, k, v, ln)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -187,6 +223,36 @@ def test_relu_ffn_kernel_matches_plain(cuda, M, d, f):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
     assert torch.equal(got, relu_ffn.relu_ffn(x, wu, wd))   # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16, 64, 65, 200])
+@pytest.mark.parametrize("d,f", [(128, 640), (96, 200), (30, 70),
+                                 (128, 642)])
+@pytest.mark.parametrize("live", ["none", "some", "all"])
+def test_relu_ffn_kernel_split_edges(cuda, M, d, f, live):
+    """The edges of the design (``ffn_plan``): one row tile up to M = 64,
+    several above; a d_ff tail; rows that are not 16-byte aligned (d 30,
+    f 70 and 642); every d_ff block dead (exact zeros), some, none.
+    Launched twice: the same bits."""
+    rng = np.random.default_rng(M * 7 + d + f)
+    w_up = rng.standard_normal((d, f)) * d ** -0.5
+    if live == "none":
+        w_up[:] = 0.0
+    elif live == "some":
+        w_up[:, 64:192] = 0.0
+    x, wu, wd = (torch.tensor(a, dtype=torch.float32, device=cuda) for a in (
+        rng.standard_normal((M, d)), w_up,
+        rng.standard_normal((f, d)) * f ** -0.5))
+    got = relu_ffn.relu_ffn(x, wu, wd)
+    again = relu_ffn.relu_ffn(x, wu, wd)
+    want = ref.relu_ffn_plain(x, wu, wd)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)
+    if live == "none":
+        assert not got.any()
 
 
 @pytest.mark.cuda

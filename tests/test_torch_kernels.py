@@ -366,3 +366,135 @@ def test_gather_plan_splits_a_huge_k_to_fit_shared_memory():
     assert plan["smem"] <= sparse_ffn._SMEM_LIMIT
     assert (plan["n_split"] - 1) * plan["per"] < 100_000 \
         <= plan["n_split"] * plan["per"]
+
+
+@pytest.mark.parametrize("B,S,Hq,Kv,Dh,nbytes,rows,n_split", [
+    (8, 2048, 4, 4, 32, 4, 1, 9),       # nectar slot decode, f32
+    (8, 2048, 32, 8, 64, 4, 4, 5),      # llama3.2-1b widths, f32
+    (8, 2048, 32, 8, 64, 2, 4, 5),      # the same, bf16 K/V
+    (12, 333, 16, 2, 128, 4, 8, 11),    # G = 8: 42 chunks of 8 keys
+    (1, 333, 40, 2, 128, 2, 16, 11),    # G = 20: two CTAs per KV head
+    (4, 40, 4, 4, 32, 4, 1, 1),         # 2 chunks: no split
+])
+def test_decode_plan_picks_rows_and_split(B, S, Hq, Kv, Dh, nbytes, rows,
+                                          n_split):
+    """The wrapper's launch plan for kernel 5: query heads per CTA padded
+    to 1, 4, 8 or 16; the split from S, B*Kv and the SM count, never from
+    kv_len (the host cannot read it without a device->host sync); grid
+    (n_split, Kv * ceil(G / rows), B)."""
+    plan = decode_attn.decode_plan(B, S, Hq, Kv, Dh, nbytes, H100_SMS)
+    G = Hq // Kv
+    assert (plan["rows"], plan["n_split"]) == (rows, n_split)
+    assert plan["grid"] == (n_split, Kv * -(-G // rows), B)
+    assert plan["chunk"] == 32 // (Dh // 32)
+    assert plan["smem"] <= decode_attn._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("S", [1, 7, 31, 32, 33, 333, 2048, 32768])
+@pytest.mark.parametrize("B,Kv", [(1, 1), (8, 4), (64, 8)])
+def test_decode_plan_leaves_no_split_empty(S, B, Kv):
+    """Chunk c goes to split c % n_split: on the longest context (kv_len >=
+    S) every split gets a chunk, and each split's first round gives every
+    warp but those of the last split a chunk."""
+    for Dh in (32, 64, 128):
+        for G in (1, 4, 8):
+            plan = decode_attn.decode_plan(B, S, Kv * G, Kv, Dh, 4,
+                                           H100_SMS)
+            n_chunks = -(-S // plan["chunk"])
+            assert 1 <= plan["n_split"] <= n_chunks
+            assert (plan["n_split"] - 1) * decode_attn._DECODE_WARPS \
+                < n_chunks or plan["n_split"] == 1
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("nbytes", [4, 2])
+def test_decode_plan_stays_within_shared_memory(Dh, nbytes):
+    """Any G: past 16 query heads per KV head the heads take more CTAs,
+    so shared memory stops growing."""
+    smem = [decode_attn.decode_plan(2, 4096, Kv * G, Kv, Dh, nbytes,
+                                    H100_SMS)["smem"]
+            for Kv in (1, 8) for G in (1, 2, 4, 5, 8, 9, 16, 17, 64)]
+    assert max(smem) <= decode_attn._SMEM_LIMIT
+    assert max(smem) == decode_attn.decode_plan(2, 4096, 64, 1, Dh, nbytes,
+                                                H100_SMS)["smem"]
+
+
+@pytest.mark.parametrize("M,d,f,bm,grid", [
+    (200, 128, 640, 16, (10, 13)),      # nectar slot prefill
+    (8, 128, 640, 16, (10, 1)),
+    (32, 2048, 8192, 32, (128, 1)),     # llama3.2-1b widths
+    (1, 2048, 8192, 16, (128, 1)),
+    (64, 96, 200, 64, (4, 1)),          # a tail block
+    (65, 2048, 8192, 64, (64, 2)),
+    (4096, 2048, 8192, 64, (3, 64)),    # a long prefill: the card is full
+])
+def test_ffn_plan_picks_row_tile_and_split(M, d, f, bm, grid):
+    """One row tile for M <= 64 (every weight byte read once); above, the
+    largest tile that still gives every SM a CTA; d_ff split over enough
+    CTAs to fill the card; within the shared-memory limit."""
+    from repro_torch.kernels import relu_ffn
+    plan = relu_ffn.ffn_plan(M, d, f, H100_SMS)
+    assert (plan["bm"], plan["grid"]) == (bm, grid)
+    assert plan["smem"] <= relu_ffn._SMEM_LIMIT
+    assert 1 <= plan["hb"] <= plan["bps"] and plan["hb"] * bm <= 256
+
+
+@pytest.mark.parametrize("M", [1, 8, 32, 64, 65, 200, 4096])
+@pytest.mark.parametrize("f", [1, 64, 200, 640, 642, 8192, 28672])
+def test_ffn_plan_covers_every_block_once(M, f):
+    """Split s owns d_ff blocks [s*bps, min(n_fb, (s+1)*bps)): together
+    they cover every block of 64 exactly once and none is empty."""
+    from repro_torch.kernels import relu_ffn
+    plan = relu_ffn.ffn_plan(M, 128, f, H100_SMS)
+    n_fb, bps = -(-f // 64), plan["bps"]
+    owned = [b for s in range(plan["n_split"])
+             for b in range(s * bps, min(n_fb, (s + 1) * bps))]
+    assert owned == list(range(n_fb))
+    assert all(s * bps < n_fb for s in range(plan["n_split"]))
+
+
+@pytest.mark.parametrize("M,d", [(8, 128), (32, 2048), (200, 128),
+                                 (4096, 2048)])
+def test_ffn_plan_scratch_does_not_grow_with_d_ff(M, d):
+    """The partials are [n_split, M, d] with n_split bounded by the SM
+    count over the row tiles, not [ceil(f / 128), M, d]."""
+    from repro_torch.kernels import relu_ffn
+    scratch = [relu_ffn.ffn_plan(M, d, f, H100_SMS)["scratch"]
+               for f in (640, 8192, 28672, 1 << 17)]
+    n_mt = relu_ffn.ffn_plan(M, d, 1 << 17, H100_SMS)["grid"][1]
+    assert max(scratch) <= -(-H100_SMS // n_mt) * M * d
+    assert scratch[-1] < -(-(1 << 17) // 128) * M * d
+
+
+@pytest.mark.parametrize("G,Dh,S", [(1, 32, 333), (4, 64, 96), (8, 16, 48)])
+def test_decode_attention_plain_matches_pallas_at_split_edges(G, Dh, S):
+    """The kv_len edges the card's split design is held to: 1, 31-33,
+    S-1, S (kv_len 0 and > S against the oracle above), GQA up to G = 8."""
+    Kv = 2
+    q, k, v, _ = _decode_case(G + Dh + S, 6, Kv * G, Kv, Dh, S)
+    kv_len = np.array([1, 31, 32, 33, S - 1, S], np.int32)
+    bs = 16 if S % 16 == 0 else S
+    want = np.asarray(jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv_len),
+        block_s=bs, interpret=True))
+    got = ref.decode_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(kv_len)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("M,d,f,dead", [
+    (1, 128, 640, ()), (65, 96, 200, (1,)), (16, 30, 70, ()),
+    (5, 64, 256, (0, 1)),     # every block dead: exact zeros
+])
+def test_relu_ffn_plain_matches_oracle_at_edges(M, d, f, dead):
+    """The card's edge shapes against the jnp oracle: one row, a row tile
+    past 64, d_ff tails, unaligned rows, every block dead."""
+    x, w_up, w_dn = _relu_ffn_case(M * f + d, M, d, f, dead)
+    want = np.asarray(jref.relu_ffn_ref(jnp.asarray(x), jnp.asarray(w_up),
+                                        jnp.asarray(w_dn)))
+    got = ref.relu_ffn_plain(torch.from_numpy(x), torch.from_numpy(w_up),
+                             torch.from_numpy(w_dn)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    if len(dead) * 128 >= f:
+        assert not got.any()
