@@ -10,19 +10,22 @@ Phases, each reporting on lines of its own:
   2. build   — nvcc builds all five CUDA kernels from src/repro_torch/csrc.
   3. kernels — each kernel against its plain PyTorch version on the card,
                at nectar-relu-llama-1.7m's shapes and at llama3.2-1b's
-               widths (sentinel table entries and indices, an idle slot
-               past the cache, dead d_ff blocks, int16 saturation); times
+               widths (W8A8 also at Llama-3-8B's up projection; sentinel
+               table entries and indices, an idle slot past the cache,
+               dead d_ff blocks, int16 saturation); times
                of kernel, plain version and a library yardstick, the
                kernel's and the yardstick's device time per call from
-               torch.profiler; then kernels 1, 2, 3 and 5 at the edges of
-               their split designs (one-block rows, rows ending on a block
-               boundary, uneven splits, IDLE and all-empty rows, block
-               sizes 8/16/32, S*G 1-128, k not a multiple of the split;
-               kv_len 0/1/31-33/S-1/S/S+5 and contexts either side of a
-               split round, G 1/4/8, Dh 32/64/128, f32 and bf16; M 1-200,
-               d_ff tails, unaligned rows, all-dead and all-live blocks).
-               Kernels 1, 2, 3 and 5 are launched twice on the same inputs
-               and must give the same bits.
+               torch.profiler; then every kernel at the edges of its split
+               design (one-block rows, rows ending on a block boundary,
+               uneven splits, IDLE and all-empty rows, block sizes
+               8/16/32, S*G 1-128, k not a multiple of the split; kv_len
+               0/1/31-33/S-1/S/S+5 and contexts either side of a split
+               round, G 1/4/8, Dh 32/64/128, f32 and bf16; M 1-200, d_ff
+               tails, unaligned rows, all-dead and all-live blocks; W8A8
+               M 1-65, K off the 64-wide chunk and on the split's chunk
+               boundaries, N on the TMA and the cp.async paths, both
+               modes). Every edge case is launched twice on the same
+               inputs and must give the same bits.
   4. ops     — the public W8A8 entry point ``ops.nmce_matmul`` on card
                tensors launches its kernel and equals its CPU result bit
                for bit.
@@ -91,7 +94,7 @@ KERNELS = {
     "relu_ffn": (("relu_ffn_kernel", "relu_ffn_combine"),
                  "src/repro_torch/csrc/relu_ffn.cu",
                  "src/repro/kernels/relu_ffn.py:31"),
-    "nmce_matmul": (("nmce_matmul_kernel",),
+    "nmce_matmul": (("nmce_matmul_kernel", "nmce_matmul_combine"),
                     "src/repro_torch/csrc/nmce_matmul.cu",
                     "src/repro/kernels/nmce_matvec.py:40"),
     "decode_attention": (("decode_attention_kernel",
@@ -565,6 +568,57 @@ def ffn_edges(dev, rng):
     return len(cases), worst
 
 
+def nmce_edges(dev, rng):
+    """Kernel 4 at the edges of its design, in both modes: M 1, 15, 16,
+    17, 64, 65 (one to four mma row tiles, then two row tiles), K 4, 60,
+    68, 2052 (not a multiple of the 64-wide chunk), N 4, 132 (N % 16 != 0:
+    the cp.async path) and 48, 256 (TMA, a narrow and a full column tile),
+    K at the chunk boundaries of ``nmce_plan``'s split (a split ending on
+    a partial chunk, one chunk past a split, exact splits), and bases off
+    a 16-byte boundary. Each case is launched twice and must equal its
+    plain version bit for bit. Returns the cases' count and their largest
+    error (0)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import build, nmce_matvec, ref
+    cases = [(M, 2052, 132) for M in (1, 15, 16, 17, 64, 65)]
+    cases += [(M, 2052, 256) for M in (1, 17, 65)]
+    cases += [(8, K, N) for K in (4, 60, 68, 2052) for N in (4, 48, 132)]
+    n_sm = build.sm_count(dev.index)
+    for M, N in ((8, 8192), (32, 8192), (8, 4096)):
+        for n_ch in (4, 22, 23, 64):
+            cps = nmce_matvec.nmce_plan(M, 64 * n_ch, N, n_sm)["cps"]
+            cases += [(M, K, N) for K in {64 * n_ch, 64 * n_ch - 4,
+                                          64 * cps + 4}]
+    # last: x and w_q at bases 4 bytes past a 16-byte boundary (4-byte
+    # copies of x; w_q by cp.async although N % 16 == 0)
+    cases += [(8, 2048, 256, "offset")]
+    for M, K, N, *offset in cases:
+        x = torch.tensor(rng.standard_normal((M, K)) * 4, device=dev)
+        w = torch.tensor(rng.standard_normal((K, N)) * 4, device=dev)
+        xq, wq = quant.quantize_int8(x, axis=0), quant.quantize_int8(w, axis=1)
+        xs, ws = xq.scale.reshape(-1, 1), wq.scale.reshape(1, -1)
+        xi, wi = xq.q, wq.q
+        if offset:
+            xi, wi = (torch.cat([a.new_zeros(4), a.reshape(-1)])[4:]
+                      .view(a.shape) for a in (xi, wi))
+            check(xi.data_ptr() % 16 == 4 and wi.data_ptr() % 16 == 4,
+                  "edges nmce_matmul: the offset views are not offset")
+        plan = nmce_matvec.nmce_plan(M, K, N, n_sm)
+        for sat in (False, True):
+            got, again = (nmce_matvec.nmce_matmul(xi, wi, xs, ws,
+                                                  saturate_int16=sat)
+                          for _ in range(2))
+            want = ref.nmce_matmul_plain(xi, wi, xs, ws,
+                                         saturate_int16=sat)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and torch.equal(got, again),
+                  f"edges nmce_matmul {M}x{K}x{N} sat={sat} (n_split "
+                  f"{plan['n_split']}, tma {plan['tma']}): max_abs_err "
+                  f"{(got - want).abs().max().item()}, relaunch equal "
+                  f"{torch.equal(got, again)}")
+    return 2 * len(cases), 0.0
+
+
 def print_rows(kernel, rows):
     for r in rows:
         lib, lib_dev = ("none" if r[key] is None else f"{r[key]:.5f}"
@@ -815,7 +869,10 @@ def main():
                   ("nectar down", 8, cfg.d_ff, cfg.d_model),
                   ("nectar logits", 8, cfg.d_model, cfg.vocab),
                   ("llama3.2-1b up", 8, 2048, 8192),
-                  ("llama3.2-1b up M=32", 32, 2048, 8192)]
+                  ("llama3.2-1b up M=32", 32, 2048, 8192),
+                  # Meta's Llama-3-8B: hidden 4096, intermediate 14336;
+                  # its 58.7 MB weight does not stay in the 50 MB L2
+                  ("llama3-8b up", 8, 4096, 14336)]
     rows["nmce_matmul"] = [
         run_nmce(dev, krng, f"{site} {M}x{K}x{N} sat={sat}", M, K, N, sat)
         for site, M, K, N in nmce_sites for sat in (False, True)]
@@ -827,7 +884,8 @@ def main():
     edges = {"paged_attention": attention_edges(dev, erng),
              "sparse_gather_matvec": gather_edges(dev, erng),
              "decode_attention": decode_edges(dev, erng),
-             "relu_ffn": ffn_edges(dev, erng)}
+             "relu_ffn": ffn_edges(dev, erng),
+             "nmce_matmul": nmce_edges(dev, erng)}
     print("edges: " + "; ".join(
         f"{key} {n} cases, max_abs_err {err:.3g}, each launched twice "
         f"with the same bits" for key, (n, err) in edges.items()))

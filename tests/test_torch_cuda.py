@@ -256,19 +256,33 @@ def test_relu_ffn_kernel_split_edges(cuda, M, d, f, live):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(8, 128, 640), (8, 640, 128),
-                                   (8, 2048, 8192), (3, 100, 36)])
+@pytest.mark.parametrize("M,K,N", [
+    (8, 128, 640), (8, 640, 128), (8, 2048, 8192), (3, 100, 36),
+    (32, 2048, 8192),                       # llama3.2-1b up at M = 32
+    # M across the mma row tiles and past one CTA's 64 rows; K off the
+    # 64-wide chunk; N % 16 != 0 (the cp.async path)
+    (1, 2052, 132), (15, 2052, 132), (16, 2052, 132), (17, 2052, 132),
+    (64, 2052, 132), (65, 2052, 132),
+    (8, 4, 4), (8, 60, 132), (8, 68, 4), (8, 2052, 48),
+    # K on the split's chunk boundaries (nmce_plan: two splits of 11 or
+    # 12 chunks at N 8192, four at N 4096)
+    (8, 1408, 8192), (8, 1404, 8192), (8, 1412, 8192), (8, 132, 8192),
+    (8, 14336, 4096),
+])
 @pytest.mark.parametrize("sat", [False, True])
 def test_nmce_matmul_kernel_equals_plain(cuda, M, K, N, sat):
+    """Bit for bit, and the same bits on a relaunch."""
     rng = np.random.default_rng(K + N)
     x = torch.tensor(rng.standard_normal((M, K)) * 10, device=cuda)
     w = torch.tensor(rng.standard_normal((K, N)) * 10, device=cuda)
     xq, wq = quant.quantize_int8(x, axis=0), quant.quantize_int8(w, axis=1)
     xs, ws = xq.scale.reshape(-1, 1), wq.scale.reshape(1, -1)
     got = nmce_matvec.nmce_matmul(xq.q, wq.q, xs, ws, saturate_int16=sat)
+    again = nmce_matvec.nmce_matmul(xq.q, wq.q, xs, ws, saturate_int16=sat)
     want = ref.nmce_matmul_plain(xq.q, wq.q, xs, ws, saturate_int16=sat)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

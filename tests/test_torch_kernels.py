@@ -466,6 +466,71 @@ def test_ffn_plan_scratch_does_not_grow_with_d_ff(M, d):
     assert scratch[-1] < -(-(1 << 17) // 128) * M * d
 
 
+@pytest.mark.parametrize("M", [1, 8, 17, 64, 65, 200])
+@pytest.mark.parametrize("K", [4, 60, 68, 640, 2052, 14336, 1 << 17])
+@pytest.mark.parametrize("N", [4, 132, 8192, 14336])
+def test_nmce_plan_covers_every_chunk_once(M, K, N):
+    """Split s owns K chunks [s*cps, min(n_ch, (s+1)*cps)) of 64 (the
+    NMCE's vector register, so the int16 clip stays per chunk): together
+    they cover every chunk exactly once and none is empty; the grid covers
+    every column and row."""
+    from repro_torch.kernels import nmce_matvec
+    plan = nmce_matvec.nmce_plan(M, K, N, H100_SMS)
+    n_ch, cps = -(-K // 64), plan["cps"]
+    owned = [c for s in range(plan["n_split"])
+             for c in range(s * cps, min(n_ch, (s + 1) * cps))]
+    assert owned == list(range(n_ch))
+    assert all(s * cps < n_ch for s in range(plan["n_split"]))
+    n_nt, n_split, n_mt = plan["grid"]
+    assert n_split == plan["n_split"] and n_nt * 128 >= N
+    assert n_mt * 16 * plan["mt"] >= M and 1 <= plan["mt"] <= 4
+    assert plan["scratch"] == (n_split * M * N if n_split > 1 else 0)
+
+
+@pytest.mark.parametrize("N", [4, 128, 8192, 14336, 1 << 16])
+def test_nmce_plan_stays_within_shared_memory(N):
+    """The CTA keeps its x rows over its K range in shared memory beside the
+    weight ring: the plan splits K further where a long K would not fit,
+    for any M (up to 64 rows a CTA) and K."""
+    from repro_torch.kernels import nmce_matvec
+    for M in (1, 8, 16, 17, 32, 33, 48, 64, 65, 4096):
+        for K in (4, 2048, 14336, 28672, 1 << 17):
+            plan = nmce_matvec.nmce_plan(M, K, N, H100_SMS)
+            rows = min(M, 64)
+            assert plan["smem"] == 1024 + 8 * (64 * 128 + 16) \
+                + rows * (plan["cps"] * 64 + 16)
+            assert plan["smem"] <= nmce_matvec._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("M,K,N,n_split", [
+    (8, 128, 640, 1),       # nectar up: small weights, one launch
+    (8, 640, 128, 1),       # nectar down: one CTA walks K
+    (8, 128, 2048, 1),      # nectar logits
+    (8, 2048, 8192, 2),     # llama3.2-1b up: 64 column tiles, two waves
+    (32, 2048, 8192, 2),    # of K fill the 132 SMs once
+    (8, 4096, 14336, 1),    # Llama-3-8B up: 112 column tiles, no split
+    (8, 14336, 4096, 4),    # Llama-3-8B down: 32 column tiles
+    (4096, 2048, 8192, 1),  # a long prefill: the card is full
+])
+def test_nmce_plan_splits_only_to_fill_the_card(M, K, N, n_split):
+    """No split for small weights (the combine launch costs more than one
+    CTA's walk) nor where the column and row tiles fill the card; else as
+    many splits as one wave of one CTA per SM holds."""
+    from repro_torch.kernels import nmce_matvec
+    plan = nmce_matvec.nmce_plan(M, K, N, H100_SMS)
+    assert plan["n_split"] == n_split
+    n_nt, _, n_mt = plan["grid"]
+    assert n_nt * n_mt * n_split <= max(H100_SMS, n_nt * n_mt)
+
+
+def test_nmce_plan_takes_tma_where_rows_are_16_byte_multiples():
+    from repro_torch.kernels import nmce_matvec
+    assert nmce_matvec.nmce_plan(8, 64, 8192, H100_SMS)["tma"]
+    assert nmce_matvec.nmce_plan(8, 64, 48, H100_SMS)["tma"]
+    assert not nmce_matvec.nmce_plan(8, 64, 132, H100_SMS)["tma"]
+    assert not nmce_matvec.nmce_plan(8, 64, 4, H100_SMS)["tma"]
+
+
 @pytest.mark.parametrize("G,Dh,S", [(1, 32, 333), (4, 64, 96), (8, 16, 48)])
 def test_decode_attention_plain_matches_pallas_at_split_edges(G, Dh, S):
     """The kv_len edges the card's split design is held to: 1, 31-33,
