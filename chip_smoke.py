@@ -10,7 +10,9 @@ Phases, each reporting on lines of its own:
   2. build   — nvcc builds all five CUDA kernels from src/repro_torch/csrc.
   3. kernels — each kernel against its plain PyTorch version on the card,
                at nectar-relu-llama-1.7m's shapes and at llama3.2-1b's
-               widths (W8A8 also at Llama-3-8B's up projection; sentinel
+               widths, kernels 1 and 5 also at llama3.2-1b-smoke's d_head
+               16 and kernel 1 with bf16 pools at nectar's shape
+               (W8A8 also at Llama-3-8B's up projection; sentinel
                table entries and indices, an idle slot past the cache,
                dead d_ff blocks, int16 saturation); times
                of kernel, plain version and a library yardstick, the
@@ -20,7 +22,9 @@ Phases, each reporting on lines of its own:
                uneven splits, IDLE and all-empty rows, block sizes
                8/16/32, S*G 1-128, k not a multiple of the split; kv_len
                0/1/31-33/S-1/S/S+5 and contexts either side of a split
-               round, G 1/4/8, Dh 32/64/128, f32 and bf16; M 1-200, d_ff
+               round, G 1/4/8 at Dh 32/64/128 and G 1/2/4 at Dh 16, f32
+               and bf16, for kernel 5 and for kernel 1's pools; M 1-200,
+               d_ff
                tails, unaligned rows, all-dead and all-live blocks; W8A8
                M 1-65, K off the 64-wide chunk and on the split's chunk
                boundaries, N on the TMA and the cp.async paths, both
@@ -42,9 +46,24 @@ Phases, each reporting on lines of its own:
                fused ReLU-FFN once per layer per prefill, paged attention
                never.
   8. slot-cpu — the slot engine on the CPU; the same near-tie rule.
-  9. profile — both engines serve the same prompts again under
-               torch.profiler: each kernel's device time per launch at the
-               shapes the serve gives it, the profiler's launch counts
+  9. prefix  — 16 requests sharing a 128-token system prompt (suffixes of
+               8-64 tokens) through the paged engine with the radix prefix
+               cache, then without it: identical tokens, prefix hits,
+               fewer prompt tokens through the model, and prefill rows that
+               start at the cached length (kernel 1 at S > 1 over cached
+               blocks); then the cache-on serve on the CPU, near-tie rule.
+ 10. sampled — the phase-5 prompts as seeded sampled rows (temperature
+               0.7/1.0, top_k 0/40, top_p 1.0/0.9, repetition penalty
+               1.0/1.2) on the card and on the CPU: every token agrees, or
+               the CPU's top-2 margin of the perturbed score (Gumbel noise
+               plus filtered logits) is <= NEAR_TIE.
+ 11. int8kv  — the paged engine with int8 KV pools and the naive read
+               serves the phase-5 prompts, card against CPU, near-tie rule.
+ 12. smoke   — llama3.2-1b-smoke (d_head 16, GQA 4/2) through the paged
+               and the slot engine on the card, against the CPU.
+ 13. profile — the paged, slot, prefix, sampled and int8kv serves again
+               under torch.profiler: each kernel's device time per launch
+               at the shapes the serve gives it, the profiler's launch counts
                against the counters, the serve's device time over the
                unprofiled serve's wall, and the same tokens as before.
 It exits non-zero, printing no result, when there is no CUDA device or a
@@ -52,6 +71,7 @@ check fails. Its last line is the result JSON; the line before it holds
 the per-kernel JSON. Details go to build/chip_smoke.json.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -189,8 +209,19 @@ def device_ms(fn, kernel):
     """The kernel's own device time per call, and the part of it its
     combine pass takes (0 where it has none or did not split): the CUDA
     time torch.profiler attributes to its kernels over PROFILE_ITERS
-    calls, averaged."""
-    averages = window_averages(fn)
+    calls, averaged. A window in which the profiler saw fewer than
+    PROFILE_ITERS launches of the kernel (it drops events now and then)
+    runs again, up to PROFILE_TRIES times in all, and then fails."""
+    for attempt in range(PROFILE_TRIES):
+        averages = window_averages(fn)
+        count = kernel_device(averages, kernel)[1]
+        if count == PROFILE_ITERS:
+            break
+        print(f"profiler: {kernel} window counted {count} of "
+              f"{PROFILE_ITERS} launches; running it again")
+    check(count == PROFILE_ITERS,
+          f"{kernel}: the profiler counted {count} of {PROFILE_ITERS} "
+          f"launches in {PROFILE_TRIES} windows")
     combine = sum(e.device_time_total for e in averages
                   if any(n in e.key for n in KERNELS[kernel][0][1:]))
     return (kernel_device(averages, kernel)[0] / PROFILE_ITERS / 1e3,
@@ -250,7 +281,8 @@ def held(label, kernel_fn, plain_fn, zero_rows=()):
     return err
 
 
-def attention_case(dev, rng, B, S, Hq, Kv, Dh, bs, MB, max_ctx):
+def attention_case(dev, rng, B, S, Hq, Kv, Dh, bs, MB, max_ctx,
+                   pool_dtype=torch.float32):
     """Inputs for kernel 1: every row's blocks cover its causal limit,
     the rest of the table is sentinel; the last row is IDLE (all
     sentinel)."""
@@ -264,8 +296,8 @@ def attention_case(dev, rng, B, S, Hq, Kv, Dh, bs, MB, max_ctx):
     t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
     f32 = lambda shape: torch.tensor(  # noqa: E731
         rng.standard_normal(shape), dtype=torch.float32, device=dev)
-    return (f32((B, S, Hq, Dh)), f32((n_blocks, bs, Kv, Dh)),
-            f32((n_blocks, bs, Kv, Dh)), t(tables), t(lens))
+    return (f32((B, S, Hq, Dh)), f32((n_blocks, bs, Kv, Dh)).to(pool_dtype),
+            f32((n_blocks, bs, Kv, Dh)).to(pool_dtype), t(tables), t(lens))
 
 
 def attention_work(q, k_pool, tables, lens):
@@ -284,7 +316,7 @@ def attention_work(q, k_pool, tables, lens):
             vis = sum(int(ln[b]) + j + 1 for j in range(S))
             flops += 4 * Dh * Hq * vis
     n_bytes = (2 * q.numel() + tables.numel() + lens.numel()) * 4 \
-        + len(blocks) * bs * Kv * Dh * 4 * 2
+        + len(blocks) * bs * Kv * Dh * k_pool.element_size() * 2
     return n_bytes, flops
 
 
@@ -296,14 +328,15 @@ def run_attention(dev, rng, label, **shape):
                lambda: decode_attn.paged_attention(q, kp, vp, tables, lens),
                lambda: ref.paged_attention_plain(q, kp, vp, tables, lens),
                zero_rows=(q.shape[0] - 1,))
-    # the library yardstick: SDPA over the gathered, masked sequence
+    # the library yardstick: SDPA over the gathered, masked sequence, in
+    # the pools' dtype
     kg = ref._gather_paged(kp, tables).transpose(1, 2)
     vg = ref._gather_paged(vp, tables).transpose(1, 2)
     S, Skv = q.shape[1], kg.shape[2]
     vis = (torch.arange(Skv, device=dev)[None, None, :]
            <= (lens[:, None].long()
                + torch.arange(S, device=dev)[None, :])[:, :, None])
-    qt, mask = q.transpose(1, 2), vis[:, None]
+    qt, mask = q.to(kp.dtype).transpose(1, 2), vis[:, None]
     return measure(
         "paged_attention", label, err,
         lambda: decode_attn.paged_attention(q, kp, vp, tables, lens),
@@ -440,14 +473,40 @@ def run_nmce(dev, rng, label, M, K, N, sat):
         INT8_OPS_PER_S)
 
 
+def attention_edge(dev, rng, S, G, Dh, bs, MB, lens, pool_dtype, label):
+    """One edge case of kernel 1: rows of the given contexts (the last
+    IDLE, all sentinel: exact zeros) over scattered blocks. Returns its
+    max abs error."""
+    from repro_torch.kernels import decode_attn, ref
+    Kv, B = 2, len(lens)
+    n_blocks = B * MB
+    tables = np.full((B, MB), n_blocks, np.int32)
+    free = list(rng.permutation(n_blocks))
+    for b in range(B - 1):                     # the last row is IDLE
+        m = -(-(lens[b] + S) // bs)
+        tables[b, :m] = [free.pop() for _ in range(m)]
+    q = torch.tensor(rng.standard_normal((B, S, Kv * G, Dh)),
+                     dtype=torch.float32, device=dev)
+    kp, vp = (torch.tensor(rng.standard_normal((n_blocks, bs, Kv, Dh)),
+                           dtype=pool_dtype, device=dev) for _ in range(2))
+    t = torch.tensor(tables, device=dev)
+    ln = torch.tensor(np.asarray(lens, np.int32), device=dev)
+    return held(f"edges paged_attention {label}",
+                lambda: decode_attn.paged_attention(q, kp, vp, t, ln),
+                lambda: ref.paged_attention_plain(q, kp, vp, t, ln),
+                zero_rows=(B - 1,))
+
+
 def attention_edges(dev, rng):
     """Kernel 1 at the edges of its split design. Rows: one block (where
     S <= bs), ending exactly on a block boundary, a long context that
     splits unevenly over warps and CTAs, a short one, an IDLE row (all
-    sentinel: exact zeros); block sizes 8/16/32, S*G from 1 to 128, every
-    head dim, a narrow table (MB 4: no split). Returns the cases' count
-    and their largest error."""
-    from repro_torch.kernels import decode_attn, ref
+    sentinel: exact zeros); block sizes 8/16/32, S*G from 1 to 128, head
+    dims 32/64/128, a narrow table (MB 4: no split). Then head dim 16 with
+    f32 and bf16 pools and bf16 pools at nectar's head dim 32: contexts
+    0, 1, 31-33, a full table less the row's queries and one short of it,
+    G 1/2/4, S 1/3/16. Returns the cases' count and their largest
+    error."""
     n, worst = 0, 0.0
     shapes = [(S, G, MB) for S, G in ((1, 1), (1, 4), (3, 4), (4, 4),
                                       (5, 4), (9, 4), (32, 1), (32, 4))
@@ -458,28 +517,21 @@ def attention_edges(dev, rng):
             cap = MB * bs - S
             lens = [max(0, min(cap, x)) for x in (
                 bs - S, 3 * bs - S, cap - 11, 37 * bs + 5, 0)]
-            B = len(lens)
-            n_blocks = B * MB
-            tables = np.full((B, MB), n_blocks, np.int32)
-            free = list(rng.permutation(n_blocks))
-            for b in range(B - 1):                 # the last row is IDLE
-                m = -(-(lens[b] + S) // bs)
-                tables[b, :m] = [free.pop() for _ in range(m)]
-            q = torch.tensor(rng.standard_normal((B, S, Kv * G, Dh)),
-                             dtype=torch.float32, device=dev)
-            kp, vp = (torch.tensor(rng.standard_normal((n_blocks, bs, Kv,
-                                                        Dh)),
-                                   dtype=torch.float32, device=dev)
-                      for _ in range(2))
-            t = torch.tensor(tables, device=dev)
-            ln = torch.tensor(np.asarray(lens, np.int32), device=dev)
-            worst = max(worst, held(
-                f"edges paged_attention bs={bs} S={S} G={G} Dh={Dh} "
-                f"MB={MB}",
-                lambda: decode_attn.paged_attention(q, kp, vp, t, ln),
-                lambda: ref.paged_attention_plain(q, kp, vp, t, ln),
-                zero_rows=(B - 1,)))
+            worst = max(worst, attention_edge(
+                dev, rng, S, G, Dh, bs, MB, lens, torch.float32,
+                f"bs={bs} S={S} G={G} Dh={Dh} MB={MB}"))
             n += 1
+    bs, MB = 16, 96
+    for dtype, Dh in ((torch.float32, 16), (torch.bfloat16, 16),
+                      (torch.bfloat16, 32)):
+        for S in (1, 3, 16):
+            for G in (1, 2, 4):
+                cap = MB * bs - S
+                lens = [0, 1, 31, 32, 33, cap - 1, cap, 0]
+                worst = max(worst, attention_edge(
+                    dev, rng, S, G, Dh, bs, MB, lens, dtype,
+                    f"{dtype} bs={bs} S={S} G={G} Dh={Dh} MB={MB}"))
+                n += 1
     return n, worst
 
 
@@ -510,8 +562,9 @@ def gather_edges(dev, rng):
 
 
 def decode_edges(dev, rng):
-    """Kernel 5 at the edges of its split design, for G in {1, 4, 8}, Dh
-    in {32, 64, 128}, f32 and bf16 K/V, S = 333 (no multiple of a chunk):
+    """Kernel 5 at the edges of its split design, for G in {1, 4, 8} at Dh
+    32, 64 and 128 and G in {1, 2, 4} at Dh 16, f32 and bf16 K/V, S = 333
+    (no multiple of a chunk):
     kv_len 0 (a mean over all S), 1, 31/32/33, S-1, S, S+5 (an idle slot)
     and contexts one key either side of the last chunk of a round over the
     splits and over the warps of ``decode_plan``. Returns the cases' count
@@ -519,28 +572,29 @@ def decode_edges(dev, rng):
     from repro_torch.kernels import build, decode_attn, ref
     n, worst, S, Kv = 0, 0.0, 333, 2
     n_sm = build.sm_count(dev.index)
+    shapes = [(G, Dh) for G in (1, 4, 8) for Dh in (32, 64, 128)] \
+        + [(G, 16) for G in (1, 2, 4)]
     for dtype in (torch.float32, torch.bfloat16):
-        for G in (1, 4, 8):
-            for Dh in (32, 64, 128):
-                plan = decode_attn.decode_plan(12, S, Kv * G, Kv, Dh,
-                                               dtype.itemsize, n_sm)
-                kc, ns = plan["chunk"], plan["n_split"]
-                lens = [0, 1, 31, 32, 33, S - 1, S, S + 5,
-                        kc * ns - 1, kc * ns + 1, kc * ns * 4 + 1,
-                        min(S, kc * ns * 4) - 1]
-                B = len(lens)
-                q = torch.tensor(rng.standard_normal((B, Kv * G, Dh)),
-                                 dtype=torch.float32, device=dev)
-                k, v = (torch.tensor(rng.standard_normal((B, S, Kv, Dh)),
-                                     dtype=dtype, device=dev)
-                        for _ in range(2))
-                ln = torch.tensor(np.asarray(lens, np.int32), device=dev)
-                worst = max(worst, held(
-                    f"edges decode_attention {dtype} G={G} Dh={Dh} "
-                    f"n_split={ns}",
-                    lambda: decode_attn.decode_attention(q, k, v, ln),
-                    lambda: ref.decode_attention_plain(q, k, v, ln)))
-                n += 1
+        for G, Dh in shapes:
+            plan = decode_attn.decode_plan(12, S, Kv * G, Kv, Dh,
+                                           dtype.itemsize, n_sm)
+            kc, ns = plan["chunk"], plan["n_split"]
+            lens = [0, 1, 31, 32, 33, S - 1, S, S + 5,
+                    kc * ns - 1, kc * ns + 1, kc * ns * 4 + 1,
+                    min(S, kc * ns * 4) - 1]
+            B = len(lens)
+            q = torch.tensor(rng.standard_normal((B, Kv * G, Dh)),
+                             dtype=torch.float32, device=dev)
+            k, v = (torch.tensor(rng.standard_normal((B, S, Kv, Dh)),
+                                 dtype=dtype, device=dev)
+                    for _ in range(2))
+            ln = torch.tensor(np.asarray(lens, np.int32), device=dev)
+            worst = max(worst, held(
+                f"edges decode_attention {dtype} G={G} Dh={Dh} "
+                f"n_split={ns}",
+                lambda: decode_attn.decode_attention(q, k, v, ln),
+                lambda: ref.decode_attention_plain(q, k, v, ln)))
+            n += 1
     return n, worst
 
 
@@ -636,29 +690,45 @@ def print_rows(kernel, rows):
 # phases 5-8: serving
 
 
+def perturbed_scores(logits, presence, temp, top_k, top_p, rep, keys):
+    """What each row's token is the argmax of, f32[B, V] on the host: the
+    logits on an all-greedy tick; else the penalized logits of greedy rows
+    and, for sampled rows, the Gumbel noise of their keys plus their
+    filtered logits (``sampling.filter_batch``)."""
+    from repro_torch.serve import prng, sampling
+    logits = logits.float()
+    if not np.any(temp > 0) and np.all(rep == 1.0):
+        return logits.cpu().numpy()
+    dev = logits.device
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    pen, final = sampling.filter_batch(logits, t(presence), t(temp),
+                                       t(top_k), t(top_p), t(rep))
+    noisy = prng.gumbel(t(keys.astype(np.int64)), logits.shape[-1]) + final
+    return torch.where(t(temp)[:, None] > 0, noisy, pen).cpu().numpy()
+
+
 def recording_engine(engine):
-    """Record the logits behind every committed token and the top-2 logit
-    margin there, {(rid, index): margin}. Paged mode samples every token
-    from a batched step; slot mode samples a request's first token from its
-    prefill logits and later ones from the decode step's."""
+    """Record the score vector behind every committed token (the logits,
+    or the perturbed score of a sampled row) and its top-2 margin,
+    {(rid, index): margin}. Every batched sample goes through
+    ``engine.sampler``; the slot engine samples a request's first token
+    from its prefill logits on the host."""
     ticks, prefills, margins = [], [], {}
-    sample, append = engine._sample_rows, engine._append_token
+    sampler, append = engine.sampler, engine._append_token
     paged = engine.scfg.paged
 
-    def recording_sample(last_logits):
-        ticks.append(last_logits.float().cpu().numpy())
-        return sample(last_logits)
+    def recording_sampler(*args):
+        ticks.append(perturbed_scores(*args))
+        return sampler(*args)
 
-    def recording_append(req, tok, lp):
-        if paged:
-            z = ticks[-1][engine.sched.active[req.rid].slot]
-        elif not req.tokens_out:
-            z = prefills[-1]
+    def recording_append(req, slot, tok, lp):
+        if paged or req.tokens_out:
+            z = ticks[-1][slot]
         else:
-            z = ticks[-1][engine.alloc.active[req.rid]]
+            z = prefills[-1]
         z = np.sort(z)
         margins[(req.rid, len(req.tokens_out))] = float(z[-1] - z[-2])
-        return append(req, tok, lp)
+        return append(req, slot, tok, lp)
 
     if not paged:
         prefill = engine.model.prefill
@@ -668,21 +738,24 @@ def recording_engine(engine):
             prefills.append(logits[0, 0].float().cpu().numpy())
             return logits, cache
         engine.model.prefill = recording_prefill
-    engine._sample_rows = recording_sample
+    engine.sampler = recording_sampler
     engine._append_token = recording_append
     return ticks, prefills, margins
 
 
-def serve(engine, prompts, max_new):
-    """Submit every prompt through StreamingServer and drain it, with the
-    launch counts set to 0 just before and read just after."""
+def serve(engine, prompts, max_new, sps=None):
+    """Submit every prompt (with its SamplingParams, when given) through
+    StreamingServer and drain it, with the launch counts set to 0 just
+    before and read just after."""
     from repro_torch.kernels import ops
     from repro_torch.serve import api
     server = api.StreamingServer(engine)
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
     t0 = time.perf_counter()
-    rids = [server.submit(p, max_new=max_new) for p in prompts]
+    rids = [server.submit(p, max_new=max_new,
+                          sampling=None if sps is None else sps[i])
+            for i, p in enumerate(prompts)]
     finished = server.drain()
     if engine.device.type == "cuda":
         torch.cuda.synchronize()
@@ -692,7 +765,8 @@ def serve(engine, prompts, max_new):
     return tokens, rids, wall, engine.metrics.summary(), launches
 
 
-def profile_serve(label, engine, prompts, max_new, tokens, launches, wall):
+def profile_serve(label, engine, prompts, max_new, tokens, launches, wall,
+                  sps=None):
     """Serve ``prompts`` once more, on a fresh ``engine``, under
     torch.profiler. It must give the first serve's tokens and launch
     counts, and the profiler must count the launches the counters do.
@@ -710,7 +784,7 @@ def profile_serve(label, engine, prompts, max_new, tokens, launches, wall):
             return decode_step(params, tok, cache)
         engine.model.decode_step = recording_step
     (again, _, pwall, _, plaunches), averages = profiled(
-        lambda: serve(engine, prompts, max_new))
+        lambda: serve(engine, prompts, max_new, sps))
     check(again == tokens,
           f"{label}: the profiled serve's tokens differ from the first's")
     check(plaunches == launches, f"{label}: the profiled serve launched "
@@ -859,6 +933,21 @@ def main():
         run_decode(dev, krng, f"llama3.2-1b {dt}", B=8, S=S, Hq=32, Kv=8,
                    Dh=64, kv_len=llama_len, dtype=dtype)
         for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+    # d_head 16 (llama3.2-1b-smoke: Hq 4, Kv 2, bs 16) and bf16 pools at
+    # nectar's shape, from a stream of their own
+    nrng = np.random.default_rng(SEED + 3)
+    smoke_attn = dict(B=8, Hq=4, Kv=2, Dh=16, bs=16, MB=128, max_ctx=232)
+    rows["paged_attention"] += [
+        run_attention(dev, nrng, f"llama3.2-1b-smoke Dh16 S={S}", S=S,
+                      **smoke_attn) for S in (1, 32)]
+    rows["paged_attention"] += [
+        run_attention(dev, nrng, f"nectar bf16 pools S={S}", S=S,
+                      pool_dtype=torch.bfloat16, **nectar_attn)
+        for S in (1, scfg.prefill_chunk)]
+    rows["decode_attention"] += [
+        run_decode(dev, nrng, f"llama3.2-1b-smoke Dh16 {dt}", B=8, S=S,
+                   Hq=4, Kv=2, Dh=16, kv_len=serve_len, dtype=dtype)
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))]
     rows["relu_ffn"] = [
         run_relu_ffn(dev, krng, f"nectar prefill M={M}", M=M, d=cfg.d_model,
                      f=cfg.d_ff, dead_blocks=(1, 3))
@@ -983,14 +1072,194 @@ def main():
     details["slot_cpu"] = {"first_prefill_logit_err": slot_err,
                            "flips": slot_flips}
 
-    # ---- 9) both serves again, under torch.profiler -------------------------
+    # ---- 9) shared system prompt through the prefix cache --------------------
+    prng_ = np.random.default_rng(SEED)
+    system = prng_.integers(0, cfg.vocab, 128, dtype=np.int32)
+    prefix_prompts = [
+        np.concatenate([system, prng_.integers(0, cfg.vocab, int(n),
+                                               dtype=np.int32)])
+        for n in prng_.integers(8, 65, 16)]
+    prefix_scfg = dataclasses.replace(scfg, prefix_cache=True)
+    pre = Engine(cfg, params, prefix_scfg, device=dev)
+    hit_rows = []          # first prefill rows of hits: their lens > 0
+    step = pre.runner.step
+
+    def recording_step(batch):
+        from repro_torch.serve.runner import PREFILL
+        hit_rows.extend(int(batch.row_start[e.slot])
+                        for e in pre.sched.active.values()
+                        if e.cached_len > 0 and e.pos == e.cached_len
+                        and batch.phase[e.slot] == PREFILL
+                        and batch.tokens.shape[1] > 1)
+        return step(batch)
+    pre.runner.step = recording_step
+    pre_ticks, _, _ = recording_engine(pre)
+    pre_tokens, _, pre_wall, pre_summary, pre_launches = serve(
+        pre, prefix_prompts, max_new)
+    pre_steps = pre.runner.n_steps
+    print_serve("prefix", len(prefix_prompts), pre_summary, pre_wall,
+                pre_steps, pre_launches)
+    for key in ("paged_attention", "sparse_gather_matvec"):
+        check(pre_launches[key] == cfg.n_layers * pre_steps > 0,
+              f"prefix: {key} launched {pre_launches[key]} times in "
+              f"{pre_steps} steps, expected one per layer per step")
+    check_tokens("prefix", pre_tokens, cfg, max_new, pre_ticks)
+    check(pre_summary["prefix_hits"] > 0, "prefix: no prefix hit")
+    check(len(hit_rows) == pre_summary["prefix_hits"]
+          and set(hit_rows) == {128},
+          f"prefix: the hits' first prefill rows start at {hit_rows}, "
+          f"not at their cached length of 128 tokens")
+    nopre = Engine(cfg, params, scfg, device=dev)
+    nopre_tokens, _, nopre_wall, nopre_summary, _ = serve(
+        nopre, prefix_prompts, max_new)
+    print_serve("prefix off", len(prefix_prompts), nopre_summary, nopre_wall,
+                nopre.runner.n_steps, "-")
+    check(pre_tokens == nopre_tokens,
+          "prefix: the cache-on serve's tokens differ from the cache-off "
+          "serve's")
+    # the host's spread: off and on once more, in turns (on, off, off, on)
+    pre_runs = [("on 1", pre_summary, pre_wall),
+                ("off 1", nopre_summary, nopre_wall)]
+    for label, sc in (("off 2", scfg), ("on 2", prefix_scfg)):
+        again, _, w, summ, _ = serve(Engine(cfg, params, sc, device=dev),
+                                     prefix_prompts, max_new)
+        check(again == pre_tokens,
+              f"prefix {label}: tokens differ from the first serve's")
+        print_serve(f"prefix {label}", len(prefix_prompts), summ, w, "-",
+                    "-")
+        pre_runs.append((label, summ, w))
+    check(pre.metrics.prefill_tokens < nopre.metrics.prefill_tokens,
+          f"prefix: {pre.metrics.prefill_tokens} prompt tokens through the "
+          f"model with the cache, {nopre.metrics.prefill_tokens} without")
+    pre_cpu = Engine(cfg, params, prefix_scfg, device="cpu")
+    _, _, pre_margins = recording_engine(pre_cpu)
+    pre_cpu_tokens, pre_cpu_rids, _, pre_cpu_summary, _ = serve(
+        pre_cpu, prefix_prompts, max_new)
+    check(pre_cpu_summary["prefix_hits"] == pre_summary["prefix_hits"],
+          "prefix-cpu: the CPU serve's prefix hits differ from the card's")
+    pre_flips = compare_cpu("prefix-cpu", pre_tokens, pre_cpu_tokens,
+                            pre_margins, pre_cpu_rids)
+    print(f"prefix: {pre_summary['prefix_hits']} hits of "
+          f"{pre_summary['prefix_lookups']} lookups, "
+          f"{pre_summary['prefix_cached_tokens']} cached tokens; prompt "
+          f"tokens through the model {pre.metrics.prefill_tokens} (cache "
+          f"off {nopre.metrics.prefill_tokens}); {len(hit_rows)} hits' "
+          f"first prefill rows at lens 128; tokens identical cache on and "
+          f"off; CPU: "
+          f"{len(prefix_prompts) - len(pre_flips)}/{len(prefix_prompts)} "
+          f"requests token-identical, near-tie flips: {pre_flips}")
+    details["prefix"] = dict(pre_summary, wall_s=pre_wall, steps=pre_steps,
+                             launches=pre_launches,
+                             prefill_tokens=pre.metrics.prefill_tokens,
+                             off=dict(nopre_summary, wall_s=nopre_wall,
+                                      prefill_tokens=(
+                                          nopre.metrics.prefill_tokens)),
+                             runs={label: dict(summ, wall_s=w)
+                                   for label, summ, w in pre_runs},
+                             cpu_flips=pre_flips)
+
+    # ---- 10) seeded sampled rows, card against CPU ----------------------------
+    from repro_torch.serve.sampling import SamplingParams
+    sps = [SamplingParams(temperature=(0.7, 1.0)[i % 2],
+                          top_k=(0, 40)[(i // 2) % 2],
+                          top_p=(1.0, 0.9)[(i // 4) % 2],
+                          repetition_penalty=(1.0, 1.2)[(i // 8) % 2],
+                          seed=i) for i in range(len(prompts))]
+    smp = Engine(cfg, params, scfg, device=dev)
+    smp_ticks, _, _ = recording_engine(smp)
+    smp_tokens, _, smp_wall, smp_summary, smp_launches = serve(
+        smp, prompts, max_new, sps)
+    print_serve("sampled", len(prompts), smp_summary, smp_wall,
+                smp.runner.n_steps, smp_launches)
+    check_tokens("sampled", smp_tokens, cfg, max_new, [
+        np.where(np.isneginf(z), 0.0, z) for z in smp_ticks])
+    smp_cpu = Engine(cfg, params, scfg, device="cpu")
+    _, _, smp_margins = recording_engine(smp_cpu)
+    smp_cpu_tokens, smp_cpu_rids, _, _, _ = serve(smp_cpu, prompts, max_new,
+                                                  sps)
+    smp_flips = compare_cpu("sampled-cpu", smp_tokens, smp_cpu_tokens,
+                            smp_margins, smp_cpu_rids)
+    print(f"sampled: {len(prompts) - len(smp_flips)}/{len(prompts)} "
+          f"requests token-identical card against CPU; {len(smp_flips)} "
+          f"near-tie flips (perturbed-score margin <= {NEAR_TIE}): "
+          f"{smp_flips}")
+    details["sampled"] = dict(smp_summary, wall_s=smp_wall,
+                              launches=smp_launches, flips=smp_flips)
+
+    # ---- 11) int8 KV pools (naive read), card against CPU ---------------------
+    q8_scfg = dataclasses.replace(scfg, attn_backend="naive", kv_quant=True)
+    q8 = Engine(cfg, params, q8_scfg, device=dev)
+    q8_ticks, _, _ = recording_engine(q8)
+    q8_tokens, _, q8_wall, q8_summary, q8_launches = serve(q8, prompts,
+                                                           max_new)
+    q8_steps = q8.runner.n_steps
+    print_serve("int8kv", len(prompts), q8_summary, q8_wall, q8_steps,
+                q8_launches)
+    check(q8.runner.cache["units"]["b0"]["k"].dtype == torch.int8,
+          "int8kv: the pools are not int8")
+    check(q8_launches["paged_attention"] == 0
+          and q8_launches["sparse_gather_matvec"]
+          == cfg.n_layers * q8_steps > 0,
+          f"int8kv: launches {q8_launches} in {q8_steps} steps")
+    check_tokens("int8kv", q8_tokens, cfg, max_new, q8_ticks)
+    q8_cpu = Engine(cfg, params, q8_scfg, device="cpu")
+    _, _, q8_margins = recording_engine(q8_cpu)
+    q8_cpu_tokens, q8_cpu_rids, _, _, _ = serve(q8_cpu, prompts, max_new)
+    q8_flips = compare_cpu("int8kv-cpu", q8_tokens, q8_cpu_tokens,
+                           q8_margins, q8_cpu_rids)
+    print(f"int8kv: {len(prompts) - len(q8_flips)}/{len(prompts)} requests "
+          f"token-identical card against CPU; near-tie flips: {q8_flips}")
+    details["int8kv"] = dict(q8_summary, wall_s=q8_wall, steps=q8_steps,
+                             launches=q8_launches, flips=q8_flips)
+
+    # ---- 12) llama3.2-1b-smoke (d_head 16) through both engines ---------------
+    scfg_smoke = get_config("llama3.2-1b-smoke")
+    sgen = torch.Generator(device=dev).manual_seed(SEED)
+    sparams = Model(scfg_smoke).init(sgen, device=dev)
+    srng = np.random.default_rng(SEED + 4)
+    sprompts = [srng.integers(0, scfg_smoke.vocab, int(n), dtype=np.int32)
+                for n in srng.integers(8, 65, 8)]
+    details["smoke"] = {}
+    for label, sc in (("paged", scfg), ("slot", slot_scfg)):
+        eng = Engine(scfg_smoke, sparams, sc, device=dev)
+        sm_ticks, sm_prefills, _ = recording_engine(eng)
+        sm_tokens, _, sm_wall, sm_summary, sm_launches = serve(
+            eng, sprompts, 16)
+        steps = eng.runner.n_steps if sc.paged else eng.metrics.decode_steps
+        key = "paged_attention" if sc.paged else "decode_attention"
+        check(sm_launches[key] == scfg_smoke.n_layers * steps > 0,
+              f"smoke {label}: {key} launched {sm_launches[key]} times in "
+              f"{steps} steps")
+        check_tokens(f"smoke {label}", sm_tokens, scfg_smoke, 16,
+                     sm_ticks + sm_prefills)
+        cpu = Engine(scfg_smoke, sparams, sc, device="cpu")
+        _, _, sm_margins = recording_engine(cpu)
+        sm_cpu_tokens, sm_cpu_rids, _, _, _ = serve(cpu, sprompts, 16)
+        sm_flips = compare_cpu(f"smoke {label}-cpu", sm_tokens,
+                               sm_cpu_tokens, sm_margins, sm_cpu_rids)
+        print_serve(f"smoke {label}", len(sprompts), sm_summary, sm_wall,
+                    steps, sm_launches)
+        print(f"smoke {label}: {len(sprompts) - len(sm_flips)}/"
+              f"{len(sprompts)} requests token-identical card against "
+              f"CPU; near-tie flips: {sm_flips}")
+        details["smoke"][label] = dict(sm_summary, wall_s=sm_wall,
+                                       launches=sm_launches, flips=sm_flips)
+
+    # ---- 13) the serves again, under torch.profiler ---------------------------
     profiles = {}
-    for label, sc, toks, lnch, w in (
-            ("paged", scfg, gpu_tokens, launches, wall),
-            ("slot", slot_scfg, slot_tokens, slot_launches, slot_wall)):
+    for label, sc, pr_prompts, pr_sps, toks, lnch, w in (
+            ("paged", scfg, prompts, None, gpu_tokens, launches, wall),
+            ("slot", slot_scfg, prompts, None, slot_tokens, slot_launches,
+             slot_wall),
+            ("prefix", prefix_scfg, prefix_prompts, None, pre_tokens,
+             pre_launches, pre_wall),
+            ("sampled", scfg, prompts, sps, smp_tokens, smp_launches,
+             smp_wall),
+            ("int8kv", q8_scfg, prompts, None, q8_tokens, q8_launches,
+             q8_wall)):
         pr = profile_serve(f"profile {label}", Engine(cfg, params, sc,
                                                       device=dev),
-                           prompts, max_new, toks, lnch, w)
+                           pr_prompts, max_new, toks, lnch, w, pr_sps)
         profiles[label] = pr
         per = ", ".join(f"{k} {v:.5f}"
                         for k, v in pr["kernel_device_ms"].items())
@@ -1008,12 +1277,16 @@ def main():
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
-    # each kernel's main-path launches (nmce_matmul: the ops phase), and
-    # its row at the shape the main path gives it
+    # each kernel's launches on the paths that run it (paged attention:
+    # the paged and prefix serves; the gather: those and the slot serve;
+    # nmce_matmul: the ops phase), and its row at the shape the main path
+    # gives it
     path_launches = {
-        "paged_attention": launches["paged_attention"],
+        "paged_attention": launches["paged_attention"]
+        + pre_launches["paged_attention"],
         "sparse_gather_matvec": launches["sparse_gather_matvec"]
-        + slot_launches["sparse_gather_matvec"],
+        + slot_launches["sparse_gather_matvec"]
+        + pre_launches["sparse_gather_matvec"],
         "decode_attention": slot_launches["decode_attention"],
         "relu_ffn": slot_launches["relu_ffn"],
         "nmce_matmul": ops_launches["nmce_matmul"]}

@@ -89,6 +89,11 @@ class ModelConfig:
                 f"{self.name}: n_layers {self.n_layers} % unit {len(unit)}")
         return self.n_layers // len(unit)
 
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer block kind, resolved from the pattern/family."""
+        pat = self.pattern_unit()
+        return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+
 
 @dataclasses.dataclass(frozen=True)
 class SpecConfig:

@@ -4,12 +4,13 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import nectar_relu_llama_1p7m
+from repro_torch.configs import (granite_34b, llama3_2_1b,
+                                 nectar_relu_llama_1p7m)
 from repro_torch.configs.base import ModelConfig
 
 REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in (nectar_relu_llama_1p7m.CONFIG,
-                        nectar_relu_llama_1p7m.SMOKE)}
+    c.name: c for m in (nectar_relu_llama_1p7m, llama3_2_1b, granite_34b)
+    for c in (m.CONFIG, m.SMOKE)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -15,9 +15,9 @@
 //
 // What the design does about it:
 //  * The visible positions [0, n) of a row, n = min(kv_len, S), are cut
-//    into chunks of KC keys (32 at Dh 32, 16 at Dh 64, 8 at Dh 128). The
-//    chunks of one (row b, KV head) are dealt out round-robin over
-//    n_split CTAs (chunk c goes to CTA c % n_split) and, inside a CTA,
+//    into chunks of KC keys (32 at Dh 16 and 32, 16 at Dh 64, 8 at Dh
+//    128). The chunks of one (row b, KV head) are dealt out round-robin
+//    over n_split CTAs (chunk c goes to CTA c % n_split) and, inside a CTA,
 //    over its 4 warps, so a short context and a long one both spread over
 //    every split. The host picks n_split from S, B*Kv and the SM count
 //    (`decode_attn.decode_plan`), never from kv_len, so no device->host
@@ -30,11 +30,13 @@
 //    bf16 rows are copied as they are (8 values per copy) and widened to
 //    f32 when read from shared memory.
 //  * All G query heads of a KV head (up to 16 per CTA; more take more
-//    CTAs) are scored in one pass over a chunk: Dh/32 lanes share a key,
-//    every lane scores its key against all the CTA's heads from shared
-//    queries, and the heads' max/sum reductions interleave. In P·V each
-//    lane owns 4 output dims of one key group for every head: no shuffle
-//    per FMA.
+//    CTAs) are scored in one pass over a chunk: max(1, Dh/32) lanes share
+//    a key (at Dh 16 a lane holds its key's whole row), every lane scores
+//    its key against all the CTA's heads from shared queries, and the
+//    heads' max/sum reductions interleave. In P·V each lane owns 4 output
+//    dims of one key group for every head: no shuffle per FMA.
+//  * Head dims 16, 32, 64 and 128 (every d_head a config of the repo
+//    uses); the host entry refuses any other.
 //  * kv_len <= 0 masks every position, which in the reference turns every
 //    score into the same -1e30 and the softmax into a mean over all S
 //    positions; the kernel reproduces that by scoring all S keys as 0.
@@ -118,7 +120,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // Geometry of one warp's ring, for head dim DH and cache type T.
 template <int DH, typename T>
 struct Geo {
-  static constexpr int LPK = DH / 32;            // lanes sharing one key
+  static constexpr int LPK = DH >= 32 ? DH / 32 : 1;  // lanes per key
   static constexpr int KC = 32 / LPK;            // keys per chunk
   static constexpr int VE = 16 / (int)sizeof(T); // values per 16-byte copy
   static constexpr int KS = DH + VE * LPK;       // padded K row (values)
@@ -165,6 +167,9 @@ decode_attention_kernel(const float* __restrict__ q,
   float* q_s = reinterpret_cast<float*>(smem);   // [RM][DH]
   char* wbase = smem + 4 * RM * DH + warp * warp_bytes<DH, RM, T>();
   float* p_s = reinterpret_cast<float*>(wbase + 2 * G_::STAGE);  // [RM][KC]
+  // after the loop the warp's ring holds its acc [RM][DH], m and l
+  static_assert(warp_bytes<DH, RM, T>() >= 4 * ((size_t)RM * DH + 2 * RM),
+                "a warp's ring must hold its final state");
 
   const int L = kv_len[b];
   const bool uniform = L <= 0;          // every position masked: a mean
@@ -424,6 +429,8 @@ int dispatch(const Args& a, int Dh, void* stream) {
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
+    case 16:
+      return (int)launch<16, T>(a, st);
     case 32:
       return (int)launch<32, T>(a, st);
     case 64:
@@ -438,10 +445,11 @@ int dispatch(const Args& a, int Dh, void* stream) {
 }  // namespace
 
 // q f32[B,Hq,Dh]; k, v [B,S,Kv,Dh] in f32 (_f32) or bf16 (_bf16), 16-byte
-// aligned; kv_len i32[B]; out f32[B,Hq,Dh]; with n_split > 1 the scratch
-// part_o f32[n_split,B,Hq,Dh] and part_ml f32[n_split,B,Hq,2] (unused, and
-// may be null, when n_split == 1). All contiguous, on the current device.
-// Launches the main kernel and, when n_split > 1, the combine pass.
+// aligned, Dh 16, 32, 64 or 128; kv_len i32[B]; out f32[B,Hq,Dh]; with
+// n_split > 1 the scratch part_o f32[n_split,B,Hq,Dh] and part_ml
+// f32[n_split,B,Hq,2] (unused, and may be null, when n_split == 1). All
+// contiguous, on the current device. Launches the main kernel and, when
+// n_split > 1, the combine pass.
 // Returns the cudaError_t of the launches (0 = success).
 extern "C" int decode_attention_f32(const float* q, const float* k,
                                     const float* v, const int* kv_len,

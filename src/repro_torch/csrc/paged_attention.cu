@@ -28,27 +28,36 @@
 //    16-byte cp.async: the next chunk loads while the current one is
 //    scored. Positions past the rows' causal limit, past MB, or in a
 //    sentinel table entry are zero-filled by the copy (src-size 0) and
-//    never dereferenced; they are masked out of the softmax.
+//    never dereferenced; they are masked out of the softmax. f32 pools
+//    copy 4 values and bf16 pools 8 values a copy; bf16 is widened to f32
+//    when read from shared memory (exactly), so both types share the f32
+//    arithmetic below.
 //  * Rows kernel (S*G < 16): 4 warps per CTA, each with its own ring and
 //    its own f32 online softmax for all S*G rows, merged in fixed warp
-//    order at the end. In the score every lane works: Dh/32 lanes share a
-//    key (a 32-key chunk at Dh 32, 16 at Dh 64, 8 at Dh 128), so a block
-//    of 16 tokens no longer masks half the warp. In P·V each lane owns 4
-//    output dims of one key group; no shuffle per FMA.
+//    order at the end. In the score every lane works: max(1, Dh/32) lanes
+//    share a key (a 32-key chunk at Dh 16 and 32, 16 at Dh 64, 8 at Dh
+//    128; at Dh 16 a lane holds its key's whole row of 16 values), so a
+//    block of 16 tokens no longer masks half the warp. In P·V each lane
+//    owns 4 output dims of one key group (8 groups of 4 keys at Dh 16);
+//    no shuffle per FMA.
 //  * Tile kernel (S*G >= 16): a CTA takes a tile of 32 or 64 query rows
 //    of one KV head (the tiles split across CTAs, so no shared-memory cap
 //    on S*G), 128 threads as 16 row groups x 8 key groups. Each thread
 //    computes a (rows/16) x 4 micro-tile of scores from float4 shared
 //    loads (queries staged once, K rows padded for conflict-free reads),
 //    the softmax reduces over the 8 lanes of a row group by shuffles, and
-//    P·V uses the same tiling: each thread owns (rows/16) x (Dh/8) outputs.
-//    The query tile stays in shared memory, not registers: (rows/16) rows
-//    of Dh floats per thread would not fit the register file at Dh 128.
-//  * f32 throughout, no tensor cores (TF32 would not hold 1e-4), no float
-//    atomics: the same inputs give the same bits every run. The last
-//    divide is by max(l, 1e-30), so an IDLE row (all-sentinel table)
-//    gives exact zeros.
+//    P·V uses the same tiling: each thread owns (rows/16) x (Dh/8)
+//    outputs (float4s 32 floats apart, or at Dh 16 one float2). The query
+//    tile stays in shared memory, not registers: (rows/16) rows of Dh
+//    floats per thread would not fit the register file at Dh 128.
+//  * Head dims 16, 32, 64 and 128 (every d_head a config of the repo
+//    uses); the host entry refuses any other.
+//  * f32 arithmetic throughout, no tensor cores (TF32 would not hold
+//    1e-4), no float atomics: the same inputs give the same bits every
+//    run. The last divide is by max(l, 1e-30), so an IDLE row
+//    (all-sentinel table) gives exact zeros.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -92,9 +101,26 @@ __device__ __forceinline__ void scale4(float c, float4& a) {
   a.w *= c;
 }
 
+// Four (two) consecutive pool values from shared memory, widened to f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 // 16-byte async copy global -> shared; when !valid nothing is read and the
 // 16 bytes are zero-filled (src-size 0).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = valid ? 16 : 0;
@@ -115,15 +141,17 @@ __device__ __forceinline__ void cp_async_wait() {
 // Where each chunk's keys come from. tbl_s holds the row's first n_ent
 // table entries; position p is valid iff its entry is one of them and not
 // a sentinel.
+template <typename T>
 struct Ctx {
-  const float* k_pool;
-  const float* v_pool;
+  const T* k_pool;
+  const T* v_pool;
   const int* tbl_s;
   int n_ent, n_blocks, bs, Kv, kvh;
 };
 
-template <int DH>
-__device__ __forceinline__ bool key_src(const Ctx& c, int p, size_t* off) {
+template <int DH, typename T>
+__device__ __forceinline__ bool key_src(const Ctx<T>& c, int p,
+                                        size_t* off) {
   const int e = p / c.bs;
   if (e >= c.n_ent) return false;
   const int blk = c.tbl_s[e];
@@ -132,19 +160,20 @@ __device__ __forceinline__ bool key_src(const Ctx& c, int p, size_t* off) {
   return true;
 }
 
-// Stage chunk `chunk` (KC keys) into k_st [KC][KS] and v_st [KC][DH],
-// copies spread over `nthr` threads of index `t0`.
-template <int DH, int KC, int KS>
-__device__ __forceinline__ void stage_chunk(const Ctx& c, int chunk,
-                                            float* k_st, float* v_st,
-                                            int t0, int nthr) {
-  constexpr int NG = DH / 4;
-  for (int i = t0; i < KC * NG; i += nthr) {
-    const int t = i / NG, g = i % NG;
+// Stage chunk `chunk` (KC keys) into k_st [KC][KS] and v_st [KC][DH]
+// (values of T), 16-byte copies spread over `nthr` threads of index `t0`.
+template <int DH, int KC, int KS, typename T>
+__device__ __forceinline__ void stage_chunk(const Ctx<T>& c, int chunk,
+                                            T* k_st, T* v_st, int t0,
+                                            int nthr) {
+  constexpr int VE = 16 / (int)sizeof(T);       // values per copy
+  constexpr int CPR = DH / VE;                  // copies per row
+  for (int i = t0; i < KC * CPR; i += nthr) {
+    const int t = i / CPR, g = i % CPR;
     size_t off = 0;
     const bool ok = key_src<DH>(c, chunk * KC + t, &off);
-    cp_async16(k_st + t * KS + 4 * g, c.k_pool + off + 4 * g, ok);
-    cp_async16(v_st + t * DH + 4 * g, c.v_pool + off + 4 * g, ok);
+    cp_async16(k_st + t * KS + VE * g, c.k_pool + off + VE * g, ok);
+    cp_async16(v_st + t * DH + VE * g, c.v_pool + off + VE * g, ok);
   }
 }
 
@@ -154,35 +183,45 @@ __device__ __forceinline__ void load_table(int* tbl_s, const int* tables,
     tbl_s[e] = tables[(size_t)b * MB + e];
 }
 
-// Geometry of the rows kernel's per-warp ring (see the header).
-template <int DH>
+// Geometry of the rows kernel's per-warp ring (see the header), for head
+// dim DH and pool type T.
+template <int DH, typename T>
 struct RowsGeo {
-  static constexpr int LPK = DH / 32;           // lanes sharing one key
-  static constexpr int KC = 32 / LPK;           // keys per chunk
-  static constexpr int KS = DH + 4 * LPK;       // padded K row (floats)
-  static constexpr int NG = DH / 4;             // float4 groups of a row
-  static constexpr int KQ = 32 / NG;            // key groups in P·V
-  static constexpr int KPG = KC / KQ;           // keys per key group
-  static constexpr int STAGE = KC * KS + KC * DH;
+  static constexpr int LPK = DH >= 32 ? DH / 32 : 1;  // lanes sharing a key
+  static constexpr int KC = 32 / LPK;                 // keys per chunk
+  static constexpr int VE = 16 / (int)sizeof(T);      // values per copy
+  static constexpr int KS = DH + VE * LPK;            // padded K row
+  static constexpr int NG = DH / 4;                   // 4-value groups
+  static constexpr int KQ = 32 / NG;                  // key groups in P·V
+  static constexpr int KPG = KC / KQ;                 // keys per key group
+  static constexpr int CPR = DH / VE;                 // copies per row
+  static constexpr int STAGE = KC * (KS + DH) * (int)sizeof(T);   // bytes
 };
 
 __host__ __device__ constexpr int table_floats(int MB) {
   return (MB + 3) / 4 * 4;
 }
 
-template <int DH, int RM>
-__host__ __device__ constexpr size_t rows_smem_floats(int MB) {
-  using G = RowsGeo<DH>;
-  return (size_t)table_floats(MB) + (size_t)RM * DH +
-         (size_t)kWarps * (2 * G::STAGE + RM * G::KC);
+// Per warp: the two-stage ring, then P [RM][KC] f32.
+template <int DH, int RM, typename T>
+__host__ __device__ constexpr size_t rows_warp_bytes() {
+  using G = RowsGeo<DH, T>;
+  return 2 * (size_t)G::STAGE + 4 * (size_t)RM * G::KC;
+}
+
+// The table, the queries [RM][DH] f32, then kWarps warps' rings.
+template <int DH, int RM, typename T>
+__host__ __device__ constexpr size_t rows_smem_bytes(int MB) {
+  return 4 * (size_t)table_floats(MB) + 4 * (size_t)RM * DH +
+         kWarps * rows_warp_bytes<DH, RM, T>();
 }
 
 // Rows kernel: grid (n_split, Kv, B); S*G = R <= RM rows per KV head.
-template <int DH, int RM>
+template <int DH, int RM, typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel_rows(const float* __restrict__ q,
-                            const float* __restrict__ k_pool,
-                            const float* __restrict__ v_pool,
+                            const T* __restrict__ k_pool,
+                            const T* __restrict__ v_pool,
                             const int* __restrict__ tables,
                             const int* __restrict__ lens,
                             float* __restrict__ out,
@@ -190,20 +229,24 @@ paged_attention_kernel_rows(const float* __restrict__ q,
                             float* __restrict__ part_ml, int B, int S, int Hq,
                             int Kv, int n_blocks, int bs, int MB, int n_split,
                             float scale) {
-  using Geo = RowsGeo<DH>;
+  using Geo = RowsGeo<DH, T>;
   constexpr int LPK = Geo::LPK, KC = Geo::KC, KS = Geo::KS, NG = Geo::NG;
-  constexpr int KPG = Geo::KPG;
+  constexpr int KPG = Geo::KPG, VE = Geo::VE, CPR = Geo::CPR;
+  constexpr size_t WBYTES = rows_warp_bytes<DH, RM, T>();
+  // after the loop the warp's ring holds its acc [RM][DH], m and l
+  static_assert(WBYTES >= 4 * ((size_t)RM * DH + 2 * RM),
+                "a warp's ring must hold its final state");
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Kv;
   const int R = S * G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  char* smem = reinterpret_cast<char*>(smem4);
   int* tbl_s = reinterpret_cast<int*>(smem);
-  float* q_s = smem + table_floats(MB);                 // [RM][DH]
-  float* w_s = q_s + RM * DH + warp * (2 * Geo::STAGE + RM * KC);
-  float* p_s = w_s + 2 * Geo::STAGE;                    // [RM][KC]
+  float* q_s = reinterpret_cast<float*>(smem) + table_floats(MB);  // [RM][DH]
+  char* wbase = reinterpret_cast<char*>(q_s + RM * DH) + warp * WBYTES;
+  float* p_s = reinterpret_cast<float*>(wbase + 2 * Geo::STAGE);  // [RM][KC]
 
   const int L = lens[b];
   const int last = L + S - 1;                  // last visible position
@@ -220,7 +263,7 @@ paged_attention_kernel_rows(const float* __restrict__ q,
   }
   __syncthreads();
 
-  const Ctx ctx{k_pool, v_pool, tbl_s, n_ent, n_blocks, bs, Kv, kvh};
+  const Ctx<T> ctx{k_pool, v_pool, tbl_s, n_ent, n_blocks, bs, Kv, kvh};
   // this warp's chunks: c = split + n_split * (warp + kWarps * i)
   const int c0 = split + n_split * warp;
   const int cstep = n_split * kWarps;
@@ -234,19 +277,20 @@ paged_attention_kernel_rows(const float* __restrict__ q,
     acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const int kt = lane / LPK, kh = lane % LPK;   // score: key, Dh part
-  const int dg = lane % NG, kq = lane / NG;     // P·V: float4 group, keys
+  const int dg = lane % NG, kq = lane / NG;     // P·V: 4-value group, keys
 
   for (int s = 0; s < 2; ++s) {                 // prologue: two chunks
     const int c = c0 + s * cstep;
-    if (c < n_chunks)
-      stage_chunk<DH, KC, KS>(ctx, c, w_s + s * Geo::STAGE,
-                              w_s + s * Geo::STAGE + KC * KS, lane, 32);
+    if (c < n_chunks) {
+      T* k_st = reinterpret_cast<T*>(wbase + s * Geo::STAGE);
+      stage_chunk<DH, KC, KS>(ctx, c, k_st, k_st + KC * KS, lane, 32);
+    }
     cp_async_commit();
   }
   int it = 0;
   for (int c = c0; c < n_chunks; c += cstep, ++it) {
-    float* k_st = w_s + (it & 1) * Geo::STAGE;
-    float* v_st = k_st + KC * KS;
+    T* k_st = reinterpret_cast<T*>(wbase + (it & 1) * Geo::STAGE);
+    T* v_st = k_st + KC * KS;
     cp_async_wait<1>();
     __syncwarp();
 
@@ -256,15 +300,19 @@ paged_attention_kernel_rows(const float* __restrict__ q,
     float sc[RM];
 #pragma unroll
     for (int r = 0; r < RM; ++r) sc[r] = 0.f;
-    const float* kr = k_st + kt * KS + 4 * kh;
+    const T* kr = k_st + kt * KS;
 #pragma unroll
-    for (int i = 0; i < NG / LPK; ++i) {
-      const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * LPK * i);
+    for (int i = 0; i < CPR / LPK; ++i) {
+      const int e = VE * (kh + LPK * i);        // first value of the copy
 #pragma unroll
-      for (int r = 0; r < RM; ++r)
-        sc[r] = dot4(*reinterpret_cast<const float4*>(
-                         q_s + r * DH + 4 * (kh + LPK * i)),
-                     kv, sc[r]);
+      for (int h = 0; h < VE / 4; ++h) {
+        const float4 kv = load4(kr + e + 4 * h);
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+          sc[r] = dot4(*reinterpret_cast<const float4*>(
+                           q_s + r * DH + e + 4 * h),
+                       kv, sc[r]);
+      }
     }
     float corr[RM];
 #pragma unroll
@@ -291,8 +339,7 @@ paged_attention_kernel_rows(const float* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < KPG; ++u) {
       const int t = kq * KPG + u;
-      const float4 v = *reinterpret_cast<const float4*>(v_st + t * DH +
-                                                        4 * dg);
+      const float4 v = load4(v_st + t * DH + 4 * dg);
 #pragma unroll
       for (int r = 0; r < RM; ++r) fma4(p_s[r * KC + t], v, acc[r]);
     }
@@ -318,7 +365,7 @@ paged_attention_kernel_rows(const float* __restrict__ q,
   }
   __syncwarp();
   // the warp's ring now holds its state: acc [RM][DH], m [RM], l [RM]
-  float* wa = w_s;
+  float* wa = reinterpret_cast<float*>(wbase);
   float* wm = wa + RM * DH;
   float* wl = wm + RM;
 #pragma unroll
@@ -333,7 +380,7 @@ paged_attention_kernel_rows(const float* __restrict__ q,
 
   // merge the warps in warp order
   const float* w0 = q_s + RM * DH;
-  constexpr int WSTRIDE = 2 * Geo::STAGE + RM * KC;
+  constexpr size_t WSTRIDE = WBYTES / 4;
   const int rows = B * S * Hq;
   for (int i = tid; i < R * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
@@ -364,28 +411,54 @@ paged_attention_kernel_rows(const float* __restrict__ q,
   }
 }
 
-template <int DH, int RPT>
+template <int DH, int RPT, typename T>
 struct TileGeo {
   static constexpr int RT = 16 * RPT;           // query rows per tile
   static constexpr int KC = kTileChunk;
-  static constexpr int KS = DH + 4;             // padded K / Q row
-  static constexpr int STAGE = KC * KS + KC * DH;
+  static constexpr int VE = 16 / (int)sizeof(T);
+  static constexpr int KS = DH + VE;            // padded K row (values)
+  static constexpr int QS = DH + 4;             // padded Q row (floats)
+  static constexpr int STAGE = KC * (KS + DH) * (int)sizeof(T);   // bytes
+  // P·V: float4 outputs of a row per thread (DH >= 32), one float2 at 16
+  static constexpr int NC = DH >= 32 ? DH / 32 : 1;
 };
 
-template <int DH, int RPT>
-__host__ __device__ constexpr size_t tile_smem_floats(int MB) {
-  using G = TileGeo<DH, RPT>;
-  return (size_t)table_floats(MB) + (size_t)G::RT * G::KS + 2 * G::STAGE +
-         (size_t)G::RT * kTilePS;
+// The table, the query tile [RT][QS] f32, the ring, P [RT][kTilePS] f32.
+template <int DH, int RPT, typename T>
+__host__ __device__ constexpr size_t tile_smem_bytes(int MB) {
+  using G = TileGeo<DH, RPT, T>;
+  return 4 * (size_t)table_floats(MB) + 4 * (size_t)G::RT * G::QS +
+         2 * (size_t)G::STAGE + 4 * (size_t)G::RT * kTilePS;
+}
+
+// P·V operand c2 of thread tk in a V row: 4 values at 4*tk + 32*c2, or
+// at Dh 16 two values at 2*tk (the upper two lanes of the float4 zero).
+template <int DH, typename T>
+__device__ __forceinline__ float4 v_part(const T* row, int tk, int c2) {
+  if constexpr (DH >= 32) {
+    return load4(row + 4 * tk + 32 * c2);
+  } else {
+    const float2 h = load2(row + 2 * tk);
+    return make_float4(h.x, h.y, 0.f, 0.f);
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void store_part(float* row, int tk, int c2,
+                                           float4 a) {
+  if constexpr (DH >= 32)
+    *reinterpret_cast<float4*>(row + 4 * tk + 32 * c2) = a;
+  else
+    *reinterpret_cast<float2*>(row + 2 * tk) = make_float2(a.x, a.y);
 }
 
 // Tile kernel: grid (n_split, Kv * n_rt, B); a tile of RT = 16*RPT query
 // rows of one KV head.
-template <int DH, int RPT>
+template <int DH, int RPT, typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel_tile(const float* __restrict__ q,
-                            const float* __restrict__ k_pool,
-                            const float* __restrict__ v_pool,
+                            const T* __restrict__ k_pool,
+                            const T* __restrict__ v_pool,
                             const int* __restrict__ tables,
                             const int* __restrict__ lens,
                             float* __restrict__ out,
@@ -393,9 +466,9 @@ paged_attention_kernel_tile(const float* __restrict__ q,
                             float* __restrict__ part_ml, int B, int S, int Hq,
                             int Kv, int n_blocks, int bs, int MB, int n_split,
                             float scale) {
-  using Geo = TileGeo<DH, RPT>;
-  constexpr int RT = Geo::RT, KC = Geo::KC, KS = Geo::KS, NG = DH / 4;
-  constexpr int NC = DH / 32;                   // float4 outputs per row
+  using Geo = TileGeo<DH, RPT, T>;
+  constexpr int RT = Geo::RT, KC = Geo::KC, KS = Geo::KS, QS = Geo::QS;
+  constexpr int NG = DH / 4, NC = Geo::NC;
   const int G = Hq / Kv;
   const int R = S * G;
   const int n_rt = (R + RT - 1) / RT;
@@ -405,11 +478,11 @@ paged_attention_kernel_tile(const float* __restrict__ q,
   const int tk = tid & 7, tr = tid >> 3;        // key group, row group
 
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  char* smem = reinterpret_cast<char*>(smem4);
   int* tbl_s = reinterpret_cast<int*>(smem);
-  float* q_s = smem + table_floats(MB);         // [RT][KS]
-  float* ring = q_s + RT * KS;                  // 2 x (K [KC][KS], V [KC][DH])
-  float* p_s = ring + 2 * Geo::STAGE;           // [RT][kTilePS]
+  float* q_s = reinterpret_cast<float*>(smem) + table_floats(MB);  // [RT][QS]
+  char* ring = reinterpret_cast<char*>(q_s + RT * QS);  // 2 x (K, V)
+  float* p_s = reinterpret_cast<float*>(ring + 2 * Geo::STAGE);
 
   const int L = lens[b];
   const int last = L + (min(r0 + RT, R) - 1) / G;   // the tile's last key
@@ -422,11 +495,11 @@ paged_attention_kernel_tile(const float* __restrict__ q,
     if (r < R)
       v = q[(((size_t)b * S + r / G) * Hq + kvh * G + r % G) * DH + d] *
           scale;
-    q_s[rl * KS + d] = v;
+    q_s[rl * QS + d] = v;
   }
   __syncthreads();
 
-  const Ctx ctx{k_pool, v_pool, tbl_s, n_ent, n_blocks, bs, Kv, kvh};
+  const Ctx<T> ctx{k_pool, v_pool, tbl_s, n_ent, n_blocks, bs, Kv, kvh};
   float m[RPT], lsum[RPT];
   float4 acc[RPT][NC];
 #pragma unroll
@@ -445,15 +518,16 @@ paged_attention_kernel_tile(const float* __restrict__ q,
 
   for (int s = 0; s < 2; ++s) {
     const int c = split + s * n_split;
-    if (c < n_chunks)
-      stage_chunk<DH, KC, KS>(ctx, c, ring + s * Geo::STAGE,
-                              ring + s * Geo::STAGE + KC * KS, tid, kThreads);
+    if (c < n_chunks) {
+      T* k_st = reinterpret_cast<T*>(ring + s * Geo::STAGE);
+      stage_chunk<DH, KC, KS>(ctx, c, k_st, k_st + KC * KS, tid, kThreads);
+    }
     cp_async_commit();
   }
   int it = 0;
   for (int c = split; c < n_chunks; c += n_split, ++it) {
-    float* k_st = ring + (it & 1) * Geo::STAGE;
-    float* v_st = k_st + KC * KS;
+    T* k_st = reinterpret_cast<T*>(ring + (it & 1) * Geo::STAGE);
+    T* v_st = k_st + KC * KS;
     cp_async_wait<1>();
     __syncthreads();
 
@@ -467,11 +541,10 @@ paged_attention_kernel_tile(const float* __restrict__ q,
       float4 kv[4], qv[RPT];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        kv[u] = *reinterpret_cast<const float4*>(k_st + (tk + 8 * u) * KS +
-                                                 4 * g);
+        kv[u] = load4(k_st + (tk + 8 * u) * KS + 4 * g);
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(q_s + (tr + 16 * i) * KS +
+        qv[i] = *reinterpret_cast<const float4*>(q_s + (tr + 16 * i) * QS +
                                                  4 * g);
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -523,8 +596,7 @@ paged_attention_kernel_tile(const float* __restrict__ q,
       float4 v[NC];
 #pragma unroll
       for (int c2 = 0; c2 < NC; ++c2)
-        v[c2] = *reinterpret_cast<const float4*>(v_st + t * DH + 4 * tk +
-                                                 32 * c2);
+        v[c2] = v_part<DH>(v_st + t * DH, tk, c2);
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const float pr = p_s[(tr + 16 * i) * kTilePS + t];
@@ -554,15 +626,15 @@ paged_attention_kernel_tile(const float* __restrict__ q,
 #pragma unroll
       for (int c2 = 0; c2 < NC; ++c2) {
         const float4 a = acc[i][c2];
-        *reinterpret_cast<float4*>(out + row * DH + 4 * tk + 32 * c2) =
-            make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
+        store_part<DH>(out + row * DH, tk, c2,
+                       make_float4(a.x / den, a.y / den, a.z / den,
+                                   a.w / den));
       }
     } else {
       const size_t base = (size_t)split * rows + row;
 #pragma unroll
       for (int c2 = 0; c2 < NC; ++c2)
-        *reinterpret_cast<float4*>(part_o + base * DH + 4 * tk + 32 * c2) =
-            acc[i][c2];
+        store_part<DH>(part_o + base * DH, tk, c2, acc[i][c2]);
       if (tk == 0) {
         part_ml[base * 2] = m[i];
         part_ml[base * 2 + 1] = lsum[i];
@@ -598,14 +670,15 @@ paged_attention_combine(const float* __restrict__ part_o,
 }
 
 struct Args {
-  const float *q, *k_pool, *v_pool;
+  const float* q;
+  const void *k_pool, *v_pool;
   const int *tables, *lens;
   float *out, *part_o, *part_ml;
   int B, S, Hq, Kv, n_blocks, bs, MB, n_split;
   float scale;
 };
 
-template <typename Kernel>
+template <typename T, typename Kernel>
 cudaError_t run(Kernel kernel, dim3 grid, size_t smem, const Args& a,
                 cudaStream_t st) {
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
@@ -615,34 +688,38 @@ cudaError_t run(Kernel kernel, dim3 grid, size_t smem, const Args& a,
     if (e != cudaSuccess) return e;
   }
   kernel<<<grid, kThreads, smem, st>>>(
-      a.q, a.k_pool, a.v_pool, a.tables, a.lens, a.out, a.part_o, a.part_ml,
-      a.B, a.S, a.Hq, a.Kv, a.n_blocks, a.bs, a.MB, a.n_split, a.scale);
+      a.q, static_cast<const T*>(a.k_pool), static_cast<const T*>(a.v_pool),
+      a.tables, a.lens, a.out, a.part_o, a.part_ml, a.B, a.S, a.Hq, a.Kv,
+      a.n_blocks, a.bs, a.MB, a.n_split, a.scale);
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, typename T>
 cudaError_t launch(const Args& a, cudaStream_t st) {
   const int R = a.S * (a.Hq / a.Kv);
   cudaError_t e;
   if (R >= 16) {
     if (R <= 32) {
-      e = run(paged_attention_kernel_tile<DH, 2>,
-              dim3(a.n_split, a.Kv * ((R + 31) / 32), a.B),
-              sizeof(float) * tile_smem_floats<DH, 2>(a.MB), a, st);
+      e = run<T>(paged_attention_kernel_tile<DH, 2, T>,
+                 dim3(a.n_split, a.Kv * ((R + 31) / 32), a.B),
+                 tile_smem_bytes<DH, 2, T>(a.MB), a, st);
     } else {
-      e = run(paged_attention_kernel_tile<DH, 4>,
-              dim3(a.n_split, a.Kv * ((R + 63) / 64), a.B),
-              sizeof(float) * tile_smem_floats<DH, 4>(a.MB), a, st);
+      e = run<T>(paged_attention_kernel_tile<DH, 4, T>,
+                 dim3(a.n_split, a.Kv * ((R + 63) / 64), a.B),
+                 tile_smem_bytes<DH, 4, T>(a.MB), a, st);
     }
   } else if (R == 1) {
-    e = run(paged_attention_kernel_rows<DH, 1>, dim3(a.n_split, a.Kv, a.B),
-            sizeof(float) * rows_smem_floats<DH, 1>(a.MB), a, st);
+    e = run<T>(paged_attention_kernel_rows<DH, 1, T>,
+               dim3(a.n_split, a.Kv, a.B), rows_smem_bytes<DH, 1, T>(a.MB),
+               a, st);
   } else if (R <= 4) {
-    e = run(paged_attention_kernel_rows<DH, 4>, dim3(a.n_split, a.Kv, a.B),
-            sizeof(float) * rows_smem_floats<DH, 4>(a.MB), a, st);
+    e = run<T>(paged_attention_kernel_rows<DH, 4, T>,
+               dim3(a.n_split, a.Kv, a.B), rows_smem_bytes<DH, 4, T>(a.MB),
+               a, st);
   } else {
-    e = run(paged_attention_kernel_rows<DH, 16>, dim3(a.n_split, a.Kv, a.B),
-            sizeof(float) * rows_smem_floats<DH, 16>(a.MB), a, st);
+    e = run<T>(paged_attention_kernel_rows<DH, 16, T>,
+               dim3(a.n_split, a.Kv, a.B), rows_smem_bytes<DH, 16, T>(a.MB),
+               a, st);
   }
   if (e != cudaSuccess || a.n_split == 1) return e;
   const int rows = a.B * a.S * a.Hq;
@@ -652,14 +729,37 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <typename T>
+int dispatch(const Args& a, int Dh, void* stream) {
+  if (a.B <= 0 || a.S <= 0 || a.Kv <= 0 || a.Hq % a.Kv != 0 || a.bs <= 0 ||
+      a.MB <= 0 || a.n_blocks <= 0 || a.n_split <= 0 || a.B > 65535 ||
+      (a.n_split > 1 && (a.part_o == nullptr || a.part_ml == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 16:
+      return (int)launch<16, T>(a, st);
+    case 32:
+      return (int)launch<32, T>(a, st);
+    case 64:
+      return (int)launch<64, T>(a, st);
+    case 128:
+      return (int)launch<128, T>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// q f32[B,S,Hq,Dh]; k_pool, v_pool f32[n_blocks,bs,Kv,Dh]; tables
-// i32[B,MB]; lens i32[B]; out f32[B,S,Hq,Dh]; with n_split > 1 the
-// scratch part_o f32[n_split,B,S,Hq,Dh] and part_ml f32[n_split,B,S,Hq,2]
-// (unused, and may be null, when n_split == 1). All contiguous, on the
-// current device. Launches the main kernel and, when n_split > 1, the
-// combine pass. Returns the cudaError_t of the launches (0 = success).
+// q f32[B,S,Hq,Dh]; k_pool, v_pool [n_blocks,bs,Kv,Dh] in f32 (_f32) or
+// bf16 (_bf16), 16-byte aligned; tables i32[B,MB]; lens i32[B]; out
+// f32[B,S,Hq,Dh]; with n_split > 1 the scratch part_o
+// f32[n_split,B,S,Hq,Dh] and part_ml f32[n_split,B,S,Hq,2] (unused, and
+// may be null, when n_split == 1). All contiguous, on the current device.
+// Dh is 16, 32, 64 or 128. Launches the main kernel and, when
+// n_split > 1, the combine pass. Returns the cudaError_t of the launches
+// (0 = success).
 extern "C" int paged_attention_f32(const float* q, const float* k_pool,
                                    const float* v_pool, const int* tables,
                                    const int* lens, float* out, float* part_o,
@@ -667,21 +767,19 @@ extern "C" int paged_attention_f32(const float* q, const float* k_pool,
                                    int Kv, int Dh, int n_blocks, int bs,
                                    int MB, int n_split, float scale,
                                    void* stream) {
-  if (B <= 0 || S <= 0 || Kv <= 0 || Hq % Kv != 0 || bs <= 0 || MB <= 0 ||
-      n_blocks <= 0 || n_split <= 0 || B > 65535 ||
-      (n_split > 1 && (part_o == nullptr || part_ml == nullptr)))
-    return (int)cudaErrorInvalidValue;
   const Args a{q, k_pool, v_pool, tables, lens, out, part_o, part_ml,
                B, S, Hq, Kv, n_blocks, bs, MB, n_split, scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 32:
-      return (int)launch<32>(a, st);
-    case 64:
-      return (int)launch<64>(a, st);
-    case 128:
-      return (int)launch<128>(a, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<float>(a, Dh, stream);
+}
+
+extern "C" int paged_attention_bf16(const float* q, const void* k_pool,
+                                    const void* v_pool, const int* tables,
+                                    const int* lens, float* out,
+                                    float* part_o, float* part_ml, int B,
+                                    int S, int Hq, int Kv, int Dh,
+                                    int n_blocks, int bs, int MB,
+                                    int n_split, float scale, void* stream) {
+  const Args a{q, k_pool, v_pool, tables, lens, out, part_o, part_ml,
+               B, S, Hq, Kv, n_blocks, bs, MB, n_split, scale};
+  return dispatch<__nv_bfloat16>(a, Dh, stream);
 }

@@ -1,9 +1,9 @@
 """The two attention kernels of ``repro.kernels.decode_attn``.
 
 Kernel 1, ``paged_attention`` (csrc/paged_attention.cu): S query rows per
-slot read the shared KV block pools through per-row block tables, query j
-of row b attending kv positions <= lens[b]+j. Its plain version is
-``ref.paged_attention_plain``.
+slot read the shared KV block pools (f32 or bf16) through per-row block
+tables, query j of row b attending kv positions <= lens[b]+j. Its plain
+version is ``ref.paged_attention_plain``.
 
 Kernel 5, ``decode_attention`` (csrc/decode_attention.cu): one query token
 per row against a contiguous [B, S, Kv, Dh] cache in f32 or bf16, masked
@@ -21,17 +21,17 @@ import torch
 from repro_torch.kernels import build
 
 _SMEM_LIMIT = 232_448        # bytes of shared memory one block may use
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)   # every d_head a config of the repo uses
 # decode_attention.cu: 4 warps a CTA, each with its own two-stage ring of
-# chunks of 32 / (Dh / 32) keys; a CTA takes 1, 4, 8 or 16 query heads of
-# one KV head (more heads take more CTAs)
+# chunks of 32 / max(1, Dh / 32) keys; a CTA takes 1, 4, 8 or 16 query
+# heads of one KV head (more heads take more CTAs)
 _DECODE_WARPS = 4
 _DECODE_ROWS = (1, 4, 8, 16)
 # paged_attention.cu: 4 warps a CTA; S*G >= _TILE_MIN_ROWS query rows per
 # KV head take the tile kernel (tiles of 32 or 64 rows, 32-key chunks,
 # padded P rows of 40 floats); fewer take the rows kernel (each warp its
-# own two-stage ring of chunks of 32 / (Dh / 32) keys, rows padded to 1,
-# 4 or 16)
+# own two-stage ring of chunks of 32 / max(1, Dh / 32) keys, rows padded to
+# 1, 4 or 16). A 16-byte copy moves 4 f32 or 8 bf16 pool values.
 _PAGED_WARPS = 4
 _TILE_MIN_ROWS = 16
 _TILE_CHUNK = 32
@@ -40,35 +40,40 @@ _CTAS_PER_SM = 2             # the split aims at this many CTAs per SM
 
 
 def paged_plan(B: int, S: int, Hq: int, Kv: int, Dh: int, bs: int, MB: int,
-               n_sm: int) -> dict:
-    """The launch paged_attention.cu makes for these shapes: which kernel
-    ("rows" or "tile"), the rows it pads to (``rows``), its grid, the
-    context split ``n_split`` (from MB, never from lens) and its dynamic
-    shared memory in bytes (the layout in the .cu source)."""
+               n_sm: int, dtype_bytes: int = 4) -> dict:
+    """The launch paged_attention.cu makes for these shapes and a pool
+    of ``dtype_bytes``-byte values: which kernel ("rows" or "tile"), the
+    rows it pads to (``rows``), its grid, the context split ``n_split``
+    (from MB, never from lens) and its dynamic shared memory in bytes (the
+    layout in the .cu source)."""
     R = S * (Hq // Kv)
-    table = -(-MB // 4) * 4
+    table = 4 * (-(-MB // 4) * 4)
+    ve = 16 // dtype_bytes                  # pool values per 16-byte copy
     if R >= _TILE_MIN_ROWS:
         rt = 32 if R <= 32 else 64
-        kc, ks = _TILE_CHUNK, Dh + 4
-        smem = table + rt * ks + 2 * kc * (ks + Dh) + rt * _TILE_PS
+        kc, ks = _TILE_CHUNK, Dh + ve
+        smem = (table + 4 * rt * (Dh + 4)
+                + 2 * kc * (ks + Dh) * dtype_bytes + 4 * rt * _TILE_PS)
         n_rt, min_chunks, kind = -(-R // rt), 2, "tile"
     else:
         rt = 1 if R == 1 else 4 if R <= 4 else 16
-        lpk = Dh // 32
-        kc, ks = 32 // lpk, Dh + 4 * lpk
-        smem = table + rt * Dh + _PAGED_WARPS * (2 * kc * (ks + Dh)
-                                                 + rt * kc)
+        lpk = max(1, Dh // 32)
+        kc, ks = 32 // lpk, Dh + ve * lpk
+        smem = table + 4 * rt * Dh + _PAGED_WARPS * (
+            2 * kc * (ks + Dh) * dtype_bytes + 4 * rt * kc)
         n_rt, min_chunks, kind = 1, _PAGED_WARPS, "rows"
     base = B * Kv * n_rt
     n_chunks = -(-MB * bs // kc)
     n_split = max(1, min(-(-_CTAS_PER_SM * n_sm // base),
                          -(-n_chunks // min_chunks)))
     return {"kind": kind, "rows": rt, "grid": (n_split, Kv * n_rt, B),
-            "n_split": n_split, "smem": 4 * smem}
+            "n_split": n_split, "smem": smem}
 
 
-def _fn():
-    fn = build.load("paged_attention").paged_attention_f32
+def _fn(pool_dtype: torch.dtype):
+    lib = build.load("paged_attention")
+    fn = lib.paged_attention_bf16 if pool_dtype == torch.bfloat16 \
+        else lib.paged_attention_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
@@ -78,17 +83,18 @@ def _fn():
 
 
 def _check(q, k_pool, v_pool, tables, lens):
-    for name, t, dtype in (("q", q, torch.float32),
-                           ("k_pool", k_pool, torch.float32),
-                           ("v_pool", v_pool, torch.float32),
-                           ("tables", tables, torch.int32),
-                           ("lens", lens, torch.int32)):
+    for name, t, dtypes in (("q", q, (torch.float32,)),
+                            ("k_pool", k_pool,
+                             (torch.float32, torch.bfloat16)),
+                            ("v_pool", v_pool, (k_pool.dtype,)),
+                            ("tables", tables, (torch.int32,)),
+                            ("lens", lens, (torch.int32,))):
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError(f"paged_attention: {name} must be on the CUDA "
                              f"device of q, got {t.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"paged_attention: {name} must be {dtype}, "
-                            f"got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"paged_attention: {name} must be one of "
+                            f"{dtypes}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous")
     B, S, Hq, Dh = q.shape
@@ -117,9 +123,10 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Launch the CUDA kernel (and its combine pass when the context is
     split across CTAs) on the current stream, no synchronise.
 
-    q f32[B, S, Hq, Dh]; k_pool/v_pool f32[n_blocks, bs, Kv, Dh]; tables
-    i32[B, MB] with sentinel ``n_blocks``; lens i32[B] (context committed
-    before this step). Returns f32[B, S, Hq, Dh]."""
+    q f32[B, S, Hq, Dh]; k_pool/v_pool [n_blocks, bs, Kv, Dh], both f32 or
+    both bf16; tables i32[B, MB] with sentinel ``n_blocks``; lens i32[B]
+    (context committed before this step); Dh 16, 32, 64 or 128. Returns
+    f32[B, S, Hq, Dh]."""
     _check(q, k_pool, v_pool, tables, lens)
     B, S, Hq, Dh = q.shape
     n_blocks, bs, Kv, _ = k_pool.shape
@@ -128,7 +135,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if B == 0 or S == 0 or MB == 0 or n_blocks == 0:
         return out.zero_()
     plan = paged_plan(B, S, Hq, Kv, Dh, bs, MB,
-                      build.sm_count(q.device.index))
+                      build.sm_count(q.device.index), k_pool.element_size())
     if plan["smem"] > _SMEM_LIMIT:
         raise ValueError(f"paged_attention: a table of {MB} entries needs "
                          f"{plan['smem']} bytes of shared memory "
@@ -142,7 +149,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         part = torch.empty(n * (Dh + 2), dtype=torch.float32,
                            device=q.device)
         part_o, part_ml = part.data_ptr(), part.data_ptr() + 4 * n * Dh
-    fn = _fn()
+    fn = _fn(k_pool.dtype)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
@@ -167,7 +174,7 @@ def decode_plan(B: int, S: int, Hq: int, Kv: int, Dh: int,
     G = Hq // Kv
     rm = next(r for r in _DECODE_ROWS if r >= min(G, _DECODE_ROWS[-1]))
     n_gt = -(-G // rm)
-    lpk = Dh // 32
+    lpk = max(1, Dh // 32)
     kc = 32 // lpk
     ks = Dh + (16 // dtype_bytes) * lpk
     stage = kc * (ks + Dh) * dtype_bytes

@@ -37,11 +37,19 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     at position lens[b]+j and sees kv positions <= lens[b]+j. The tables
     are gathered into one logical sequence and masked per query.
     Returns f32[B, S, Hq, Dh]."""
+    return gathered_attention(q, _gather_paged(k_pool, tables),
+                              _gather_paged(v_pool, tables), lens)
+
+
+def gathered_attention(q: torch.Tensor, kg: torch.Tensor, vg: torch.Tensor,
+                       lens: torch.Tensor) -> torch.Tensor:
+    """The masked read of ``paged_attention_plain`` over K/V already
+    gathered through the tables: kg, vg [B, Skv, Kv, Dh]. Query j of row b
+    sees positions <= lens[b]+j. Returns f32[B, S, Hq, Dh]."""
     B, S, Hq, Dh = q.shape
-    Kv = k_pool.shape[2]
+    Kv = kg.shape[2]
     G = Hq // Kv
-    kg = _gather_paged(k_pool, tables).float()          # [B, Skv, Kv, Dh]
-    vg = _gather_paged(v_pool, tables).float()
+    kg, vg = kg.float(), vg.float()
     qg = q.reshape(B, S, Kv, G, Dh).float() * Dh ** -0.5
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, kg)
     Skv = kg.shape[1]

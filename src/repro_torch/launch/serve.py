@@ -1,0 +1,168 @@
+"""Serving entry point of the port: the continuous-batching engine with
+the NeCTAr decode paths (sparse FFN gather through the CUDA kernels),
+random weights from a seeded generator.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch nectar-relu-llama-1.7m --requests 8 --max-new 16 \\
+        --max-batch 4 [--paged] [--prefix-cache] [--kv-quant] \\
+        [--attn-backend flash] [--temperature 0.7 --seed 0] [--device cpu]
+
+It runs on the CUDA device unless ``--device cpu`` is given, and prints a
+JSON summary. The reference CLI's flags of features this port does not
+have yet (checkpoints, sharded serving, speculative decoding, the async
+engine, disagg and fleet serving, tracing and metrics export) are
+accepted by name and refused with the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ServeConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import Model
+from repro_torch.serve.engine import Engine
+from repro_torch.serve.sampling import SamplingParams
+from repro_torch.serve.scheduler import Request
+
+# flags of the reference CLI whose features come with later slices:
+# (flags, argparse keywords, the ROADMAP queue-1 item that brings them)
+LATER = (
+    (("--ckpt-dir",), {"default": None}, "item 9 (training, checkpoints)"),
+    (("--mesh",), {"type": int, "default": 1},
+     "item 9 (multi-device, sharded serving)"),
+    (("--shard-kv-seq",), {"action": "store_true"},
+     "item 9 (multi-device, sharded serving)"),
+    (("--spec",), {"default": None}, "item 2 (speculative decoding)"),
+    (("--spec-k",), {"type": int, "default": 4},
+     "item 2 (speculative decoding)"),
+    (("--async",), {"dest": "async_", "action": "store_true"},
+     "item 3 (async engine core)"),
+    (("--async-k",), {"type": int, "default": 8},
+     "item 3 (async engine core)"),
+    (("--async-sync-every",), {"type": int, "default": 0},
+     "item 3 (async engine core)"),
+    (("--disagg",), {"action": "store_true"}, "item 5 (disagg and fleet)"),
+    (("--disagg-prefill-batch",), {"type": int, "default": 0},
+     "item 5 (disagg and fleet)"),
+    (("--disagg-prefill-blocks",), {"type": int, "default": 0},
+     "item 5 (disagg and fleet)"),
+    (("--direct-max-suffix",), {"type": int, "default": 0},
+     "item 5 (disagg and fleet)"),
+    (("--replicas",), {"type": int, "default": 1},
+     "item 5 (disagg and fleet)"),
+    (("--router-policy",), {"default": "affinity"},
+     "item 5 (disagg and fleet)"),
+    (("--obs",), {"action": "store_true"}, "item 4 (observability)"),
+    (("--trace-out",), {"default": None}, "item 4 (observability)"),
+    (("--metrics-port",), {"type": int, "default": 0},
+     "item 4 (observability)"),
+    (("--profile",), {"action": "store_true"}, "item 4 (observability)"),
+)
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="nectar-relu-llama-1.7m")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--dense", action="store_true",
+                    help="disable the sparse decode path (ablation)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged-KV scheduler engine (chunked prefill, "
+                         "preemption)")
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--policy", default="fifo", choices=("fifo", "priority"))
+    ap.add_argument("--attn-backend", default="naive",
+                    choices=("naive", "flash"),
+                    help="paged attention read: the plain gather, or the "
+                         "CUDA paged-attention kernel")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache (implies --paged)")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV pools (implies --paged; naive backend)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy; > 0 samples")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--repetition-penalty", type=float, default=1.0)
+    ap.add_argument("--seed", "--sample-seed", dest="seed", type=int,
+                    default=0, help="per-request sampling seed")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; cpu runs the plain "
+                         "versions of the kernels)")
+    for flags, kw, _ in LATER:
+        ap.add_argument(*flags, help=argparse.SUPPRESS, **kw)
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    ap = parser()
+    args = ap.parse_args(argv)
+    for flags, kw, item in LATER:
+        dest = kw.get("dest", flags[0].lstrip("-").replace("-", "_"))
+        if getattr(args, dest) != kw.get("default",
+                                         kw.get("action") == "store_false"):
+            ap.error(f"{flags[0]} is not in the port yet: ROADMAP queue 1 "
+                     f"{item}")
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = Model(cfg).init(gen, device=device)
+    paged = args.paged or args.prefix_cache or args.kv_quant
+    scfg = ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
+                       sparse_decode=not args.dense, paged=paged,
+                       prefix_cache=args.prefix_cache,
+                       kv_quant=args.kv_quant, block_size=args.block_size,
+                       prefill_chunk=args.prefill_chunk, policy=args.policy,
+                       attn_backend=args.attn_backend)
+    eng = Engine(cfg, params, scfg, device=device)
+    sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                        top_p=args.top_p,
+                        repetition_penalty=args.repetition_penalty,
+                        seed=args.seed)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab,
+                                        size=4 + int(rng.integers(0, 8)),
+                                        dtype=np.int32),
+                    max_new=args.max_new, sampling=sp)
+            for i in range(args.requests)]
+    t0 = time.perf_counter()
+    done = eng.run(reqs, max_steps=10000)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.tokens_out) for r in done.values())
+    savings = sum(s.sparse_savings_bytes for s in eng.stats)
+    total_w = sum(s.weight_bytes + s.sparse_savings_bytes for s in eng.stats)
+    out = {"device": str(device) if device.type == "cpu"
+           else torch.cuda.get_device_name(device),
+           "requests": len(done), "tokens": n_tok,
+           "tokens_per_s": n_tok / dt,
+           "weight_bytes_saved_frac": savings / max(total_w, 1)}
+    if paged:
+        s = eng.metrics.summary()
+        out.update({"ttft_p99_ms": s["ttft_p99_ms"],
+                    "tpot_p50_ms": s["tpot_p50_ms"],
+                    "evictions": s["evictions"],
+                    "prefix_hits": s["prefix_hits"],
+                    "prefix_cached_tokens": s["prefix_cached_tokens"],
+                    "kv_pool_capacity_bytes":
+                        s["kv_pool"]["capacity_bytes"]})
+    print(json.dumps(out, indent=1))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -47,11 +47,12 @@ class Model:
     def init_paged_cache(self, batch: int, n_blocks: int, block_size: int,
                          max_blocks_per_seq: int,
                          dtype: torch.dtype = torch.float32,
-                         device: Optional[Union[str, torch.device]] = None
-                         ) -> dict:
+                         device: Optional[Union[str, torch.device]] = None,
+                         int8_kv: bool = False) -> dict:
         return transformer.init_paged_cache(self.cfg, batch, n_blocks,
                                             block_size, max_blocks_per_seq,
-                                            dtype=dtype, device=device)
+                                            dtype=dtype, device=device,
+                                            int8_kv=int8_kv)
 
     def forward_step(self, params, tokens, cache, n_valid, is_prefill,
                      block_size: int, backend: str = "naive",

@@ -10,6 +10,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers, rope
+from repro_torch.serve import kv_cache
 
 
 def init_attn(generator: torch.Generator, cfg: ModelConfig,
@@ -31,13 +32,26 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def init_paged_kv_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
-                        dtype: torch.dtype, device: torch.device) -> dict:
-    """Block-pool KV storage (fp pools only): requests own scattered
-    fixed-size token blocks. Block index ``n_blocks`` is the invalid
-    sentinel — writes through it drop, reads through it see nothing."""
+                        dtype: torch.dtype, device: torch.device,
+                        int8_kv: bool = False) -> dict:
+    """Block-pool KV storage: requests own scattered fixed-size token
+    blocks. Block index ``n_blocks`` is the invalid sentinel — writes
+    through it drop, reads through it see nothing.
+
+    ``int8_kv``: 1 byte per element plus one f32 scale per (token, head)
+    for each of K and V (the ``kv_cache.quantize_kv`` layout), as
+    ``paged_kv.kv_bytes_per_token`` counts it."""
     shape = (n_blocks, block_size, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if not int8_kv:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    sshape = shape[:-1] + (1,)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device)}
 
 
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -113,15 +127,35 @@ def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return o @ p["wo"]
 
 
-def _store_paged(pool: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
-                 val: torch.Tensor) -> None:
-    """Scatter ``val`` [B, S, Kv, Dh] into ``pool`` at (blk, off); entries
-    whose block is the sentinel drop. The reference's functional
+def _store_paged(cache: dict, name: str, blk: torch.Tensor,
+                 off: torch.Tensor, val: torch.Tensor) -> None:
+    """Scatter ``val`` [B, S, Kv, Dh] into pool leaf ``name`` at (blk,
+    off); entries whose block is the sentinel drop. int8 pools (the leaf
+    has a ``{name}_scale`` sibling) store ``kv_cache.quantize_kv``'s bytes
+    and per-(token, head) scales. The reference's functional
     ``.at[blk, off].set(val, mode="drop")`` becomes an in-place write here:
-    ``pool`` is a view of the stacked [n_units, ...] pool, so the write
+    each leaf is a view of the stacked [n_units, ...] pool, so the write
     lands in the engine's cache without a copy."""
+    pool = cache[name]
     keep = blk < pool.shape[0]
-    pool[blk[keep].long(), off[keep].long()] = val[keep].to(pool.dtype)
+    b, o = blk[keep].long(), off[keep].long()
+    if f"{name}_scale" not in cache:
+        pool[b, o] = val[keep].to(pool.dtype)
+        return
+    (q8, scale), _ = kv_cache.quantize_kv(val, val)
+    pool[b, o] = q8[keep]
+    cache[f"{name}_scale"][b, o] = scale[keep]
+
+
+def _read_paged(cache: dict, name: str, tables: torch.Tensor
+                ) -> torch.Tensor:
+    """Pool leaf ``name`` gathered through the block tables into [B,
+    MB*bs, Kv, Dh], int8 pools dequantized to f32 (sentinel blocks gather
+    zero scales, hence zeros)."""
+    g = ref._gather_paged(cache[name], tables)
+    if f"{name}_scale" not in cache:
+        return g
+    return g.float() * ref._gather_paged(cache[f"{name}_scale"], tables)
 
 
 def attn_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -135,8 +169,9 @@ def attn_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     scatters through the row's table (positions j >= n_valid[b] are
     padding and drop at the sentinel) and query j attends to [0,
     lens[b]+j]. ``backend`` picks the read: "naive" is the plain masked
-    read over the gathered tables, "flash" the paged-attention kernel
-    (``ops.paged_attention``), which reads the pools directly.
+    read over the gathered tables (int8 pools dequantize there), "flash"
+    the paged-attention kernel (``ops.paged_attention``), which reads the
+    fp pools directly.
 
     x: [B, S, d]; lens/n_valid: i32[B]; tables: i32[B, MB] (inactive rows
     all-sentinel). Writes ``cache["k"]``/``cache["v"]`` in place and
@@ -154,13 +189,13 @@ def attn_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     blk = torch.where((j[None, :] < n_valid[:, None])
                       & (gpos // block_size < MB), blk, n_blocks)
     off = gpos % block_size
-    _store_paged(cache["k"], blk, off, k)
-    _store_paged(cache["v"], blk, off, v)
+    _store_paged(cache, "k", blk, off, k)
+    _store_paged(cache, "v", blk, off, v)
     if backend == "flash":
         o = ops.paged_attention(q.contiguous(), cache["k"], cache["v"],
                                 tables, lens)
     else:
-        o = ref.paged_attention_plain(q, cache["k"], cache["v"], tables,
-                                      lens)
+        o = ref.gathered_attention(q, _read_paged(cache, "k", tables),
+                                   _read_paged(cache, "v", tables), lens)
     o = o.reshape(B, S, cfg.n_heads * cfg.d_head).to(x.dtype)
     return o @ p["wo"]

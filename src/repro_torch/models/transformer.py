@@ -93,15 +93,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
                      block_size: int, max_blocks_per_seq: int,
                      dtype: torch.dtype = torch.float32,
-                     device: Optional[Union[str, torch.device]] = None
-                     ) -> dict:
+                     device: Optional[Union[str, torch.device]] = None,
+                     int8_kv: bool = False) -> dict:
     """Paged decode cache: one block pool per layer, stacked over units,
     plus per-slot block tables (sentinel-filled; serve.paged_kv assigns
-    blocks)."""
+    blocks). ``int8_kv`` stores int8 K/V with f32 per-(token, head)
+    scales (``attention.init_paged_kv_cache``)."""
     device = resolve_device(device)
     check_supported(cfg)
     pools = _stack([attention.init_paged_kv_cache(cfg, n_blocks, block_size,
-                                                  dtype, device)
+                                                  dtype, device,
+                                                  int8_kv=int8_kv)
                     for _ in range(cfg.n_units)])
     return {"lens": torch.zeros(batch, dtype=torch.int32, device=device),
             "block_tables": torch.full((batch, max_blocks_per_seq), n_blocks,

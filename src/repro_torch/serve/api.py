@@ -30,9 +30,14 @@ class StreamingServer:
     def submit(self, prompt, max_new: int = 16, priority: int = 0,
                rid: Optional[int] = None,
                sampling: Optional[SamplingParams] = None) -> int:
-        """Queue a request; returns its rid immediately. Requests the
-        engine's admission control rejects (queue full) wait in a local
-        backlog and re-submit as capacity frees."""
+        """Queue a request; returns its rid immediately. ``sampling``
+        carries the per-request decoding contract (seed, temperature,
+        top-k/p, repetition penalty, stop sequences, max_tokens, logprobs,
+        prompt_logprobs) through scheduler -> engine -> runner; omitted
+        means greedy. On a prefix-cached engine a prompt sharing a cached
+        prefix maps those KV blocks at admission and prefills only the
+        suffix. Requests the engine's admission control rejects (queue
+        full) wait in a local backlog and re-submit as capacity frees."""
         rid = self.engine.new_rid() if rid is None else rid
         req = Request(rid=rid, prompt=np.asarray(prompt, np.int32),
                       max_new=max_new, priority=priority,
@@ -101,7 +106,8 @@ def generate(engine: Engine, prompt, max_new: int = 16,
              priority: int = 0, max_steps: int = 10000,
              sampling: Optional[SamplingParams] = None) -> Iterator:
     """Streaming generation: yields each new token as soon as its step
-    lands, while the engine keeps serving concurrent requests."""
+    lands, while the engine keeps serving concurrent requests.
+    ``sampling`` is the per-request SamplingParams (default greedy)."""
     server = StreamingServer(engine)
     rid = server.submit(prompt, max_new=max_new, priority=priority,
                         sampling=sampling)

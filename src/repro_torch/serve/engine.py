@@ -5,18 +5,21 @@ The port of the reference engine's two synchronous modes:
   * ``ServeConfig(paged=True)``: every phase of every request — chunked
     prefill and single-token decode — is a ROW of one batched
     ``ModelRunner.step`` per tick. The engine is pure host policy:
-    admission (serve.scheduler), block accounting (serve.paged_kv),
-    building the per-tick ``StepBatch`` and committing greedy tokens.
+    admission (serve.scheduler, with the radix prefix cache under
+    ``prefix_cache``), block accounting and copy-on-write
+    (serve.paged_kv), building the per-tick ``StepBatch`` and committing
+    tokens through per-request ``SamplingParams`` (serve.sampling), prompt
+    log-probabilities included. ``kv_quant`` stores the KV pools in int8.
   * ``ServeConfig(paged=False)``, the default: fixed slots over a
     contiguous [max_batch, max_seq] KV cache. ``add_request`` prefills the
-    prompt at once into a batch-1 cache and splices it into a free slot;
-    each ``step`` decodes one token for every slot.
+    prompt at once into a batch-1 cache, splices it into a free slot and
+    draws the first token on the host (``sampling.sample_np``); each
+    ``step`` decodes one token for every slot.
 
 Speculative decoding, the async tick pipeline, sharded serving, disagg
-handoff, the prefix cache, int8 KV, prompt log-probabilities, tracing and
-sampled rows are later slices of the port: asking for any of them raises
-``NotImplementedError`` (or ``ValueError`` where the reference's slot mode
-refuses them too).
+handoff and tracing are later slices of the port: asking for any of them
+raises ``NotImplementedError`` (or ``ValueError`` where the reference's
+slot mode refuses them too).
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import Model
 from repro_torch.serve import (kv_cache, metrics as metrics_mod, paged_kv,
                                sampling)
-from repro_torch.serve.runner import DECODE, PREFILL, ModelRunner
+from repro_torch.serve.metrics import StepStats
+from repro_torch.serve.prefix_cache import RadixPrefixCache
+from repro_torch.serve.runner import DECODE, PREFILL, ModelRunner, StepOutput
 from repro_torch.serve.scheduler import Request, SchedEntry, Scheduler, State
 
 
@@ -62,8 +67,6 @@ def _unsupported(scfg: ServeConfig) -> List[str]:
         ("async_cfg", scfg.async_cfg is not None
          and scfg.async_cfg.enabled),
         ("mesh", scfg.mesh is not None and scfg.mesh.n_devices > 1),
-        ("prefix_cache", scfg.prefix_cache),
-        ("kv_quant", scfg.kv_quant),
         ("obs", scfg.obs.enabled or scfg.obs.profile)) if on]
 
 
@@ -92,17 +95,16 @@ class Engine:
         self.scfg = scfg
         self.model = Model(cfg)
         self.params = _to(params, self.device)
-        self.metrics = metrics_mod.MetricsCollector()
+        self.metrics = metrics_mod.MetricsCollector(cfg, scfg)
         self._requests: Dict[int, Request] = {}
         self._rids = itertools.count()
+        self.sampler = sampling.Sampler()
+        # per-slot token-id presence for the repetition penalty
+        self._presence = np.zeros((scfg.max_batch, cfg.vocab), bool)
+        self._draw_ctr: Dict[int, int] = {}    # rid -> sample-draw counter
+        self._tick_overlap = False
         if scfg.paged:
-            self.pool = paged_kv.PagedKVCache(
-                n_blocks=scfg.pool_blocks, block_size=scfg.block_size,
-                max_batch=scfg.max_batch,
-                max_blocks_per_seq=scfg.blocks_per_seq)
-            self.sched = Scheduler(scfg, self.pool)
-            self.runner = ModelRunner(self.model, self.params, scfg,
-                                      self.device)
+            self._init_paged()
         else:
             self._init_slots()
 
@@ -112,6 +114,32 @@ class Engine:
         while rid in self._requests:
             rid = next(self._rids)
         return rid
+
+    @property
+    def stats(self) -> List[StepStats]:
+        return self.metrics.step_stats
+
+    @property
+    def admission_free(self) -> int:
+        """How many more requests ``add_request`` would take right now:
+        the scheduler's queue headroom in paged mode, the free slots in
+        slot mode."""
+        if self.scfg.paged:
+            return max(self.scfg.max_queue - self.sched.n_waiting, 0)
+        return len(self.alloc.free)
+
+    def reset_metrics(self) -> None:
+        """A fresh MetricsCollector wired to the live pool and prefix
+        gauges; the pool's and index's event counters restart with it, so
+        every rate in one summary() covers the same window. Pool state
+        (blocks, refcounts, the radix tree) is untouched."""
+        self.metrics = metrics_mod.MetricsCollector(self.cfg, self.scfg)
+        if self.scfg.paged:
+            self.metrics.pool = self.pool
+            self.metrics.prefix = self.prefix
+            self.pool.reset_counters()
+            if self.prefix is not None:
+                self.prefix.reset_counters()
 
     # ------------------------------------------------------------------
     # request loop
@@ -133,15 +161,6 @@ class Engine:
             steps += 1
         return done
 
-    @property
-    def admission_free(self) -> int:
-        """How many more requests ``add_request`` would take right now:
-        the scheduler's queue headroom in paged mode, the free slots in
-        slot mode."""
-        if self.scfg.paged:
-            return max(self.scfg.max_queue - len(self.sched.waiting), 0)
-        return len(self.alloc.free)
-
     def _busy(self) -> bool:
         if self.scfg.paged:
             return not self.sched.idle
@@ -157,15 +176,13 @@ class Engine:
             raise ValueError(
                 f"request id {req.rid} is already in flight; use "
                 f"Engine.new_rid() to allocate ids")
-        if req.sampling.prompt_logprobs:
-            if not self.scfg.paged:
-                raise ValueError(
-                    "prompt_logprobs needs the paged engine's all-position "
-                    "prefill logits (ServeConfig(paged=True))")
-            raise NotImplementedError("prompt_logprobs is a later slice")
-        sampling.check_greedy(sampling.effective_params(req.sampling))
         if not self.can_serve(req):
             return False
+        if req.sampling.prompt_logprobs and not self.scfg.paged:
+            raise ValueError(
+                "prompt_logprobs needs the paged engine's all-position "
+                "prefill logits (ServeConfig(paged=True), plain token "
+                "streams)")
         if req.sampling.max_tokens is not None:
             req.max_new = min(req.max_new, req.sampling.max_tokens)
         if not self.scfg.paged:
@@ -182,6 +199,8 @@ class Engine:
         if req is not None and req.done:
             del self._requests[rid]
             self.metrics.requests.pop(rid, None)
+            self._draw_ctr.pop(rid, None)
+            getattr(self, "_host_rngs", {}).pop(rid, None)
 
     def step(self) -> List[int]:
         """One engine tick; returns the rids that finished this tick."""
@@ -189,21 +208,56 @@ class Engine:
             return self._tick_paged()
         return self._step_slots()
 
+    def defrag(self) -> Optional[np.ndarray]:
+        """Compact the block pool: host bookkeeping, then the same moves
+        on the device pools (the next step republishes the tables)."""
+        perm = self.pool.defrag()
+        if perm is not None:
+            self.runner.apply_perm(perm)
+        return perm
+
     # ------------------------------------------------------------------
-    # one tick
+    # sampling plumbing (shared by both modes)
 
-    def _sample_rows(self, last_logits: torch.Tensor
+    def _seed_presence(self, slot: int, req: Request) -> None:
+        self._presence[slot, :] = False
+        self._presence[slot, np.asarray(req.prompt, np.int64).reshape(-1)] \
+            = True
+        if req.tokens_out:
+            self._presence[slot, np.asarray(req.tokens_out, np.int64)] = True
+
+    def _sample_rows(self, pairs: List[Tuple[int, Request]],
+                     last_logits: torch.Tensor
                      ) -> Tuple[np.ndarray, np.ndarray]:
-        """One batched greedy sample over every row (add_request admits
-        greedy rows only); rows nobody reads get garbage."""
-        return sampling.greedy_batch(last_logits)
+        """One batched sample over the rows in ``pairs`` [(slot, req)],
+        each with its own params and its next key; other rows get garbage
+        the caller ignores."""
+        B = self.scfg.max_batch
+        temp = np.zeros((B,), np.float32)
+        top_k = np.zeros((B,), np.int32)
+        top_p = np.ones((B,), np.float32)
+        rep = np.ones((B,), np.float32)
+        keys = np.zeros((B, 2), np.uint32)
+        for slot, req in pairs:
+            sp = sampling.effective_params(req.sampling)
+            temp[slot] = sp.temperature
+            top_k[slot] = sp.top_k
+            top_p[slot] = sp.top_p
+            rep[slot] = sp.repetition_penalty
+            ctr = self._draw_ctr.get(req.rid, 0)
+            self._draw_ctr[req.rid] = ctr + 1
+            keys[slot] = sampling.request_key(sp.seed, req.rid, ctr)
+        return self.sampler(last_logits, self._presence, temp, top_k,
+                            top_p, rep, keys)
 
-    def _append_token(self, req: Request, tok: int, lp: float) -> str:
+    def _append_token(self, req: Request, slot: int, tok: int,
+                      lp: float) -> str:
         """Commit one token to the request stream. Returns "ok", "stop" (a
         stop sequence matched and was truncated off) or "max"."""
         req.tokens_out.append(tok)
         if req.sampling.logprobs:
             req.logprobs_out.append(float(lp))
+        self._presence[slot, int(tok)] = True
         if req.sampling.stop:
             cut = sampling.stop_truncate(req.tokens_out, req.sampling.stop)
             if cut is not None:
@@ -214,16 +268,36 @@ class Engine:
             return "max"
         return "ok"
 
+    # ------------------------------------------------------------------
+    # paged mode
+
+    def _init_paged(self) -> None:
+        scfg = self.scfg
+        self.pool = paged_kv.PagedKVCache(
+            self.cfg, n_blocks=scfg.pool_blocks, block_size=scfg.block_size,
+            max_batch=scfg.max_batch,
+            max_blocks_per_seq=scfg.blocks_per_seq, int8_kv=scfg.kv_quant)
+        self.prefix = RadixPrefixCache(self.pool) if scfg.prefix_cache \
+            else None                          # registers as pool.index
+        self.sched = Scheduler(scfg, self.pool, prefix=self.prefix)
+        self.metrics.pool = self.pool
+        self.metrics.prefix = self.prefix
+        self.runner = ModelRunner(self.model, self.params, scfg,
+                                  self.device)
+        self._kv_per_tok = paged_kv.kv_bytes_per_token(self.cfg,
+                                                       scfg.kv_quant)
+
     def _commit_emitted(self, e: SchedEntry, tok: int, lp: float,
                         finished: List[int], first: bool = False) -> bool:
         """Commit one token; finishes the entry on stop/max. Returns False
         when the request is done."""
-        status = self._append_token(e.req, tok, lp)
+        status = self._append_token(e.req, e.slot, tok, lp)
         if status != "stop":
             if first:
                 self.metrics.on_first_token(e.req.rid)
             else:
-                self.metrics.on_token(e.req.rid)
+                self.metrics.on_token(e.req.rid,
+                                      prefill_overlap=self._tick_overlap)
         if status != "ok":
             self._finish(e, finished)
             return False
@@ -250,10 +324,16 @@ class Engine:
 
     def _tick_paged(self) -> List[int]:
         """One tick = one batched ModelRunner.step serving every phase:
-        capacity resolution (may evict), one device step over prefill and
-        decode rows, one batched sample and the host-side commit."""
+        admission (prefix match), capacity resolution (may evict),
+        copy-on-write, one device step over prefill and decode rows, one
+        batched sample and the host-side commit."""
         finished: List[int] = []
-        self.sched.admit()
+        for e in self.sched.admit():
+            self._seed_presence(e.slot, e.req)
+            if self.prefix is not None \
+                    and not e.req.sampling.prompt_logprobs:
+                # prompt_logprobs requests never consult the index
+                self.metrics.on_prefix_lookup(e.req.rid, e.cached_len)
 
         prefill_plan: List[Tuple[SchedEntry, int, int]] = []
         for e in self.sched.prefill_entries():
@@ -279,6 +359,7 @@ class Engine:
                         if e.req.rid in self.sched.active]
         run_rows = [e for e in self.sched.decode_entries()
                     if e.req.rid not in deferred]
+        self._tick_overlap = bool(prefill_plan)
         if not prefill_plan and not run_rows:
             return finished
 
@@ -291,28 +372,45 @@ class Engine:
             rows.append((e.slot, DECODE,
                          np.asarray([e.req.tokens_out[-1]], np.int32),
                          e.ctx_len))
+        # copy-on-write BEFORE the tables snapshot: a row whose write span
+        # lands in a block referenced elsewhere (a prefix-shared block)
+        # gets a private copy, so siblings never observe the write
+        cow: List[Tuple[int, int]] = []
+        for slot, _, toks, start in rows:
+            cow.extend(self.pool.cow_for_write(slot, start, len(toks)))
+        if cow:
+            self.runner.copy_blocks(cow)
         batch = self.runner.new_batch(max(len(r[2]) for r in rows),
                                       self.pool.tables())
         for slot, phase, toks, start in rows:
             batch.add_row(slot, phase, toks, start)
         out = self.runner.step(batch)
 
-        completing = {e.req.rid for e, pos, valid in prefill_plan
-                      if pos + valid >= len(e.prefill_tokens())}
+        sample_pairs: List[Tuple[int, Request]] = []
+        completing = set()
+        for e, pos, valid in prefill_plan:
+            if pos + valid >= len(e.prefill_tokens()):
+                completing.add(e.req.rid)
+                if not e.replay:
+                    sample_pairs.append((e.slot, e.req))
+        sample_pairs.extend((e.slot, e.req) for e in run_rows)
         tok_np = lp_np = None
-        if run_rows or any(not e.replay for e, _, _ in prefill_plan
-                           if e.req.rid in completing):
-            tok_np, lp_np = self._sample_rows(out.last_logits)
+        if sample_pairs:
+            tok_np, lp_np = self._sample_rows(sample_pairs, out.last_logits)
 
         # prefill rows: advance the frontier; a completing row emits its
         # first token (a replayed row already knows its next token)
         for e, pos, valid in prefill_plan:
+            self._record_prompt_logprobs(e, out, pos, valid)
             e.pos = pos + valid
             self.metrics.on_prefill_chunk(valid)
             if e.req.rid not in completing:
                 continue
             e.ctx_len = e.pos
             e.state = State.RUNNING
+            # the prompt's KV is final: publish its full blocks so
+            # concurrent same-prefix requests share them now
+            self.sched.index_prefix(e, e.prefill_tokens(), e.pos)
             if e.replay:
                 e.replay = False
             else:
@@ -321,18 +419,59 @@ class Engine:
         self._commit_decode(run_rows, tok_np, lp_np, finished)
         return finished
 
+    def _record_prompt_logprobs(self, e: SchedEntry, out: StepOutput,
+                                pos: int, valid: int) -> None:
+        """Fill req.prompt_logprobs_out[pos:pos+valid] from this prefill
+        chunk's all-position logits: logits[j] predicts position pos+j+1,
+        so position pos's own logprob comes from the PREVIOUS chunk's last
+        row (kept on the entry as ``plp_prev``); position 0 has no prefix
+        and records None. Replayed positions (already recorded) are
+        skipped by the exact-length guard."""
+        req = e.req
+        if not req.sampling.prompt_logprobs:
+            return
+        P = len(np.asarray(req.prompt).reshape(-1))
+        lps = req.prompt_logprobs_out
+        toks = np.asarray(e.prefill_tokens()).reshape(-1)
+        row = None
+        for j in range(valid):
+            p = pos + j
+            if p >= P:
+                break
+            if p == 0:
+                if not lps:
+                    lps.append(None)
+                continue
+            if len(lps) != p:
+                continue
+            if j == 0:
+                z = e.plp_prev
+            else:
+                if row is None:
+                    row = out.row_logits(e.slot)
+                z = row[j - 1]
+            if z is not None:
+                lps.append(sampling.token_logprob(z, int(toks[p])))
+        if pos + valid < P:
+            if row is None:
+                row = out.row_logits(e.slot)
+            e.plp_prev = np.array(row[valid - 1])
+        else:
+            e.plp_prev = None
+
     def _commit_decode(self, rows: List[SchedEntry], tok_np, lp_np,
                        finished: List[int]) -> None:
         """Commit one sampled token per decode row."""
         if not rows:
             return
+        kv_read = sum(e.ctx_len for e in rows) * self._kv_per_tok
         for e in rows:
             alive = self._commit_emitted(e, int(tok_np[e.slot]),
                                          lp_np[e.slot], finished)
             e.ctx_len += 1
             if alive and e.ctx_len + 1 > self.scfg.max_seq:
                 self._finish(e, finished)
-        self.metrics.on_decode_step()
+        self.metrics.on_decode_step(len(rows), kv_bytes=kv_read)
 
     def _finish(self, e: SchedEntry, finished: List[int]) -> None:
         self.metrics.on_finish(e.req.rid)
@@ -349,11 +488,13 @@ class Engine:
                                            device=self.device)
         self._active: Dict[int, Request] = {}
         self._done_at_admit: List[int] = []    # finished during prefill
+        self._host_rngs: Dict[int, np.random.Generator] = {}
 
     def _finish_slot(self, req: Request) -> None:
         req.done = True
         self.alloc.release(req.rid)
         self._active.pop(req.rid, None)
+        self._host_rngs.pop(req.rid, None)
         self.metrics.on_finish(req.rid)
 
     def _add_request_slots(self, req: Request) -> bool:
@@ -372,9 +513,19 @@ class Engine:
                 self.params, torch.tensor(prompt[None], device=self.device),
                 tmp)
         self._merge_slot(tmp, slot, len(prompt))
-        tok, lp = sampling.sample_np(logits[0, 0].cpu().numpy(),
-                                     sampling.effective_params(req.sampling))
-        status = self._append_token(req, tok, lp)
+        self._seed_presence(slot, req)
+        # the first token is drawn on the host, from a per-request numpy
+        # generator (the reference's slot engine does the same)
+        sp = sampling.effective_params(req.sampling)
+        rng = self._host_rngs.setdefault(
+            req.rid, np.random.default_rng(np.random.SeedSequence(
+                entropy=0 if sp.seed is None else sp.seed,
+                spawn_key=(req.rid & 0xFFFFFFFF,))))
+        seen = prompt.astype(np.int64) if sp.repetition_penalty != 1.0 \
+            else ()
+        tok, lp = sampling.sample_np(logits[0, 0].float().cpu().numpy(), sp,
+                                     rng, seen=seen)
+        status = self._append_token(req, slot, tok, lp)
         if status != "stop":
             self.metrics.on_first_token(req.rid)
         if status != "ok":                     # same checks the paged
@@ -407,15 +558,17 @@ class Engine:
             logits, self.cache = self.model.decode_step(
                 self.params, torch.tensor(tok, device=self.device),
                 self.cache)
-        tok_np, lp_np = self._sample_rows(logits[:, 0])
+        tok_np, lp_np = self._sample_rows(
+            [(slots[req.rid], req) for req in reqs], logits[:, 0])
         done_now = []
         for req in reqs:
             slot = slots[req.rid]
-            status = self._append_token(req, int(tok_np[slot]), lp_np[slot])
+            status = self._append_token(req, slot, int(tok_np[slot]),
+                                        lp_np[slot])
             if status != "stop":
                 self.metrics.on_token(req.rid)
             if status != "ok":
                 self._finish_slot(req)
                 done_now.append(req.rid)
-        self.metrics.on_decode_step()
+        self.metrics.on_decode_step(len(reqs))
         return finished + done_now

@@ -1,6 +1,16 @@
-"""Serving metrics, trimmed: per-request TTFT/TPOT, latency percentiles,
-token counts and tokens/s. Empty windows report ``None``, never a fake 0.
-"""
+"""Serving metrics: per-request TTFT/TPOT, percentile latency, tokens/s,
+the prefill-interference split of inter-token gaps, the prefix-cache
+counters and the paper's Table-II off-chip traffic counters (weight bytes,
+KV bytes, sparsity savings), with the block pool's and the prefix index's
+gauges spliced into ``summary()``.
+
+The port's copy of the reference's collector. The reference keeps every
+scalar in an ``obs.Registry`` with a Prometheus export; here they are
+plain counters (the registry and its metrics server come with the
+observability slice). The speculative-decoding counters come with the
+speculation slice.
+
+Empty windows report ``None`` (explicit null), never a fake 0."""
 
 from __future__ import annotations
 
@@ -10,6 +20,60 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.serve import kv_cache
+
+
+@dataclasses.dataclass
+class StepStats:
+    """One decode step's off-chip traffic (paper Table II units)."""
+    weight_bytes: float
+    kv_bytes: float
+    sparse_savings_bytes: float
+    tokens: int
+
+
+def weight_traffic(cfg: ModelConfig, scfg: ServeConfig):
+    """(weight_bytes, sparse_savings_bytes) streamed per decode step: the
+    paper's argument that ReLU sparsity ~halves FFN weight reads and int8
+    NMCE weights halve bytes/element again."""
+    bpe = 1 if scfg.int8_decode else 2
+    w_bytes = 0.0
+    savings = 0.0
+    for k in cfg.layer_kinds():
+        if k not in ("attn", "shared_attn", "moe"):
+            continue
+        attn = 2 * cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv_heads) \
+            * cfg.d_head * bpe / 2
+        w_bytes += attn
+        if k == "moe":
+            act_experts = cfg.top_k + cfg.n_shared_experts
+            per_e = (3 if cfg.glu else 2) * cfg.d_model * cfg.d_ff
+            dense = act_experts * per_e * bpe
+        else:
+            dense = (3 if cfg.glu else 2) * cfg.d_model * cfg.d_ff * bpe
+        if cfg.relu_sparse and scfg.sparse_decode:
+            frac = cfg.sparse_k_frac
+            glu_f = 2.0 if cfg.glu else 1.0
+            sparse = dense * (glu_f + frac) / (glu_f + 1)
+            savings += dense - sparse
+            w_bytes += sparse
+        else:
+            w_bytes += dense
+    return w_bytes, savings
+
+
+def traffic_step(cfg: ModelConfig, scfg: ServeConfig, n_tokens: int,
+                 kv_bytes: Optional[float] = None) -> StepStats:
+    """Traffic of one decode step serving ``n_tokens`` rows. ``kv_bytes``
+    overrides the contiguous worst-case estimate (the paged cache reports
+    actually-allocated bytes instead)."""
+    w_bytes, savings = weight_traffic(cfg, scfg)
+    if kv_bytes is None:
+        kv_bytes = kv_cache.kv_bytes(cfg, n_tokens, scfg.max_seq, 2)
+    return StepStats(weight_bytes=w_bytes, kv_bytes=kv_bytes,
+                     sparse_savings_bytes=savings, tokens=n_tokens)
+
 
 @dataclasses.dataclass
 class RequestMetrics:
@@ -17,9 +81,11 @@ class RequestMetrics:
     arrival: float
     prompt_len: int = 0
     first_token_at: Optional[float] = None
+    last_token_at: Optional[float] = None   # inter-token gap frontier
     finished_at: Optional[float] = None
     n_generated: int = 0
     preemptions: int = 0
+    cached_prompt_tokens: int = 0   # prefix-cache hit size at admission
 
     @property
     def ttft(self) -> Optional[float]:
@@ -44,8 +110,12 @@ class RequestMetrics:
 
 
 def percentile(values: List[float], p: float) -> Optional[float]:
+    """Percentile of a sample, ``None`` for an empty one; a single sample
+    reports itself exactly for every p."""
     if not values:
         return None
+    if len(values) == 1:
+        return float(values[0])
     return float(np.percentile(np.asarray(values), p))
 
 
@@ -54,17 +124,36 @@ def _ms(v: Optional[float]) -> Optional[float]:
 
 
 class MetricsCollector:
-    """Accumulates per-request and per-step serving counts."""
+    """Accumulates per-request and per-step serving metrics. ``pool`` and
+    ``prefix`` (set by the paged engine) splice their ``stats()`` into
+    ``summary()``."""
 
-    def __init__(self, clock=time.monotonic):
+    def __init__(self, cfg: ModelConfig, scfg: ServeConfig,
+                 clock=time.monotonic):
+        self.cfg = cfg
+        self.scfg = scfg
         self.clock = clock
         self.requests: Dict[int, RequestMetrics] = {}
-        self._t0: Optional[float] = None
+        self.step_stats: List[StepStats] = []
         self.decode_steps = 0
         self.prefill_chunks = 0
-        self.prefill_tokens = 0
+        self.prefill_tokens = 0      # prompt tokens run through the model
         self.evictions = 0
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_cached_tokens = 0
+        self.weight_bytes = 0.0
+        self.kv_bytes = 0.0
+        self.sparse_savings_bytes = 0.0
+        # every inter-token gap, split by whether a prefill ran in the same
+        # tick (the prefill-interference split)
+        self._tpot_overlap: List[float] = []
+        self._tpot_steady: List[float] = []
+        self.pool = None             # PagedKVCache (paged engine)
+        self.prefix = None           # RadixPrefixCache (prefix_cache)
+        self._t0: Optional[float] = None
 
+    # --- request lifecycle events ---
     def on_arrival(self, rid: int, prompt_len: int) -> None:
         at = self.clock()
         if self._t0 is None:
@@ -74,12 +163,24 @@ class MetricsCollector:
 
     def on_first_token(self, rid: int) -> None:
         r = self.requests[rid]
+        now = self.clock()
         if r.first_token_at is None:
-            r.first_token_at = self.clock()
+            r.first_token_at = now
+        r.last_token_at = now
         r.n_generated += 1
 
-    def on_token(self, rid: int) -> None:
-        self.requests[rid].n_generated += 1
+    def on_token(self, rid: int, prefill_overlap: bool = False) -> None:
+        """One committed decode token; ``prefill_overlap`` says whether a
+        prefill ran in the tick that produced it."""
+        r = self.requests[rid]
+        now = self.clock()
+        prev = r.last_token_at if r.last_token_at is not None \
+            else r.first_token_at
+        if prev is not None:
+            (self._tpot_overlap if prefill_overlap
+             else self._tpot_steady).append(now - prev)
+        r.last_token_at = now
+        r.n_generated += 1
 
     def on_finish(self, rid: int) -> None:
         self.requests[rid].finished_at = self.clock()
@@ -88,14 +189,38 @@ class MetricsCollector:
         self.requests[rid].preemptions += 1
         self.evictions += 1
 
-    def on_decode_step(self) -> None:
+    def on_prefix_lookup(self, rid: int, cached_tokens: int) -> None:
+        """One admission-time radix lookup; ``cached_tokens`` is the
+        matched block-aligned prefix length (0 = miss)."""
+        self.prefix_lookups += 1
+        if cached_tokens > 0:
+            self.prefix_hits += 1
+            self.prefix_cached_tokens += cached_tokens
+        r = self.requests.get(rid)
+        if r is not None:
+            r.cached_prompt_tokens = max(r.cached_prompt_tokens,
+                                         cached_tokens)
+
+    # --- step events ---
+    def on_decode_step(self, n_tokens: int,
+                       kv_bytes: Optional[float] = None) -> None:
         self.decode_steps += 1
+        stats = traffic_step(self.cfg, self.scfg, n_tokens,
+                             kv_bytes=kv_bytes)
+        self.step_stats.append(stats)
+        self.weight_bytes += stats.weight_bytes
+        self.kv_bytes += stats.kv_bytes
+        self.sparse_savings_bytes += stats.sparse_savings_bytes
 
     def on_prefill_chunk(self, n_tokens: int) -> None:
         self.prefill_chunks += 1
         self.prefill_tokens += n_tokens
 
+    # --- summary ---
     def summary(self) -> dict:
+        """The reference's summary keys, less the speculative-decoding
+        ones (``spec_*``) and the tracer's (``ticks``,
+        ``phase_ms_per_tick``, ``bucket_attainment``)."""
         done = [r for r in self.requests.values()
                 if r.finished_at is not None]
         ttfts = [r.ttft for r in done if r.ttft is not None]
@@ -104,16 +229,44 @@ class MetricsCollector:
         n_tok = sum(r.n_generated for r in done)
         wall = (max(r.finished_at for r in done) - self._t0) \
             if done and self._t0 is not None else None
-        return {"n_finished": len(done),
-                "generated_tokens": n_tok,
-                "tokens_per_s": (n_tok / wall) if wall else None,
-                "ttft_p50_ms": _ms(percentile(ttfts, 50)),
-                "ttft_p99_ms": _ms(percentile(ttfts, 99)),
-                "tpot_p50_ms": _ms(percentile(tpots, 50)),
-                "tpot_p99_ms": _ms(percentile(tpots, 99)),
-                "latency_p50_ms": _ms(percentile(lats, 50)),
-                "latency_p99_ms": _ms(percentile(lats, 99)),
-                "decode_steps": self.decode_steps,
-                "prefill_chunks": self.prefill_chunks,
-                "prefill_tokens": self.prefill_tokens,
-                "evictions": self.evictions}
+        ttft_hit = [r.ttft for r in done
+                    if r.ttft is not None and r.cached_prompt_tokens > 0]
+        ttft_miss = [r.ttft for r in done
+                     if r.ttft is not None and r.cached_prompt_tokens == 0]
+        return {
+            "n_finished": len(done),
+            "generated_tokens": n_tok,
+            "tokens_per_s": (n_tok / wall) if wall else None,
+            "ttft_p50_ms": _ms(percentile(ttfts, 50)),
+            "ttft_p99_ms": _ms(percentile(ttfts, 99)),
+            "latency_p50_ms": _ms(percentile(lats, 50)),
+            "latency_p99_ms": _ms(percentile(lats, 99)),
+            "tpot_p50_ms": _ms(percentile(tpots, 50)),
+            "tpot_p99_ms": _ms(percentile(tpots, 99)),
+            "tpot_p50_prefill_overlap_ms":
+                _ms(percentile(self._tpot_overlap, 50)),
+            "tpot_p99_prefill_overlap_ms":
+                _ms(percentile(self._tpot_overlap, 99)),
+            "tpot_p50_steady_ms": _ms(percentile(self._tpot_steady, 50)),
+            "tpot_p99_steady_ms": _ms(percentile(self._tpot_steady, 99)),
+            "tpot_overlap_samples": len(self._tpot_overlap),
+            "tpot_steady_samples": len(self._tpot_steady),
+            "decode_steps": self.decode_steps,
+            "prefill_chunks": self.prefill_chunks,
+            "evictions": self.evictions,
+            "weight_bytes": self.weight_bytes,
+            "kv_bytes": self.kv_bytes,
+            "sparse_savings_bytes": self.sparse_savings_bytes,
+            "prefix_lookups": self.prefix_lookups,
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_rate": (self.prefix_hits
+                                / max(self.prefix_lookups, 1)),
+            "prefix_cached_tokens": self.prefix_cached_tokens,
+            "ttft_hit_p50_ms": _ms(percentile(ttft_hit, 50)),
+            "ttft_miss_p50_ms": _ms(percentile(ttft_miss, 50)),
+            "kv_pool": self.pool.stats() if self.pool is not None else {},
+            "prefix_index": (self.prefix.stats()
+                             if self.prefix is not None else {}),
+            # sharded serving is a later slice: one device, no mesh
+            "mesh": {},
+        }

@@ -5,12 +5,15 @@ rows in the same fixed-width batch. The per-tick token width is bucketed
 as in the reference — {1} for pure decode ticks and the prefill chunk
 width — so a step's shapes match the reference's step for the same tick.
 The runner owns the device cache; the engine republishes the host-truth
-``lens`` and block tables before every step.
+``lens`` and block tables before every step. ``copy_blocks`` (copy-on-write)
+and ``apply_perm`` (defrag) mirror the host pool's block moves on every
+layer's pool leaves, int8 scales included.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -59,10 +62,18 @@ class StepBatch:
 class StepOutput:
     """Device results of one step: ``logits[b, j]`` is the distribution of
     the token following tokens[b, j]; ``last_logits[b]`` is row b's logits
-    at its last valid position."""
+    at its last valid position. ``row_logits`` copies one row to the host
+    on first use (prompt log-probabilities need every position)."""
 
     logits: torch.Tensor         # f32[B, S, V]
     last_logits: torch.Tensor    # f32[B, V]
+    _rows: Dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
+
+    def row_logits(self, slot: int) -> np.ndarray:
+        row = self._rows.get(slot)
+        if row is None:
+            row = self._rows[slot] = self.logits[slot].float().cpu().numpy()
+        return row
 
 
 class ModelRunner:
@@ -74,6 +85,10 @@ class ModelRunner:
         if scfg.attn_backend not in BACKENDS:
             raise ValueError(f"unknown attn_backend "
                              f"{scfg.attn_backend!r}; known: {BACKENDS}")
+        if scfg.attn_backend == "flash" and scfg.kv_quant:
+            raise ValueError(
+                "attn_backend='flash' reads fp block pools; int8 KV "
+                "(kv_quant) needs the naive dequantizing gather")
         self.model = model
         self.cfg = model.cfg
         self.params = params
@@ -81,7 +96,8 @@ class ModelRunner:
         self.device = device
         self.cache = model.init_paged_cache(
             scfg.max_batch, scfg.pool_blocks, scfg.block_size,
-            scfg.blocks_per_seq, dtype=dtype, device=device)
+            scfg.blocks_per_seq, dtype=dtype, device=device,
+            int8_kv=scfg.kv_quant)
         self.buckets = sorted({1, scfg.prefill_chunk})
         self.n_steps = 0
 
@@ -116,3 +132,28 @@ class ModelRunner:
             last = logits[torch.arange(logits.shape[0], device=dev), idx]
         self.n_steps += 1
         return StepOutput(logits=logits, last_logits=last)
+
+    # --- block maintenance --------------------------------------------------
+    def apply_perm(self, perm: np.ndarray) -> None:
+        """Apply a pool defrag permutation to the device block pools (new
+        storage row i = old row perm[i]), every leaf of every layer."""
+        p = torch.as_tensor(np.asarray(perm), dtype=torch.long,
+                            device=self.device)
+        for leaf in self.cache["units"]["b0"].values():
+            leaf.copy_(leaf.index_select(1, p))
+
+    def copy_blocks(self, pairs: List[Tuple[int, int]]) -> None:
+        """Copy-on-write: duplicate pool storage rows src -> dst across
+        every layer's block pools (all leaves, int8 scales included), on
+        the current stream, before the step that writes them. The host
+        side (paged_kv.cow_for_write) already rewrote the block table;
+        this mirrors the bytes so the writer's private copy starts
+        bit-identical to the shared original."""
+        if not pairs:
+            return
+        src = torch.tensor([a for a, _ in pairs], dtype=torch.long,
+                           device=self.device)
+        dst = torch.tensor([b for _, b in pairs], dtype=torch.long,
+                           device=self.device)
+        for leaf in self.cache["units"]["b0"].values():
+            leaf[:, dst] = leaf[:, src]

@@ -1,11 +1,18 @@
 """Request scheduler: admission control, chunked prefill interleaved with
-decode, FIFO/priority ordering, preemption-by-eviction.
+decode, FIFO/priority ordering, preemption-by-eviction, prefix reuse.
 
-The port's copy of the reference's scheduler (pure host policy over slots
-and the block pool), without the prefix-cache and speculative-decoding
-branches that later slices bring. Preemption is vLLM-style recompute: the
-victim's blocks are freed and its prompt plus already generated tokens
-replay through chunked prefill when capacity returns.
+The port's copy of the reference's scheduler: pure host policy over slots
+and the block pool, without the speculative-decoding and disagg branches
+that later slices bring. Preemption is vLLM-style recompute: the victim's
+blocks are freed and its prompt plus already generated tokens replay
+through chunked prefill when capacity returns.
+
+With ``ServeConfig.prefix_cache`` a radix index over token prefixes
+(serve.prefix_cache) rides along: admission matches the longest cached
+block-aligned prefix, maps those physical blocks into the new slot
+(refcount++), and chunked prefill covers only the uncached suffix —
+including on replay after eviction, where the victim's own prompt blocks
+are usually still indexed and re-prefill collapses to a table remap.
 """
 
 from __future__ import annotations
@@ -24,10 +31,16 @@ from repro_torch.serve.sampling import SamplingParams
 
 @dataclasses.dataclass
 class Request:
-    """One generation request. ``sampling`` carries the per-request
-    decoding contract; ``sampling.max_tokens`` tightens ``max_new`` at
-    admission; with ``sampling.logprobs``, ``logprobs_out[i]`` is the
-    log-probability of ``tokens_out[i]``."""
+    """One generation request.
+
+    ``sampling`` carries the per-request decoding contract (temperature,
+    top-k/top-p, repetition penalty, stop sequences, max_tokens,
+    logprobs) end-to-end: api.submit -> scheduler -> engine -> runner.
+    ``sampling.max_tokens`` tightens ``max_new`` at admission; when
+    ``sampling.logprobs`` is set, ``logprobs_out[i]`` is the chosen-token
+    log-probability of ``tokens_out[i]``; ``sampling.prompt_logprobs``
+    fills ``prompt_logprobs_out[i]`` with the log-probability of
+    ``prompt[i]`` given ``prompt[:i]`` (index 0 is None — no prefix)."""
     rid: int
     prompt: np.ndarray          # i32[S]
     max_new: int = 16
@@ -37,6 +50,8 @@ class Request:
     sampling: SamplingParams = dataclasses.field(
         default_factory=SamplingParams)
     logprobs_out: List[float] = dataclasses.field(default_factory=list)
+    prompt_logprobs_out: List[Optional[float]] = dataclasses.field(
+        default_factory=list)
 
 
 class State(enum.Enum):
@@ -53,13 +68,17 @@ class SchedEntry:
     state: State = State.WAITING
     slot: Optional[int] = None
     pos: int = 0                # prefill frontier (tokens written)
-    ctx_len: int = 0            # committed context once RUNNING
+    ctx_len: int = 0            # device lens[slot] mirror once RUNNING
     replay: bool = False        # re-prefill after eviction
+    cached_len: int = 0         # prefix-cache hit: tokens mapped at admit
+    plp_prev: Optional[np.ndarray] = None  # prompt-logprobs chunk seam:
+    #                              last-position logits of the prior chunk
 
     def prefill_tokens(self) -> np.ndarray:
         """What chunked prefill must process: the prompt, plus — after an
-        eviction — every generated token except the last (whose KV the
-        next decode step writes)."""
+        eviction — every generated token except the last (whose KV is
+        written by the next decode step, same as the steady-state
+        invariant)."""
         prompt = np.asarray(self.req.prompt)
         if not self.replay or len(self.req.tokens_out) <= 1:
             return prompt
@@ -68,26 +87,33 @@ class SchedEntry:
 
 
 class Scheduler:
-    """Decides, per tick, which prefill chunks run and which rows decode."""
+    """Decides, per tick, which prefill chunk runs and which rows decode."""
 
-    def __init__(self, scfg: ServeConfig, pool: PagedKVCache):
+    def __init__(self, scfg: ServeConfig, pool: PagedKVCache, prefix=None):
         if scfg.policy not in ("fifo", "priority"):
             raise ValueError(f"unknown scheduling policy {scfg.policy!r}")
         self.scfg = scfg
         self.pool = pool
+        self.prefix = prefix        # RadixPrefixCache | None
         self.slots = SlotAllocator(scfg.max_batch)
         self.waiting: List[SchedEntry] = []
         self.active: Dict[int, SchedEntry] = {}     # rid -> PREFILL/RUNNING
         self._seq = 0
+        self.n_preemptions = 0
+        self.n_rejected = 0
 
+    # --- ordering ---------------------------------------------------------
     def _key(self, e: SchedEntry):
         if self.scfg.policy == "priority":
             return (-e.req.priority, e.seq)
         return (e.seq,)
 
+    # --- admission --------------------------------------------------------
     def submit(self, req: Request) -> bool:
-        """Admission control: a bounded queue; beyond it, shed load."""
+        """Admission control: bounded queue; beyond it, shed load at the
+        door instead of growing tail latency unboundedly."""
         if len(self.waiting) >= self.scfg.max_queue:
+            self.n_rejected += 1
             return False
         e = SchedEntry(req=req, seq=self._seq)
         self._seq += 1
@@ -97,23 +123,76 @@ class Scheduler:
 
     def admit(self) -> List[SchedEntry]:
         """Move waiting requests into slots while a slot AND enough
-        allocatable blocks for the first prefill chunk exist."""
+        allocatable blocks for at least the first prefill chunk exist.
+
+        With a prefix index, the longest cached block-aligned prefix is
+        mapped into the slot first (``pool.share``: refcount++, no new
+        blocks, no prefill work) and the chunk budget covers only the
+        uncached suffix. The share is rolled back (free_slot) if the
+        suffix's first chunk doesn't fit — matched-but-unadmitted blocks
+        must drop back to reclaimable, not leak references."""
         admitted = []
         while self.waiting and self.slots.free:
             e = self.waiting[0]
-            first = min(self.scfg.prefill_chunk, len(e.prefill_tokens()))
-            if self.pool.blocks_for(first) > self.pool.n_free:
+            toks = e.prefill_tokens()
+            shared: List[int] = []
+            cached_len = 0
+            if self.prefix is not None \
+                    and not e.req.sampling.prompt_logprobs:
+                # prompt_logprobs needs real logits for every prompt
+                # position — cached positions never run through the model.
+                # record=False: a blocked head-of-line request repeats
+                # this lookup every tick; stats count once, on admission.
+                shared, cached_len = self.prefix.match(toks, record=False)
+            first = min(self.scfg.prefill_chunk, len(toks) - cached_len)
+            # capacity precheck BEFORE touching refcounts: new blocks for
+            # the suffix chunk, plus one reclaimable revived per matched
+            # block nobody references (sharing it removes it from the
+            # pool's allocatable count). Conservative, so a blocked
+            # request never churns share/free counters while it waits.
+            need_new = self.pool.blocks_for(cached_len + first) \
+                - len(shared)
+            revived = sum(1 for b in shared
+                          if self.pool.ref.get(b, 0) == 0)
+            if need_new + revived > self.pool.n_free:
                 break
-            e.slot = self.slots.alloc(e.req.rid)
+            slot = self.slots.alloc(e.req.rid)
+            self.pool.share(slot, shared)
+            if not self.pool.can_allocate(slot, cached_len + first):
+                self.pool.free_slot(slot)      # precheck was conservative,
+                self.slots.release(e.req.rid)  # not wrong — roll back
+                break
+            if self.prefix is not None \
+                    and not e.req.sampling.prompt_logprobs:
+                self.prefix.record_lookup(cached_len)
+            e.slot = slot
             e.state = State.PREFILL
-            e.pos = 0
+            e.pos = cached_len
+            e.cached_len = cached_len
             self.waiting.pop(0)
             self.active[e.req.rid] = e
             admitted.append(e)
         return admitted
 
+    # --- prefix indexing --------------------------------------------------
+    def index_prefix(self, e: SchedEntry, tokens, n_tokens: int) -> None:
+        """Insert ``e``'s leading full blocks into the prefix index once
+        their KV is final: ``tokens[:n_tokens]`` have device KV written
+        and no future write can touch a full block below that frontier
+        (rollback keeps whole blocks; writes past the frontier COW)."""
+        if self.prefix is None or e.slot is None:
+            return
+        blocks = self.pool.owned.get(e.slot, [])
+        n_full = min(n_tokens // self.pool.block_size, len(blocks))
+        if n_full > 0:
+            toks = np.asarray(tokens).reshape(-1)
+            self.prefix.insert(toks[:n_full * self.pool.block_size],
+                               blocks[:n_full])
+
+    # --- per-tick picks ---------------------------------------------------
     def prefill_entries(self) -> List[SchedEntry]:
-        """Active mid-prefill entries in policy order."""
+        """Active mid-prefill entries in policy order — the engine gives
+        each one a PREFILL row of the unified step this tick."""
         return sorted((e for e in self.active.values()
                        if e.state == State.PREFILL), key=self._key)
 
@@ -121,10 +200,13 @@ class Scheduler:
         return sorted((e for e in self.active.values()
                        if e.state == State.RUNNING), key=lambda e: e.slot)
 
+    # --- preemption -------------------------------------------------------
     def pick_victim(self, e: SchedEntry) -> Optional[SchedEntry]:
         """Lowest-precedence active request ranking strictly BELOW the
-        requester (strict, so two requests too big to coexist cannot evict
-        each other forever)."""
+        requester. The strict ordering matters: if eviction were mutual,
+        two requests too big to coexist would evict each other forever.
+        With it, the highest-precedence request always wins its blocks and
+        runs to completion; the loser defers until capacity returns."""
         ek = self._key(e)
         cands = [v for v in self.active.values()
                  if v.req.rid != e.req.rid and self._key(v) > ek]
@@ -133,24 +215,55 @@ class Scheduler:
         return max(cands, key=self._key)
 
     def preempt(self, e: SchedEntry) -> None:
-        """Evict: release blocks + slot, requeue for recompute."""
+        """Evict: release block refs + slot, requeue for recompute.
+        Blocks the prefix index holds (the victim's own prompt, typically)
+        merely drop to reclaimable — if they survive until readmission,
+        the replay prefill matches them and skips the recompute."""
         self.pool.free_slot(e.slot)
         self.slots.release(e.req.rid)
         del self.active[e.req.rid]
         e.slot = None
         e.pos = 0
         e.ctx_len = 0
+        e.cached_len = 0
         e.state = State.WAITING
         e.replay = bool(e.req.tokens_out)
+        if e.req.sampling.prompt_logprobs:
+            P = len(np.asarray(e.req.prompt).reshape(-1))
+            if len(e.req.prompt_logprobs_out) < P:
+                # mid-prefill eviction: the chunk-seam logits are stale
+                # after replay restarts at pos 0 — recompute from scratch
+                e.req.prompt_logprobs_out.clear()
+        e.plp_prev = None
         self.waiting.append(e)
         self.waiting.sort(key=self._key)
+        self.n_preemptions += 1
 
     def finish(self, e: SchedEntry) -> None:
+        # index the finished request's blocks BEFORE releasing them: the
+        # generated tokens extend the cached chain (multi-turn traffic
+        # re-sends prompt+response as the next prompt). KV is valid up to
+        # the committed frontier — the final token's KV was never written
+        # (steady-state invariant), so it never indexes.
+        if self.prefix is not None:
+            if e.state == State.PREFILL:
+                self.index_prefix(e, e.prefill_tokens(), e.pos)
+            else:
+                prompt = np.asarray(e.req.prompt).reshape(-1)
+                seq = np.concatenate(
+                    [prompt, np.asarray(e.req.tokens_out, prompt.dtype)])
+                kv_valid = len(prompt) + max(len(e.req.tokens_out) - 1, 0)
+                self.index_prefix(e, seq, kv_valid)
         e.state = State.DONE
         e.req.done = True
         self.pool.free_slot(e.slot)
         self.slots.release(e.req.rid)
         del self.active[e.req.rid]
+
+    # --- introspection ----------------------------------------------------
+    @property
+    def n_waiting(self) -> int:
+        return len(self.waiting)
 
     @property
     def n_active(self) -> int:

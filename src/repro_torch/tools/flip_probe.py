@@ -126,11 +126,11 @@ class Recorder:
             engine.model.prefill = recording_prefill
         sample, append = engine._sample_rows, engine._append_token
 
-        def recording_sample(last_logits):
+        def recording_sample(pairs, last_logits):
             self._z = last_logits.float().cpu().numpy()
-            return sample(last_logits)
+            return sample(pairs, last_logits)
 
-        def recording_append(req, tok, lp):
+        def recording_append(req, slot, tok, lp):
             i = len(req.tokens_out)
             if self.paged:
                 row = engine.sched.active[req.rid].slot
@@ -140,7 +140,7 @@ class Recorder:
                                          else self._z[row])
             if i > 0:
                 self.where[(req.rid, i)] = (len(self.h) - 1, row)
-            return append(req, tok, lp)
+            return append(req, slot, tok, lp)
         engine._sample_rows = recording_sample
         engine._append_token = recording_append
 

@@ -31,7 +31,11 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,Hq,Kv,Dh,bs", [(1, 4, 4, 32, 16),
                                            (5, 32, 8, 64, 16),
-                                           (32, 8, 2, 128, 8)])
+                                           (32, 8, 2, 128, 8),
+                                           (1, 4, 2, 16, 16),
+                                           (5, 4, 2, 16, 8),
+                                           (16, 4, 2, 16, 16),
+                                           (1, 8, 1, 16, 16)])
 def test_paged_attention_kernel_matches_plain(cuda, S, Hq, Kv, Dh, bs):
     rng = np.random.default_rng(S)
     B, nb, MB = 3, 40, 12
@@ -73,7 +77,8 @@ def test_sparse_gather_kernel_matches_plain(cuda, B, k, d_ff, d):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
 
 
-def _paged_edge_inputs(rng, cuda, S, Hq, Kv, Dh, bs, MB, lens):
+def _paged_edge_inputs(rng, cuda, S, Hq, Kv, Dh, bs, MB, lens,
+                       pool_dtype=torch.float32):
     """Pools and scattered tables covering each row's causal limit; the
     last row is IDLE (all sentinel)."""
     B = len(lens)
@@ -86,7 +91,7 @@ def _paged_edge_inputs(rng, cuda, S, Hq, Kv, Dh, bs, MB, lens):
     q = torch.tensor(rng.standard_normal((B, S, Hq, Dh)), dtype=torch.float32,
                      device=cuda)
     kp, vp = (torch.tensor(rng.standard_normal((nb, bs, Kv, Dh)),
-                           dtype=torch.float32, device=cuda) for _ in range(2))
+                           dtype=pool_dtype, device=cuda) for _ in range(2))
     return (q, kp, vp, torch.tensor(tables, device=cuda),
             torch.tensor(np.asarray(lens, np.int32), device=cuda))
 
@@ -116,6 +121,55 @@ def test_paged_attention_kernel_split_edges(cuda, bs, S, G, MB):
                                want[:-1].cpu().numpy(), **TOL)
     assert torch.equal(got[-1], torch.zeros_like(got[-1]))
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,Dh", [(torch.float32, 16),
+                                      (torch.bfloat16, 16),
+                                      (torch.bfloat16, 32),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 128)])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("S,G,MB", [(1, 1, 64), (1, 2, 64), (3, 4, 64),
+                                    (5, 4, 64), (16, 2, 64), (32, 4, 64),
+                                    (1, 1, 4), (4, 4, 4)])
+def test_paged_attention_kernel_dh16_and_bf16_pools(cuda, dtype, Dh, bs, S,
+                                                    G, MB):
+    """Head dim 16 (the SMOKE configs' and the reference's own kernel
+    sweeps, tests/test_kernels.py) with f32 and bf16 pools, and bf16 pools
+    at every other head dim, over the same edges as the f32 sweep: rows
+    and tile kernels, split and unsplit, an IDLE row of exact zeros.
+    Launched twice: the same bits."""
+    rng = np.random.default_rng(bs * 100 + S * 10 + G + Dh)
+    Kv = 2
+    cap = MB * bs - S
+    lens = [max(0, min(cap, x))
+            for x in (bs - S, 3 * bs - S, cap - 11, 37 * bs + 5, 0)]
+    args = _paged_edge_inputs(rng, cuda, S, Kv * G, Kv, Dh, bs, MB, lens,
+                              pool_dtype=dtype)
+    got = decode_attn.paged_attention(*args)
+    again = decode_attn.paged_attention(*args)
+    want = ref.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got[:-1].cpu().numpy(),
+                               want[:-1].cpu().numpy(), **TOL)
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_paged_attention_refuses_other_head_dims(cuda):
+    """A head dim outside {16, 32, 64, 128} raises before any launch;
+    mixed pool types raise too. No fallback to the plain version."""
+    rng = np.random.default_rng(0)
+    args = _paged_edge_inputs(rng, cuda, 1, 4, 2, 48, 16, 4, [3, 0])
+    with pytest.raises(ValueError, match="d_head"):
+        decode_attn.paged_attention(*args)
+    q, kp, vp, t, ln = _paged_edge_inputs(rng, cuda, 1, 4, 2, 16, 16, 4,
+                                          [3, 0])
+    with pytest.raises(TypeError, match="v_pool"):
+        decode_attn.paged_attention(q, kp, vp.bfloat16(), t, ln)
 
 
 @pytest.mark.cuda
@@ -152,7 +206,10 @@ def test_sparse_gather_kernel_split_edges(cuda, B, k, d_ff, d):
     (4, 4, 32, 2048, torch.float32),      # nectar slot decode
     (32, 8, 64, 2048, torch.float32),     # llama3.2-1b widths
     (32, 8, 64, 300, torch.bfloat16),
-    (8, 2, 128, 77, torch.float32)])
+    (8, 2, 128, 77, torch.float32),
+    (4, 4, 16, 96, torch.float32),        # the reference's Dh-16 sweeps
+    (8, 1, 16, 64, torch.float32),
+    (4, 2, 16, 2048, torch.bfloat16)])
 def test_decode_attention_kernel_matches_plain(cuda, Hq, Kv, Dh, S, dtype):
     """kv_len 1..S, past S (an idle slot: all S visible) and 0 (every
     position masked: a mean over all S)."""
@@ -175,7 +232,7 @@ def test_decode_attention_kernel_matches_plain(cuda, Hq, Kv, Dh, S, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G", [1, 4, 8, 20])
-@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
 def test_decode_attention_kernel_split_edges(cuda, dtype, G, Dh):
     """The edges of the split design (``decode_plan``): kv_len 0, 1,
     31-33, S-1, S, S+5, and one key either side of the last chunk of a

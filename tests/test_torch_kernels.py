@@ -307,6 +307,9 @@ H100_SMS = 132
     (5, 32, 8, 64, "tile", 32, 5),    # S*G = 20
     (32, 32, 8, 64, "tile", 64, 3),   # S*G = 128
     (3, 8, 2, 128, "rows", 16, 17),   # S*G = 12
+    (1, 4, 2, 16, "rows", 4, 16),     # llama3.2-1b-smoke decode, Dh 16
+    (16, 4, 2, 16, "tile", 32, 17),   # its prefill chunk of 16
+    (1, 4, 1, 16, "rows", 4, 16),     # granite-34b-smoke (one KV head)
 ])
 def test_paged_plan_picks_kernel_and_split(S, Hq, Kv, Dh, kind, rows,
                                            n_split):
@@ -320,6 +323,38 @@ def test_paged_plan_picks_kernel_and_split(S, Hq, Kv, Dh, kind, rows,
     assert grid[0] == n_split and grid[2] == 8
     assert grid[1] * plan["rows"] >= Kv * S * (Hq // Kv) or kind == "rows"
     assert plan["smem"] <= decode_attn._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("S,G", [(1, 1), (1, 2), (3, 4), (5, 4), (16, 2),
+                                 (32, 4), (16, 4)])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+def test_paged_plan_shared_memory_follows_the_layout(S, G, Dh):
+    """The plan's shared memory is the .cu layout, byte for byte, for f32
+    and bf16 pools: the table, the f32 queries, then per warp a two-stage
+    ring of K rows padded by one 16-byte copy per lane of a key and V
+    rows, plus f32 P (rows kernel), or one ring and P for the CTA (tile
+    kernel). A bf16 ring holds the same keys in half the bytes, and the
+    split does not depend on the pool type."""
+    MB = 128
+    for nbytes in (4, 2):
+        plan = decode_attn.paged_plan(8, S, 2 * G, 2, Dh, 16, MB, H100_SMS,
+                                      nbytes)
+        R, ve = S * G, 16 // nbytes
+        if R >= 16:
+            rt = 32 if R <= 32 else 64
+            want = 4 * MB + 4 * rt * (Dh + 4) \
+                + 2 * 32 * (2 * Dh + ve) * nbytes + 4 * rt * 40
+        else:
+            rt = 1 if R == 1 else 4 if R <= 4 else 16
+            lpk = max(1, Dh // 32)
+            kc = 32 // lpk
+            want = 4 * MB + 4 * rt * Dh + 4 * (
+                2 * kc * (2 * Dh + ve * lpk) * nbytes + 4 * rt * kc)
+        assert plan["smem"] == want <= decode_attn._SMEM_LIMIT
+        assert plan["rows"] == rt
+    f32 = decode_attn.paged_plan(8, S, 2 * G, 2, Dh, 16, MB, H100_SMS)
+    bf16 = decode_attn.paged_plan(8, S, 2 * G, 2, Dh, 16, MB, H100_SMS, 2)
+    assert bf16["n_split"] == f32["n_split"] and bf16["smem"] < f32["smem"]
 
 
 def test_paged_plan_takes_long_prefill_chunks_of_gqa_models():
@@ -375,6 +410,8 @@ def test_gather_plan_splits_a_huge_k_to_fit_shared_memory():
     (12, 333, 16, 2, 128, 4, 8, 11),    # G = 8: 42 chunks of 8 keys
     (1, 333, 40, 2, 128, 2, 16, 11),    # G = 20: two CTAs per KV head
     (4, 40, 4, 4, 32, 4, 1, 1),         # 2 chunks: no split
+    (8, 2048, 4, 2, 16, 4, 4, 16),      # llama3.2-1b-smoke, Dh 16, f32
+    (8, 2048, 4, 2, 16, 2, 4, 16),      # the same, bf16 K/V
 ])
 def test_decode_plan_picks_rows_and_split(B, S, Hq, Kv, Dh, nbytes, rows,
                                           n_split):
@@ -386,7 +423,7 @@ def test_decode_plan_picks_rows_and_split(B, S, Hq, Kv, Dh, nbytes, rows,
     G = Hq // Kv
     assert (plan["rows"], plan["n_split"]) == (rows, n_split)
     assert plan["grid"] == (n_split, Kv * -(-G // rows), B)
-    assert plan["chunk"] == 32 // (Dh // 32)
+    assert plan["chunk"] == 32 // max(1, Dh // 32)
     assert plan["smem"] <= decode_attn._SMEM_LIMIT
 
 
@@ -396,7 +433,7 @@ def test_decode_plan_leaves_no_split_empty(S, B, Kv):
     """Chunk c goes to split c % n_split: on the longest context (kv_len >=
     S) every split gets a chunk, and each split's first round gives every
     warp but those of the last split a chunk."""
-    for Dh in (32, 64, 128):
+    for Dh in (16, 32, 64, 128):
         for G in (1, 4, 8):
             plan = decode_attn.decode_plan(B, S, Kv * G, Kv, Dh, 4,
                                            H100_SMS)
@@ -406,7 +443,7 @@ def test_decode_plan_leaves_no_split_empty(S, B, Kv):
                 < n_chunks or plan["n_split"] == 1
 
 
-@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("nbytes", [4, 2])
 def test_decode_plan_stays_within_shared_memory(Dh, nbytes):
     """Any G: past 16 query heads per KV head the heads take more CTAs,

@@ -1,0 +1,112 @@
+"""The port's serve CLI and the metrics summary it prints, on the CPU.
+
+``python -m repro_torch.launch.serve --device cpu`` serves a SMOKE config
+end to end; the reference CLI's flags of later slices are refused with
+the ROADMAP item that brings them; ``metrics.summary()`` has the
+reference's keys less those ROADMAP names as waiting for speculation.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config
+from repro.configs.base import ServeConfig as JaxServeConfig
+from repro.models import Model as JaxModel
+from repro.serve.engine import Engine as JaxEngine
+from repro.serve.scheduler import Request as JaxRequest
+from repro_torch.configs import get_config as torch_get_config
+from repro_torch.configs.base import ServeConfig
+from repro_torch.launch import serve as cli
+from repro_torch.serve.engine import Engine
+from repro_torch.serve.scheduler import Request
+from repro_torch.weights import from_jax_params
+
+ROOT = Path(__file__).resolve().parents[1]
+# the reference's summary keys that wait for speculative decoding
+# (ROADMAP queue 1, item 2)
+SPEC_KEYS = {"spec_steps", "spec_acceptance_rate", "spec_tokens_per_verify",
+             "spec_per_request"}
+
+
+def test_cli_serves_on_the_cpu():
+    """The module runs as a program: paged engine, prefix cache, seeded
+    sampled rows, a JSON summary on stdout."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "nectar-relu-llama-smoke", "--requests", "3",
+         "--max-new", "3", "--max-batch", "2", "--prefix-cache",
+         "--temperature", "0.7", "--seed", "1"],
+        capture_output=True, text=True, env=env, timeout=600, check=True)
+    s = json.loads(out.stdout)
+    assert s["device"] == "cpu" and s["requests"] == 3 and s["tokens"] == 9
+    assert s["evictions"] == 0 and s["kv_pool_capacity_bytes"] > 0
+
+
+@pytest.mark.parametrize("argv", [
+    ["--kv-quant", "--max-new", "2", "--requests", "2"],
+    ["--max-new", "2", "--requests", "2"],
+])
+def test_cli_main_in_process(argv):
+    """int8 KV implies the paged engine; the default is the slot engine."""
+    s = cli.main(["--device", "cpu", "--arch", "nectar-relu-llama-smoke",
+                  *argv])
+    assert s["tokens"] == 4
+    assert ("kv_pool_capacity_bytes" in s) == ("--kv-quant" in argv)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--ckpt-dir", "/nonexistent"], "item 9"), (["--mesh", "2"], "item 9"),
+    (["--shard-kv-seq"], "item 9"), (["--spec", "ngram"], "item 2"),
+    (["--spec-k", "3"], "item 2"), (["--async"], "item 3"),
+    (["--async-k", "2"], "item 3"), (["--async-sync-every", "2"], "item 3"),
+    (["--disagg"], "item 5"), (["--disagg-prefill-batch", "2"], "item 5"),
+    (["--disagg-prefill-blocks", "2"], "item 5"),
+    (["--direct-max-suffix", "2"], "item 5"), (["--replicas", "2"], "item 5"),
+    (["--router-policy", "round_robin"], "item 5"), (["--obs"], "item 4"),
+    (["--trace-out", "x"], "item 4"), (["--metrics-port", "9"], "item 4"),
+    (["--profile"], "item 4"),
+])
+def test_cli_refuses_flags_of_later_slices(flags, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--device", "cpu", *flags])
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert flags[0] in err and f"ROADMAP queue 1 {item}" in err
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_summary_has_the_reference_keys(paged):
+    """The same keys as the reference's summary, less the spec counters;
+    the nested pool and index gauges too."""
+    cfg = get_config("nectar-relu-llama-smoke")
+    jparams = JaxModel(cfg).init(jax.random.PRNGKey(0))
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams),
+                              torch_get_config(cfg.name), device="cpu")
+    kw = dict(paged=paged, max_batch=2, max_seq=64, block_size=8,
+              prefix_cache=paged)
+    prompt = np.arange(1, 12, dtype=np.int32)
+    jeng = JaxEngine(cfg, jparams, JaxServeConfig(**kw))
+    jeng.run([JaxRequest(rid=0, prompt=prompt, max_new=3)])
+    eng = Engine(torch_get_config(cfg.name), tparams, ServeConfig(**kw),
+                 device="cpu")
+    eng.run([Request(rid=0, prompt=prompt, max_new=3)])
+    js, s = jeng.metrics.summary(), eng.metrics.summary()
+    assert set(s) == set(js) - SPEC_KEYS
+    assert set(s["kv_pool"]) == set(js["kv_pool"])
+    assert set(s["prefix_index"]) == set(js["prefix_index"])
+    for key in ("n_finished", "generated_tokens", "decode_steps",
+                "prefill_chunks", "weight_bytes", "kv_bytes",
+                "sparse_savings_bytes", "prefix_lookups", "kv_pool",
+                "tpot_overlap_samples", "tpot_steady_samples"):
+        assert s[key] == js[key], key
+    assert len(eng.stats) == len(jeng.stats)
+    eng.reset_metrics()
+    assert eng.metrics.summary()["n_finished"] == 0

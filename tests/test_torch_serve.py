@@ -18,7 +18,8 @@ from repro.models import Model as JaxModel
 from repro.serve.engine import Engine as JaxEngine
 from repro.serve.scheduler import Request as JaxRequest
 from repro_torch.configs import get_config as torch_get_config
-from repro_torch.configs.base import ServeConfig, SpecConfig
+from repro_torch.configs.base import (AsyncConfig, ObsConfig, ServeConfig,
+                                      SpecConfig)
 from repro_torch.serve import api
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.sampling import SamplingParams
@@ -60,14 +61,14 @@ def _serve_port(cfg, params, prompts, max_new=8, **kw):
     margins, last = {}, {}
     sample, append = eng._sample_rows, eng._append_token
 
-    def recording_sample(last_logits):
+    def recording_sample(pairs, last_logits):
         last["z"] = last_logits.numpy()
-        return sample(last_logits)
+        return sample(pairs, last_logits)
 
-    def recording_append(req, tok, lp):
-        z = np.sort(last["z"][eng.sched.active[req.rid].slot])
+    def recording_append(req, slot, tok, lp):
+        z = np.sort(last["z"][slot])
         margins[(req.rid, len(req.tokens_out))] = float(z[-1] - z[-2])
-        return append(req, tok, lp)
+        return append(req, slot, tok, lp)
 
     eng._sample_rows, eng._append_token = recording_sample, recording_append
     done = eng.run([Request(rid=i, prompt=p, max_new=max_new)
@@ -168,8 +169,8 @@ def test_stop_sequences_and_max_tokens(nectar):
 
 @pytest.mark.parametrize("scfg_kw", [
     dict(paged=True, spec=SpecConfig()),
-    dict(paged=True, prefix_cache=True),
-    dict(paged=True, kv_quant=True),
+    dict(paged=True, async_cfg=AsyncConfig(enabled=True)),
+    dict(paged=True, obs=ObsConfig(enabled=True)),
 ])
 def test_engine_raises_for_features_of_later_slices(nectar, scfg_kw):
     _, _, tcfg, tparams = nectar
@@ -203,8 +204,17 @@ def test_slot_engine_serves_and_raises_for_paged_only_features(nectar,
     SamplingParams(prompt_logprobs=True),
 ])
 def test_engine_raises_for_sampled_rows(nectar, sp):
+    """Sampled rows, the repetition penalty and prompt log-probabilities,
+    which earlier slices refused with NotImplementedError, are admitted
+    and served through the normal entry points now."""
     _, _, tcfg, tparams = nectar
     eng = Engine(tcfg, tparams, ServeConfig(paged=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.add_request(Request(rid=0, prompt=np.arange(4, dtype=np.int32),
-                                sampling=sp))
+    req = Request(rid=0, prompt=np.arange(4, dtype=np.int32), max_new=3,
+                  sampling=sp)
+    assert eng.add_request(req)
+    eng.run([], max_steps=100)
+    assert req.done and len(req.tokens_out) == 3
+    if sp.prompt_logprobs:
+        assert req.prompt_logprobs_out[0] is None
+        assert len(req.prompt_logprobs_out) == 4
+        assert all(lp <= 0.0 for lp in req.prompt_logprobs_out[1:])

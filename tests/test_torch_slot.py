@@ -105,20 +105,20 @@ def _serve_port(cfg, params, prompts, max_new=8, **kw):
         last["prefill"] = logits[0, 0].numpy()
         return logits, cache
 
-    def recording_sample(last_logits):
+    def recording_sample(pairs, last_logits):
         last["decode"] = last_logits.numpy()
-        return sample(last_logits)
+        return sample(pairs, last_logits)
 
-    def recording_append(req, tok, lp):
+    def recording_append(req, slot, tok, lp):
         if kw.get("paged"):        # every token comes from a batched step
-            z = last["decode"][eng.sched.active[req.rid].slot]
+            z = last["decode"][slot]
         elif not req.tokens_out:   # the slot engine's prefill token
             z = last["prefill"]
         else:
-            z = last["decode"][eng.alloc.active[req.rid]]
+            z = last["decode"][slot]
         z = np.sort(z)
         margins[(req.rid, len(req.tokens_out))] = float(z[-1] - z[-2])
-        return append(req, tok, lp)
+        return append(req, slot, tok, lp)
 
     eng.model.prefill = recording_prefill
     eng._sample_rows, eng._append_token = recording_sample, recording_append
