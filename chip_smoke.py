@@ -11,7 +11,12 @@ Phases, each reporting on lines of its own:
   3. kernels — each kernel against its plain PyTorch version on the card,
                at nectar-relu-llama-1.7m's shapes and at llama3.2-1b's
                widths, kernels 1 and 5 also at llama3.2-1b-smoke's d_head
-               16 and kernel 1 with bf16 pools at nectar's shape
+               16 and kernel 1 with bf16 pools at nectar's shape, and
+               at the shapes speculative decoding gives them (kernel 1
+               at nectar verify rows of S = 5 and 9; kernel 5 at the
+               draft model's step with parked rows; kernel 2 over the
+               72 verify rows, the draft model's W_down [256, 64] and
+               self-spec's k = 32 of 640)
                (W8A8 also at Llama-3-8B's up projection; sentinel
                table entries and indices, an idle slot past the cache,
                dead d_ff blocks, int16 saturation); times
@@ -61,11 +66,25 @@ Phases, each reporting on lines of its own:
                serves the phase-5 prompts, card against CPU, near-tie rule.
  12. smoke   — llama3.2-1b-smoke (d_head 16, GQA 4/2) through the paged
                and the slot engine on the card, against the CPU.
- 13. profile — the paged, slot, prefix, sampled and int8kv serves again
-               under torch.profiler: each kernel's device time per launch
-               at the shapes the serve gives it, the profiler's launch counts
-               against the counters, the serve's device time over the
-               unprofiled serve's wall, and the same tokens as before.
+ 14. spec    — speculative decoding (runs before phase 13): a verify
+               row's logits against the same tokens decoded one row at a
+               time (KERNEL_ATOL); then the paged engine serves the
+               phase-5 prompts with greedy rows through the ngram, model
+               (nectar-relu-llama-draft, seeded weights) and selfspec
+               drafters (k 4, k_max 8, adaptive): kernels 1, 2 and 5
+               launch as the counters say, tokens agree with the phase-5
+               paged serve and with each serve's CPU run (near-tie rule);
+               verify steps, acceptance, tokens per verify, draft steps
+               and the drafting's share of the wall; then seeded sampled
+               rows (ngram, temperature 0.7), card against CPU, where a
+               sampled verify token's margin is the distance of a
+               uniform from its accept threshold or draw boundary.
+ 13. profile — the paged, slot, prefix, sampled, int8kv and the ngram and
+               model spec serves again under torch.profiler: each
+               kernel's device time per launch at the shapes the serve
+               gives it, the profiler's launch counts against the
+               counters, the serve's device time over the unprofiled
+               serve's wall, and the same tokens as before.
 It exits non-zero, printing no result, when there is no CUDA device or a
 check fails. Its last line is the result JSON; the line before it holds
 the per-kernel JSON. Details go to build/chip_smoke.json.
@@ -82,6 +101,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+STARTED = time.perf_counter()
 SEED = 0
 KERNEL_ATOL = 1e-4   # kernel vs plain version: the same f32 terms (bf16
 #                      K/V widened exactly) summed in another order;
@@ -95,9 +115,12 @@ F32_FLOPS_PER_S = 67e12       # H100 SXM f32 rate outside the tensor cores
 TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 PROFILE_ITERS = 20
-PROFILE_TRIES = 3             # runs of a profiled window that saw no device
-#                               activity at all (see ``profiled``)
+PROFILE_TRIES = 8             # windows a profiled measurement may take
+PROFILE_PAUSE_S = 0.2         # before a window runs again (see ``profiled``)
+PROFILE_DEADLINE_S = 900      # no window runs again after this
+BLIND = []                    # set once the profiler proved blind
 TOP_DEVICE = 6                # device-time leaders listed per profiled serve
+DRAFT_NAME = "nectar-relu-llama-draft"
 
 # kernel -> the names of its CUDA kernels (as the profiler reports them;
 # the first names the one launched once per wrapper call, a substring of
@@ -128,6 +151,15 @@ class Failure(Exception):
     pass
 
 
+def lap(clock, phase):
+    """Print the seconds since the script started and since the last lap,
+    at the end of ``phase``."""
+    now = time.perf_counter()
+    print(f"time: {phase} done at {now - clock[0]:.1f} s "
+          f"({now - clock[-1]:.1f} s)")
+    clock.append(now)
+
+
 def check(ok, msg):
     if not ok:
         raise Failure(msg)
@@ -150,38 +182,74 @@ def time_ms(fn, iters=100, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def profiled(fn):
-    """Run ``fn`` under torch.profiler (CPU and CUDA activity); returns
-    (its result, the profiler's per-name averages). On some machines the
-    profiler now and then returns a window with no device activity at all
-    although kernels ran in it: such a window runs again, up to
-    PROFILE_TRIES times in all. A window that shows device activity but
-    none for a given kernel still fails the run (``kernel_device``)."""
+def profiled(fn, complete=None, setup=None):
+    """Run ``fn`` under torch.profiler, given what ``setup`` returns where
+    there is one (called before each window, outside it, so that a window
+    that runs again starts afresh); returns (its result, the profiler's
+    per-name averages). The profiler records CUDA activity only: the CPU
+    side's ops are not read here, and recording them too made phase 13's
+    windows about twice as slow to read back. The profiler loses events
+    now and then: a window with no device activity at all although
+    kernels ran in it, or one that lacks some of them (about one window in
+    a hundred on an H100; several in a row on some machines). A window
+    that shows no device activity, or that ``complete`` (a test of the
+    averages) rejects, runs again after a short pause, up to PROFILE_TRIES
+    times in all while the script is younger than PROFILE_DEADLINE_S. If
+    no try showed device activity the averages are None: the profiler is
+    blind here and the caller reports its device times as not measured
+    (the launch counters still witness every kernel). If every try saw
+    device activity but none was complete, the last window's averages
+    return and the caller's own check decides."""
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(PROFILE_TRIES):
-        if attempt:
-            print("profiler: a window showed no device activity; running "
-                  "it again")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        averages = prof.key_averages()
-        if any(e.self_device_time_total > 0
-               for e in device_events(averages)):
+    averages, fault = None, None
+    for attempt in range(1 if BLIND else PROFILE_TRIES):
+        if attempt and time.perf_counter() - STARTED > PROFILE_DEADLINE_S:
+            print(f"profiler: window {attempt} {fault}; past "
+                  f"{PROFILE_DEADLINE_S} s, not running it again")
             break
+        if attempt:
+            print(f"profiler: window {attempt} of {PROFILE_TRIES} {fault}; "
+                  f"running it again")
+            time.sleep(PROFILE_PAUSE_S)
+        args = () if setup is None else (setup(),)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn(*args)
+            torch.cuda.synchronize()
+        window = prof.key_averages()
+        if not any(e.self_device_time_total > 0
+                   for e in device_events(window)):
+            fault = "showed no device activity"
+            continue
+        averages, fault = window, "lost events"
+        if complete is None or complete(averages):
+            break
+    if averages is None and not BLIND:
+        # a profiler blind for PROFILE_TRIES windows in a row takes one
+        # window a measurement from here on, so the run keeps its time
+        BLIND.append(True)
+        print(f"profiler: no device activity in {PROFILE_TRIES} windows; "
+              f"device times from here on are not measured where a single "
+              f"window shows none")
     return out, averages
+
+
+def launch_count(averages, kernel):
+    """How often the profiler saw ``kernel``'s first CUDA kernel run (once
+    per wrapper launch)."""
+    return sum(e.count for e in averages if KERNELS[kernel][0][0] in e.key)
 
 
 def kernel_device(averages, kernel):
     """(device µs, launches) the profiler attributes to ``kernel``: the
     CUDA time of all its CUDA kernels, and how often the first of them ran
-    (one per wrapper launch). A kernel the profiler does not see fails the
-    run: no other clock stands in for the device time."""
+    (one per wrapper launch). A kernel missing from a window that shows
+    device activity fails the run: no other clock stands in for the device
+    time."""
     names = KERNELS[kernel][0]
     us = sum(e.device_time_total for e in averages
              if any(n in e.key for n in names))
-    count = sum(e.count for e in averages if names[0] in e.key)
+    count = launch_count(averages, kernel)
     check(us > 0 and count > 0,
           f"{kernel}: torch.profiler attributes no device time to {names} "
           f"({len(device_events(averages))} device events in the window)")
@@ -197,43 +265,45 @@ def device_events(averages):
                   key=lambda e: -e.self_device_time_total)
 
 
-def window_averages(fn):
+def window_averages(fn, complete=None):
     """torch.profiler's per-name averages over PROFILE_ITERS calls of
-    ``fn``, after one call outside the window."""
+    ``fn``, after one call outside the window (None: see ``profiled``)."""
     fn()
     torch.cuda.synchronize()
-    return profiled(lambda: [fn() for _ in range(PROFILE_ITERS)])[1]
+    return profiled(lambda: [fn() for _ in range(PROFILE_ITERS)],
+                    complete)[1]
 
 
 def device_ms(fn, kernel):
     """The kernel's own device time per call, and the part of it its
     combine pass takes (0 where it has none or did not split): the CUDA
     time torch.profiler attributes to its kernels over PROFILE_ITERS
-    calls, averaged. A window in which the profiler saw fewer than
-    PROFILE_ITERS launches of the kernel (it drops events now and then)
-    runs again, up to PROFILE_TRIES times in all, and then fails."""
-    for attempt in range(PROFILE_TRIES):
-        averages = window_averages(fn)
-        count = kernel_device(averages, kernel)[1]
-        if count == PROFILE_ITERS:
-            break
-        print(f"profiler: {kernel} window counted {count} of "
-              f"{PROFILE_ITERS} launches; running it again")
+    calls, averaged. The window must count all PROFILE_ITERS launches;
+    (None, None) where the profiler was blind."""
+    averages = window_averages(
+        fn, lambda a: launch_count(a, kernel) == PROFILE_ITERS)
+    if averages is None:
+        return None, None
+    us, count = kernel_device(averages, kernel)
     check(count == PROFILE_ITERS,
           f"{kernel}: the profiler counted {count} of {PROFILE_ITERS} "
           f"launches in {PROFILE_TRIES} windows")
     combine = sum(e.device_time_total for e in averages
                   if any(n in e.key for n in KERNELS[kernel][0][1:]))
-    return (kernel_device(averages, kernel)[0] / PROFILE_ITERS / 1e3,
-            combine / PROFILE_ITERS / 1e3)
+    return us / PROFILE_ITERS / 1e3, combine / PROFILE_ITERS / 1e3
 
 
 def library_device_ms(fn):
     """A library call's device time per call: all the CUDA time
-    torch.profiler sees in the window of PROFILE_ITERS calls, averaged."""
-    total = sum(e.self_device_time_total
-                for e in device_events(window_averages(fn)))
-    check(total > 0, "torch.profiler saw no device time in a library call")
+    torch.profiler sees in the window of PROFILE_ITERS calls, averaged; a
+    window whose count of device events is no multiple of PROFILE_ITERS
+    lost some and runs again. None where the profiler was blind."""
+    averages = window_averages(
+        fn, lambda a: sum(e.count for e in device_events(a))
+        % PROFILE_ITERS == 0)
+    if averages is None:
+        return None
+    total = sum(e.self_device_time_total for e in device_events(averages))
     return total / PROFILE_ITERS / 1e3
 
 
@@ -675,11 +745,13 @@ def nmce_edges(dev, rng):
 
 def print_rows(kernel, rows):
     for r in rows:
-        lib, lib_dev = ("none" if r[key] is None else f"{r[key]:.5f}"
-                        for key in ("library_ms", "library_device_ms"))
+        lib, lib_dev, dev, comb = (
+            "none" if r[key] is None else f"{r[key]:.5f}"
+            for key in ("library_ms", "library_device_ms", "device_ms",
+                        "combine_device_ms"))
         print(f"kernel {kernel} [{r['case']}]: max_abs_err="
               f"{r['max_abs_err']:.3g} ms={r['ms']:.5f} device_ms="
-              f"{r['device_ms']:.5f} (combine {r['combine_device_ms']:.5f})"
+              f"{dev} (combine {comb})"
               f" plain_ms="
               f"{r['plain_ms']:.5f} library_ms={lib} library_device_ms="
               f"{lib_dev} bound_ms="
@@ -765,46 +837,56 @@ def serve(engine, prompts, max_new, sps=None):
     return tokens, rids, wall, engine.metrics.summary(), launches
 
 
-def profile_serve(label, engine, prompts, max_new, tokens, launches, wall,
-                  sps=None):
-    """Serve ``prompts`` once more, on a fresh ``engine``, under
-    torch.profiler. It must give the first serve's tokens and launch
-    counts, and the profiler must count the launches the counters do.
-    Returns each launched kernel's device time per launch at the shapes
-    the serve gives it, the serve's device time (every CUDA kernel and
-    copy), its share of the first, unprofiled serve's ``wall`` and the
-    TOP_DEVICE names that took most of it; for the slot engine also the
-    range of kv_len its decode attention saw."""
+def profile_serve(label, make_engine, prompts, max_new, tokens, launches,
+                  wall, sps=None):
+    """Serve ``prompts`` once more, on a fresh engine from ``make_engine``
+    (one for each window the profiler takes), under torch.profiler. It
+    must give the first serve's tokens and launch counts, and the profiler
+    must count the launches the counters do. Returns each launched
+    kernel's device time per launch at the shapes the serve gives it, the
+    serve's device time (every CUDA kernel and copy), its share of the
+    first, unprofiled serve's ``wall`` and the TOP_DEVICE names that took
+    most of it (None and empty where the profiler was blind); for the slot
+    engine also the range of kv_len its decode attention saw."""
     kv_lens = []
-    if not engine.scfg.paged:
-        decode_step = engine.model.decode_step
 
-        def recording_step(params, tok, cache):
-            kv_lens.append(cache["lens"].cpu().numpy() + 1)
-            return decode_step(params, tok, cache)
-        engine.model.decode_step = recording_step
+    def fresh_engine():
+        engine = make_engine()
+        kv_lens.clear()
+        if not engine.scfg.paged:
+            decode_step = engine.model.decode_step
+
+            def recording_step(params, tok, cache):
+                kv_lens.append(cache["lens"].cpu().numpy() + 1)
+                return decode_step(params, tok, cache)
+            engine.model.decode_step = recording_step
+        return engine
+
     (again, _, pwall, _, plaunches), averages = profiled(
-        lambda: serve(engine, prompts, max_new, sps))
+        lambda engine: serve(engine, prompts, max_new, sps),
+        lambda a: all(launch_count(a, key) == n
+                      for key, n in launches.items() if n),
+        fresh_engine)
     check(again == tokens,
           f"{label}: the profiled serve's tokens differ from the first's")
     check(plaunches == launches, f"{label}: the profiled serve launched "
           f"{plaunches}, the first {launches}")
-    per_launch = {}
-    for key, n in launches.items():
-        if n:
-            us, count = kernel_device(averages, key)
-            check(count == n, f"{label}: the profiler saw {key} run {count} "
-                  f"times, its counter {n}")
-            per_launch[key] = us / n / 1e3
-    on_device = device_events(averages)
-    device_total = sum(e.self_device_time_total for e in on_device) / 1e3
-    check(device_total > 0, f"{label}: the profiler saw no device time")
-    out = {"kernel_device_ms": per_launch, "device_ms": device_total,
-           "busy_share": device_total / (wall * 1e3),
-           "profiled_wall_s": pwall,
-           "top_device": [[e.key[:60], e.count,
-                           e.self_device_time_total / 1e3]
-                          for e in on_device[:TOP_DEVICE]]}
+    out = {"kernel_device_ms": {}, "device_ms": None, "busy_share": None,
+           "profiled_wall_s": pwall, "top_device": []}
+    if averages is not None:
+        for key, n in launches.items():
+            if n:
+                us, count = kernel_device(averages, key)
+                check(count == n, f"{label}: the profiler saw {key} run "
+                      f"{count} times, its counter {n}")
+                out["kernel_device_ms"][key] = us / n / 1e3
+        on_device = device_events(averages)
+        out["device_ms"] = sum(e.self_device_time_total
+                               for e in on_device) / 1e3
+        out["busy_share"] = out["device_ms"] / (wall * 1e3)
+        out["top_device"] = [[e.key[:60], e.count,
+                              e.self_device_time_total / 1e3]
+                             for e in on_device[:TOP_DEVICE]]
     if kv_lens:
         out["kv_len_range"] = [int(min(x.min() for x in kv_lens)),
                                int(max(x.max() for x in kv_lens))]
@@ -844,8 +926,189 @@ def compare_cpu(label, gpu_tokens, cpu_tokens, margins, rids):
     return flips
 
 
+class RecordingRNG:
+    """A numpy Generator as the acceptance rules use it (``random`` and
+    ``choice(n, p=p)``, the latter exactly as numpy draws it: one uniform
+    against the normalized CDF), recording each uniform and, for a draw,
+    its distance to the nearest CDF boundary."""
+
+    def __init__(self, rng):
+        self.rng, self.events = rng, []
+
+    def random(self):
+        u = self.rng.random()
+        self.events.append(u)
+        return u
+
+    def choice(self, n, p):
+        cdf = np.cumsum(p)
+        cdf /= cdf[-1]
+        u = self.rng.random()
+        i = int(np.searchsorted(cdf, u, side="right"))
+        lo = cdf[i - 1] if i else 0.0
+        self.events.append(min(u - lo, cdf[i] - u))
+        return i
+
+
+def spec_margins(logits, toks, qd, events, temperature):
+    """The margins of the tokens a sampled verify row emitted: for each,
+    the smallest distance, over the accept tests and the draw that decided
+    it, between a uniform and its threshold (min(1, p/q), or a CDF
+    boundary of the residual or bonus draw). ``events`` alternate as
+    ``rejection_accept`` consumes them: one uniform per accept test, one
+    draw margin after a rejection or after the last test."""
+    from repro_torch.serve.sampling import softmax
+    out, prev, ev = [], np.inf, iter(events)
+    for j, d in enumerate(toks):
+        u = next(ev)
+        p = softmax(logits[j], temperature)
+        q_d = 1.0 if qd is None else float(qd[j][d])
+        t = min(1.0, p[d] / max(q_d, 1e-12))
+        prev = min(prev, abs(u - t))
+        if u < t:
+            out.append(prev)
+            continue
+        out.append(min(prev, next(ev)))
+        return out
+    out.append(min(prev, next(ev)))
+    return out
+
+
+def recording_spec_engine(engine):
+    """``recording_engine`` for a spec engine. A first token's margin is
+    the top-2 gap of the score the sampler took it from; a greedy verify
+    token's the top-2 gap of its verify row's logits at its position; a
+    sampled verify token's is ``spec_margins``'s. Returns (the sampler's
+    score vectors, {(rid, index): margin}, {(rid, index): the score or
+    logits row that decided the token})."""
+    ticks, margins, deciding = [], {}, {}
+    state = {"logits": None, "verify": None}
+    rngs = {}
+    sampler, append, step = (engine.sampler, engine._append_token,
+                             engine.runner.step)
+    commit, accept_rng = engine._commit_verify, engine._accept_rng
+
+    def recording_sampler(*args):
+        ticks.append(perturbed_scores(*args))
+        return sampler(*args)
+
+    def recording_step(batch):
+        out = step(batch)
+        state["logits"] = out.logits.float().cpu().numpy()
+        return out
+
+    def recording_accept_rng(rid, sp):
+        if rid not in rngs:
+            rngs[rid] = RecordingRNG(accept_rng(rid, sp))
+        return rngs[rid]
+
+    def recording_append(req, slot, tok, lp):
+        key = (req.rid, len(req.tokens_out))
+        if state["verify"] is None:
+            deciding[key] = ticks[-1][slot]
+            z = np.sort(deciding[key])
+            margins[key] = float(z[-1] - z[-2])
+        else:
+            state["verify"].setdefault(req.rid, []).append(key)
+        return append(req, slot, tok, lp)
+
+    def recording_commit(rows, proposals, out, finished):
+        state["verify"] = {}
+        for r in rngs.values():
+            r.events.clear()
+        try:
+            return commit(rows, proposals, out, finished)
+        finally:
+            verify, state["verify"] = state["verify"], None
+            for e in rows:
+                keys = verify.get(e.req.rid, [])
+                _, toks, qd = proposals[e.req.rid]
+                z = state["logits"][e.slot]
+                temp = engine._sp(e.req).temperature
+                if temp <= 0:
+                    ms = [float(np.diff(np.sort(z[j])[-2:])[0])
+                          for j in range(len(keys))]
+                else:
+                    ms = spec_margins(z, toks, qd, rngs[e.req.rid].events,
+                                      temp)
+                margins.update(zip(keys, ms))
+                deciding.update((key, z[j]) for j, key in enumerate(keys))
+
+    engine.sampler = recording_sampler
+    engine.runner.step = recording_step
+    engine._accept_rng = recording_accept_rng
+    engine._append_token = recording_append
+    engine._commit_verify = recording_commit
+    return ticks, margins, deciding
+
+
+def flip_gaps(flips, rids, card_rows, cpu_rows):
+    """Add to each flip the largest card-against-CPU difference of the
+    scores or logits that decided its token (summation-order noise is
+    ~1e-6; a top-k swap in the sparse FFN moves them much more)."""
+    for f in flips:
+        key = (rids[f["request"]], f["step"])
+        f["logit_gap"] = float(np.abs(card_rows[key] - cpu_rows[key]).max())
+    return flips
+
+
+def timed_drafting(engine):
+    """Accumulate the wall time of the engine's drafting calls (each ends
+    with the draft logits on the host, so the device work is in it);
+    returns the dict whose "s" holds it."""
+    acc = {"s": 0.0}
+    propose = engine._propose
+
+    def timed(items):
+        t0 = time.perf_counter()
+        try:
+            return propose(items)
+        finally:
+            acc["s"] += time.perf_counter() - t0
+    engine._propose = timed
+    return acc
+
+
+def verify_against_sequential(cfg, params, dev, n_tok, bs=16):
+    """Max abs difference between one VERIFY row of ``n_tok`` tokens
+    (kernel 1 at S = n_tok, kernel 2 over its rows) and the same tokens
+    fed one DECODE row at a time, after a 13-token prompt."""
+    from repro_torch.models import Model
+    model = Model(cfg)
+    rng = np.random.default_rng(SEED + 6)
+    prompt = rng.integers(0, cfg.vocab, 13, dtype=np.int32)
+    toks = rng.integers(0, cfg.vocab, n_tok, dtype=np.int32)
+    MB = 8
+    P = len(prompt)
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+
+    def fresh():
+        c = model.init_paged_cache(1, MB, bs, MB, device=dev)
+        c["block_tables"] = torch.arange(MB, dtype=torch.int32,
+                                         device=dev)[None]
+        c["lens"] = t(np.zeros(1, np.int32))
+        model.forward_step(params, t(np.pad(prompt, (0, 32 - P))[None]), c,
+                           t(np.array([P], np.int32)),
+                           t(np.ones(1, bool)), bs, backend="flash")
+        return c
+
+    def step(c, x, lens):
+        c["lens"] = t(np.array([lens], np.int32))
+        return model.forward_step(
+            params, t(np.asarray(x, np.int32)[None]), c,
+            t(np.array([len(x)], np.int32)), t(np.zeros(1, bool)), bs,
+            backend="flash", has_prefill=False)[0].cpu().numpy()
+
+    with torch.no_grad():
+        verify = step(fresh(), toks, P)
+        c = fresh()
+        seq = np.stack([step(c, [x], P + i)[0] for i, x in enumerate(toks)])
+    return float(np.abs(verify - seq).max())
+
+
 def main():
     details = {}
+    clock = [time.perf_counter()]
 
     # ---- 1) device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -883,6 +1146,8 @@ def main():
     print("\n".join(line for line in log.splitlines()
                     if "registers" in line or "Compiling entry" in line))
     details["build"] = {"seconds": secs, "log": log}
+
+    lap(clock, "2) build")
 
     # ---- 3) kernels vs plain versions --------------------------------------
     cfg = get_config("nectar-relu-llama-1.7m")
@@ -948,6 +1213,30 @@ def main():
         run_decode(dev, nrng, f"llama3.2-1b-smoke Dh16 {dt}", B=8, S=S,
                    Hq=4, Kv=2, Dh=16, kv_len=serve_len, dtype=dtype)
         for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+    # the shapes speculative decoding gives kernels 1, 2 and 5 (phase 14),
+    # from a stream of their own: nectar verify rows at k_max 4 and 8; the
+    # draft model's step with rows parked at lens = max_seq; the gathers of
+    # the verify rows, of the draft model and of self-spec's predicted
+    # down rows (k = 32 of 640)
+    vrng = np.random.default_rng(SEED + 5)
+    rows["paged_attention"] += [
+        run_attention(dev, vrng, f"nectar verify S={S}", S=S, **nectar_attn)
+        for S in (5, 9)]
+    dcfg = get_config(DRAFT_NAME)
+    parked = [int(x) for x in vrng.integers(1, 233, slot_scfg.max_batch)]
+    for b in (3, 5, 7):
+        parked[b] = S + 1                  # parked: lens = max_seq
+    rows["decode_attention"] += [
+        run_decode(dev, vrng, "draft model, 3 of 8 rows parked", B=8, S=S,
+                   Hq=dcfg.n_heads, Kv=dcfg.n_kv_heads, Dh=dcfg.d_head,
+                   kv_len=parked, dtype=torch.float32)]
+    rows["sparse_gather_matvec"] += [
+        run_sparse(dev, vrng, label, B=B, k=k, d_ff=f, d=d, empty_frac=0.1)
+        for label, B, k, f, d in (
+            ("nectar verify rows=72", scfg.max_batch * 9, k_nectar,
+             cfg.d_ff, cfg.d_model),
+            ("draft model rows=8", 8, 128, dcfg.d_ff, dcfg.d_model),
+            ("selfspec predicted rows=8", 8, 32, cfg.d_ff, cfg.d_model))]
     rows["relu_ffn"] = [
         run_relu_ffn(dev, krng, f"nectar prefill M={M}", M=M, d=cfg.d_model,
                      f=cfg.d_ff, dead_blocks=(1, 3))
@@ -980,6 +1269,8 @@ def main():
         f"with the same bits" for key, (n, err) in edges.items()))
     details["edges"] = edges
 
+    lap(clock, "3) kernels")
+
     # ---- 4) the public W8A8 entry point --------------------------------------
     w_np = krng.standard_normal((cfg.d_model, cfg.d_ff)).astype(np.float32)
     x_np = krng.standard_normal((8, cfg.d_model)).astype(np.float32)
@@ -1002,6 +1293,8 @@ def main():
           f"both modes; launches {ops_launches}")
     details["ops"] = {"launches": ops_launches}
 
+    lap(clock, "4) W8A8 entry point")
+
     # ---- 5) serve on the card (paged engine) ----------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = Model(cfg).init(gen, device=dev)
@@ -1009,8 +1302,9 @@ def main():
                for n in rng.integers(8, 201, 16)]
     max_new = 32
     engine = Engine(cfg, params, scfg, device=dev)
-    gpu_ticks, _, _ = recording_engine(engine)
-    gpu_tokens, _, wall, summary, launches = serve(engine, prompts, max_new)
+    gpu_ticks, _, gpu_margins = recording_engine(engine)
+    gpu_tokens, gpu_rids, wall, summary, launches = serve(engine, prompts,
+                                                          max_new)
     steps = engine.runner.n_steps
     print_serve("serve", len(prompts), summary, wall, steps, launches)
     for key in ("paged_attention", "sparse_gather_matvec"):
@@ -1020,6 +1314,8 @@ def main():
     check_tokens("serve", gpu_tokens, cfg, max_new, gpu_ticks)
     details["serve"] = dict(summary, wall_s=wall, steps=steps,
                             launches=launches)
+
+    lap(clock, "5) paged serve")
 
     # ---- 6) the same on the CPU (plain versions) -----------------------------
     cpu_engine = Engine(cfg, params, scfg, device="cpu")
@@ -1033,6 +1329,8 @@ def main():
           f"{len(prompts) - len(flips)}/{len(prompts)} requests "
           f"token-identical; near-tie flips: {flips}")
     details["cpu"] = {"first_step_logit_err": logit_err, "flips": flips}
+
+    lap(clock, "6) paged serve on the CPU")
 
     # ---- 7) serve on the card (slot engine) -----------------------------------
     slot = Engine(cfg, params, slot_scfg, device=dev)
@@ -1055,6 +1353,8 @@ def main():
     details["slot"] = dict(slot_summary, wall_s=slot_wall,
                            decode_steps=dsteps, launches=slot_launches)
 
+    lap(clock, "7) slot serve")
+
     # ---- 8) the slot engine on the CPU ----------------------------------------
     slot_cpu = Engine(cfg, params, slot_scfg, device="cpu")
     _, cpu_prefills, slot_margins = recording_engine(slot_cpu)
@@ -1071,6 +1371,8 @@ def main():
           f"token-identical; near-tie flips: {slot_flips}")
     details["slot_cpu"] = {"first_prefill_logit_err": slot_err,
                            "flips": slot_flips}
+
+    lap(clock, "8) slot serve on the CPU")
 
     # ---- 9) shared system prompt through the prefix cache --------------------
     prng_ = np.random.default_rng(SEED)
@@ -1158,6 +1460,8 @@ def main():
                                    for label, summ, w in pre_runs},
                              cpu_flips=pre_flips)
 
+    lap(clock, "9) prefix cache")
+
     # ---- 10) seeded sampled rows, card against CPU ----------------------------
     from repro_torch.serve.sampling import SamplingParams
     sps = [SamplingParams(temperature=(0.7, 1.0)[i % 2],
@@ -1186,6 +1490,8 @@ def main():
     details["sampled"] = dict(smp_summary, wall_s=smp_wall,
                               launches=smp_launches, flips=smp_flips)
 
+    lap(clock, "10) sampled rows")
+
     # ---- 11) int8 KV pools (naive read), card against CPU ---------------------
     q8_scfg = dataclasses.replace(scfg, attn_backend="naive", kv_quant=True)
     q8 = Engine(cfg, params, q8_scfg, device=dev)
@@ -1211,6 +1517,8 @@ def main():
           f"token-identical card against CPU; near-tie flips: {q8_flips}")
     details["int8kv"] = dict(q8_summary, wall_s=q8_wall, steps=q8_steps,
                              launches=q8_launches, flips=q8_flips)
+
+    lap(clock, "11) int8 KV")
 
     # ---- 12) llama3.2-1b-smoke (d_head 16) through both engines ---------------
     scfg_smoke = get_config("llama3.2-1b-smoke")
@@ -1245,6 +1553,135 @@ def main():
         details["smoke"][label] = dict(sm_summary, wall_s=sm_wall,
                                        launches=sm_launches, flips=sm_flips)
 
+    lap(clock, "12) llama3.2-1b-smoke")
+
+    # ---- 14) speculative decoding (runs before phase 13, which profiles
+    # two of its serves) ---------------------------------------------------------
+    from repro_torch.configs.base import SpecConfig
+    from repro_torch.core.sparsity import SparsityPredictor
+    from repro_torch.spec import SelfSpecDrafter
+    verify_err = {n: verify_against_sequential(cfg, params, dev, n)
+                  for n in (5, 9)}
+    check(max(verify_err.values()) <= KERNEL_ATOL,
+          f"spec: a verify row's logits differ from sequential decode by "
+          f"{verify_err}")
+    print(f"spec: verify rows of 5 and 9 tokens against the same tokens "
+          f"decoded one row at a time: max_abs_err {verify_err[5]:.3g} / "
+          f"{verify_err[9]:.3g}")
+    dparams = Model(dcfg).init(
+        torch.Generator(device=dev).manual_seed(SEED + 7), device=dev)
+    spec_cfgs = {
+        "ngram": SpecConfig(drafter="ngram", k=4, k_max=8),
+        "model": SpecConfig(drafter="model", k=4, k_max=8,
+                            draft_name=DRAFT_NAME),
+        "selfspec": SpecConfig(drafter="selfspec", k=4, k_max=8)}
+    draft_layers = {"ngram": 0, "model": dcfg.n_layers,
+                    "selfspec": cfg.n_layers}
+
+    def spec_engine(sc, device, like=None):
+        """A spec engine on ``device``; ``like``'s self-spec predictors,
+        where given, replace the ones it calibrated (the CPU serve then
+        drafts as the card's does)."""
+        eng = Engine(cfg, params, sc, device=device, draft_params=dparams)
+        if like is not None and isinstance(like.drafter, SelfSpecDrafter):
+            preds = like.drafter.preds
+            eng.drafter = SelfSpecDrafter(
+                cfg, eng.params, sc.max_seq, frac=sc.spec.draft_frac,
+                max_batch=sc.max_batch, device=device,
+                preds=SparsityPredictor(preds.w_in.to(device),
+                                        preds.w_out.to(device)))
+        return eng
+
+    spec_runs = {}
+    details["spec"] = {"verify_vs_sequential_err": verify_err}
+    for label, sp_cfg in spec_cfgs.items():
+        sc = dataclasses.replace(scfg, spec=sp_cfg)
+        eng = spec_engine(sc, dev)
+        sp_ticks, _, sp_rows = recording_spec_engine(eng)
+        drafting = timed_drafting(eng)
+        sp_tokens, sp_rids, sp_wall, sp_summary, sp_launches = serve(
+            eng, prompts, max_new)
+        steps = eng.runner.n_steps
+        dsteps = getattr(eng.drafter, "steps", 0)
+        nd = draft_layers[label]
+        for key, want in (
+                ("paged_attention", cfg.n_layers * steps),
+                ("sparse_gather_matvec", cfg.n_layers * steps + nd * dsteps),
+                ("decode_attention", nd * dsteps),
+                ("relu_ffn", 0), ("nmce_matmul", 0)):
+            check(sp_launches[key] == want,
+                  f"spec {label}: {key} launched {sp_launches[key]} times, "
+                  f"expected {want} ({steps} steps, {dsteps} draft steps "
+                  f"of {nd} layers)")
+        check(sp_summary["spec_steps"] > 0 and (dsteps > 0) == (nd > 0),
+              f"spec {label}: {sp_summary['spec_steps']} verify steps, "
+              f"{dsteps} draft steps")
+        check_tokens(f"spec {label}", sp_tokens, cfg, max_new, sp_ticks)
+        paged_flips = compare_cpu(f"spec {label} vs paged", sp_tokens,
+                                  gpu_tokens, gpu_margins, gpu_rids)
+        cpu_eng = spec_engine(sc, "cpu", like=eng)
+        _, sp_margins, sp_cpu_rows = recording_spec_engine(cpu_eng)
+        sp_cpu_tokens, sp_cpu_rids, _, sp_cpu_summary, _ = serve(
+            cpu_eng, prompts, max_new)
+        cpu_flips = flip_gaps(
+            compare_cpu(f"spec {label}-cpu", sp_tokens, sp_cpu_tokens,
+                        sp_margins, sp_cpu_rids),
+            sp_cpu_rids, sp_rows, sp_cpu_rows)
+        print_serve(f"spec {label}", len(prompts), sp_summary, sp_wall,
+                    steps, sp_launches)
+        print(f"spec {label}: {sp_summary['spec_steps']} verify steps, "
+              f"acceptance {sp_summary['spec_acceptance_rate']:.4f}, "
+              f"{sp_summary['spec_tokens_per_verify']:.4f} tokens per "
+              f"verify, K at the end {eng.kctl.k}; {dsteps} draft steps "
+              f"({nd} layers each) in {drafting['s']:.3f} s = "
+              f"{100 * drafting['s'] / sp_wall:.2f}% of the serve's wall; "
+              f"launches as the counters say (kernel 1 {cfg.n_layers} a "
+              f"step, kernel 2 {cfg.n_layers} a step + {nd} a draft step, "
+              f"kernel 5 {nd} a draft step)")
+        print(f"spec {label}: against the paged serve "
+              f"{len(prompts) - len(paged_flips)}/{len(prompts)} requests "
+              f"token-identical, near-tie flips {paged_flips}; against the "
+              f"CPU {len(prompts) - len(cpu_flips)}/{len(prompts)}, "
+              f"near-tie flips {cpu_flips} (CPU: "
+              f"{sp_cpu_summary['spec_steps']} verify steps, acceptance "
+              f"{sp_cpu_summary['spec_acceptance_rate']:.4f})")
+        spec_runs[label] = (sc, sp_tokens, sp_launches, sp_wall)
+        details["spec"][label] = dict(
+            sp_summary, wall_s=sp_wall, steps=steps, draft_steps=dsteps,
+            drafting_s=drafting["s"], launches=sp_launches,
+            paged_flips=paged_flips, cpu_flips=cpu_flips,
+            cpu_spec_steps=sp_cpu_summary["spec_steps"])
+    # seeded sampled rows through the n-gram drafter: rejection sampling
+    ssc = dataclasses.replace(scfg, spec=spec_cfgs["ngram"])
+    ssps = [SamplingParams(temperature=0.7, seed=i)
+            for i in range(len(prompts))]
+    seng = spec_engine(ssc, dev)
+    ss_ticks, _, ss_rows = recording_spec_engine(seng)
+    ss_tokens, _, ss_wall, ss_summary, ss_launches = serve(
+        seng, prompts, max_new, ssps)
+    check_tokens("spec sampled", ss_tokens, cfg, max_new, ss_ticks)
+    ss_cpu = spec_engine(ssc, "cpu")
+    _, ss_margins, ss_cpu_rows = recording_spec_engine(ss_cpu)
+    ss_cpu_tokens, ss_cpu_rids, _, _, _ = serve(ss_cpu, prompts, max_new,
+                                                ssps)
+    ss_flips = flip_gaps(
+        compare_cpu("spec sampled-cpu", ss_tokens, ss_cpu_tokens,
+                    ss_margins, ss_cpu_rids),
+        ss_cpu_rids, ss_rows, ss_cpu_rows)
+    print_serve("spec sampled", len(prompts), ss_summary, ss_wall,
+                seng.runner.n_steps, ss_launches)
+    print(f"spec sampled: {ss_summary['spec_steps']} verify steps, "
+          f"acceptance {ss_summary['spec_acceptance_rate']:.4f}; "
+          f"{len(prompts) - len(ss_flips)}/{len(prompts)} requests "
+          f"token-identical card against CPU; near-tie flips (perturbed "
+          f"score, or a uniform within {NEAR_TIE} of its accept threshold "
+          f"or draw boundary; logit_gap = the largest card-against-CPU "
+          f"difference of the logits that decided the token): {ss_flips}")
+    details["spec"]["sampled"] = dict(ss_summary, wall_s=ss_wall,
+                                      launches=ss_launches, flips=ss_flips)
+
+    lap(clock, "14) speculative decoding")
+
     # ---- 13) the serves again, under torch.profiler ---------------------------
     profiles = {}
     for label, sc, pr_prompts, pr_sps, toks, lnch, w in (
@@ -1256,16 +1693,21 @@ def main():
             ("sampled", scfg, prompts, sps, smp_tokens, smp_launches,
              smp_wall),
             ("int8kv", q8_scfg, prompts, None, q8_tokens, q8_launches,
-             q8_wall)):
-        pr = profile_serve(f"profile {label}", Engine(cfg, params, sc,
-                                                      device=dev),
+             q8_wall)) + tuple(
+                (f"spec {d}", spec_runs[d][0], prompts, None,
+                 *spec_runs[d][1:]) for d in ("ngram", "model")):
+        pr = profile_serve(f"profile {label}",
+                           lambda sc=sc: Engine(cfg, params, sc, device=dev,
+                                                draft_params=dparams),
                            pr_prompts, max_new, toks, lnch, w, pr_sps)
         profiles[label] = pr
         per = ", ".join(f"{k} {v:.5f}"
                         for k, v in pr["kernel_device_ms"].items())
+        busy = ("not measured" if pr["device_ms"] is None else
+                f"{pr['device_ms']:.3f} ms = {100 * pr['busy_share']:.2f}%")
         print(f"profile {label}: same tokens and launches; device ms per "
-              f"launch: {per}; serve device time {pr['device_ms']:.3f} ms"
-              f" = {100 * pr['busy_share']:.2f}% of the unprofiled wall "
+              f"launch: {per or 'not measured'}; serve device time {busy}"
+              f" of the unprofiled wall "
               f"{w:.3f} s (profiled wall {pr['profiled_wall_s']:.3f} s)"
               + (f"; kv_len {pr['kv_len_range'][0]}-"
                  f"{pr['kv_len_range'][1]}" if "kv_len_range" in pr else ""))
@@ -1273,21 +1715,29 @@ def main():
               + "; ".join(f"{n} x{c} {t:.3f}" for n, c, t in pr["top_device"]))
     details["profile"] = profiles
 
+    lap(clock, "13) profiled serves")
+
     # ---- report --------------------------------------------------------------
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     # each kernel's launches on the paths that run it (paged attention:
-    # the paged and prefix serves; the gather: those and the slot serve;
-    # nmce_matmul: the ops phase), and its row at the shape the main path
-    # gives it
+    # the paged, prefix and greedy spec serves; the gather: those and the
+    # slot serve; decode attention: the slot serve and the model and
+    # self-spec drafters; nmce_matmul: the ops phase), and its row at the
+    # shape the main path gives it
+    spec_launches = {key: sum(run[2][key] for run in spec_runs.values())
+                     for key in KERNELS}
     path_launches = {
         "paged_attention": launches["paged_attention"]
-        + pre_launches["paged_attention"],
+        + pre_launches["paged_attention"]
+        + spec_launches["paged_attention"],
         "sparse_gather_matvec": launches["sparse_gather_matvec"]
         + slot_launches["sparse_gather_matvec"]
-        + pre_launches["sparse_gather_matvec"],
-        "decode_attention": slot_launches["decode_attention"],
+        + pre_launches["sparse_gather_matvec"]
+        + spec_launches["sparse_gather_matvec"],
+        "decode_attention": slot_launches["decode_attention"]
+        + spec_launches["decode_attention"],
         "relu_ffn": slot_launches["relu_ffn"],
         "nmce_matmul": ops_launches["nmce_matmul"]}
     main_case = {"paged_attention": rows["paged_attention"][0],

@@ -1,7 +1,7 @@
 """Config dataclasses: the port's own copy of ``repro.configs.base``.
 
-``ModelConfig`` and ``ServeConfig`` keep the reference's fields and
-defaults so one set of values configures both packages. ``SpecConfig``,
+``ModelConfig``, ``ServeConfig`` and ``SpecConfig`` keep the reference's
+fields and defaults so one set of values configures both packages.
 ``ObsConfig``, ``MeshConfig`` and ``AsyncConfig`` are here only so that a
 ``ServeConfig`` constructs as it does in the reference; the port's engine
 raises ``NotImplementedError`` when any of them is switched on.
@@ -97,7 +97,24 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SpecConfig:
-    """Speculative decoding (a later slice): its fields come with it."""
+    """Speculative decoding (repro_torch.spec): draft K tokens cheaply,
+    verify them in ONE batched forward pass of the target model, so one
+    read of its weight stream serves up to K+1 emitted tokens."""
+
+    drafter: str = "ngram"          # ngram | model | selfspec
+    k: int = 4                      # initial draft length per verify step
+    k_min: int = 1                  # adaptive-K floor
+    k_max: int = 8                  # adaptive-K ceiling (fixed verify shape)
+    adaptive: bool = True           # back off K when acceptance drops
+    accept_low: float = 0.4         # EMA acceptance below this shrinks K
+    accept_high: float = 0.7        # EMA acceptance above this grows K
+    ema_decay: float = 0.9          # acceptance-rate EMA decay
+    temperature: float = 0.0        # 0 = greedy accept; >0 rejection sampling
+    ngram: int = 3                  # prompt-lookup: longest suffix match
+    draft_name: str = ""            # registry config for drafter="model"
+    draft_frac: float = 0.0625      # selfspec: sparse active fraction
+    predictor_rank: int = 16        # selfspec: Deja-Vu predictor rank
+    seed: int = 0                   # acceptance/draft sampling RNG
 
 
 @dataclasses.dataclass(frozen=True)

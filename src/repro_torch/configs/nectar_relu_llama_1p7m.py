@@ -26,3 +26,15 @@ CONFIG = ModelConfig(
 )
 
 SMOKE = dataclasses.replace(CONFIG, name="nectar-relu-llama-smoke")
+
+# Scaled-down draft model for speculative decoding (repro_torch.spec): the
+# target's vocab, about 8x fewer parameters.
+DRAFT = dataclasses.replace(
+    CONFIG,
+    name="nectar-relu-llama-draft",
+    n_layers=2,
+    d_model=64,
+    n_heads=2,
+    n_kv_heads=2,
+    d_ff=256,
+)

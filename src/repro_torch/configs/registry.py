@@ -8,9 +8,11 @@ from repro_torch.configs import (granite_34b, llama3_2_1b,
                                  nectar_relu_llama_1p7m)
 from repro_torch.configs.base import ModelConfig
 
+# every module's CONFIG, and its SMOKE and DRAFT where it has them
 REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for m in (nectar_relu_llama_1p7m, llama3_2_1b, granite_34b)
-    for c in (m.CONFIG, m.SMOKE)}
+    for c in (getattr(m, a, None) for a in ("CONFIG", "SMOKE", "DRAFT"))
+    if c is not None}
 
 
 def get_config(name: str) -> ModelConfig:

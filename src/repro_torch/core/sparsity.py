@@ -3,11 +3,13 @@
 After ReLU most FFN hidden activations are exactly zero, so the rows of
 W_down for those units never need to be read. The subset the serving path
 needs: the shared hidden activation, the dense and the top-k gathered
-down-projections, and the k the config asks for.
+down-projections, the k the config asks for, and the Deja-Vu-style
+low-rank predictor that self-speculation drafts with.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -78,3 +80,92 @@ def dense_ffn(x, w_up, w_down, act="relu", w_gate=None):
 
 def gathered_sparse_ffn(x, w_up, w_down, k, act="relu", w_gate=None):
     return down_sparse(ffn_hidden(x, w_up, act, w_gate), w_down, k)
+
+
+# ---------------------------------------------------------------------------
+# Deja-Vu-style sparsity predictor (low-rank logistic head)
+
+
+@dataclasses.dataclass
+class SparsityPredictor:
+    """Predicts which FFN units will be active from the FFN input, so the
+    W_up column gather and the W_down row gather can both be issued before
+    the up-projection. ``w_in`` f32[d_model, r], ``w_out`` f32[r, d_ff];
+    a stack of predictors (one per unit) carries a leading [n_units] axis
+    on both, and ``unit(i)`` views one of them."""
+
+    w_in: torch.Tensor
+    w_out: torch.Tensor
+
+    @classmethod
+    def init(cls, generator: torch.Generator, d_model: int, d_ff: int,
+             rank: int = 64) -> "SparsityPredictor":
+        """f32 normal weights from ``generator``, on its device, at the
+        reference's scales (1/sqrt(d_model), 1/sqrt(rank)): the
+        reference's law, not its bits."""
+        dev = generator.device
+        return cls(w_in=torch.randn((d_model, rank), generator=generator,
+                                    device=dev) * d_model ** -0.5,
+                   w_out=torch.randn((rank, d_ff), generator=generator,
+                                     device=dev) * rank ** -0.5)
+
+    def unit(self, i: int) -> "SparsityPredictor":
+        return SparsityPredictor(self.w_in[i], self.w_out[i])
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        return (x @ self.w_in) @ self.w_out
+
+    def predict_topk(self, x: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k predicted-active indices: (idx i32[..., k], scores)."""
+        val, idx = torch.topk(self.logits(x), k, dim=-1)
+        return idx.to(torch.int32), val
+
+    def loss(self, x: torch.Tensor, h_true: torch.Tensor) -> torch.Tensor:
+        """Mean per-unit logistic loss against the true active mask."""
+        z = self.logits(x)
+        y = (h_true > 0).to(z.dtype)
+        return torch.mean(torch.clamp(z, min=0) - z * y
+                          + torch.log1p(torch.exp(-z.abs())))
+
+    def recall_at_k(self, x: torch.Tensor, h_true: torch.Tensor,
+                    k: int) -> torch.Tensor:
+        """Fraction of the truly active mass the predicted top-k holds."""
+        idx, _ = self.predict_topk(x, k)
+        mag = h_true.abs()
+        mass = mag.sum(dim=-1)
+        picked = torch.gather(mag, -1, idx.long()).sum(dim=-1)
+        return torch.mean(picked / torch.clamp(mass, min=1e-9))
+
+
+def train_predictor(pred: SparsityPredictor, xs: torch.Tensor,
+                    hs: torch.Tensor, lr: float = 1e-2,
+                    steps: int = 100) -> SparsityPredictor:
+    """Plain SGD on (FFN input, true hidden) pairs, the gradient of
+    ``loss`` from torch.autograd (also inside a ``torch.no_grad``)."""
+    w_in = pred.w_in.detach().clone().requires_grad_(True)
+    w_out = pred.w_out.detach().clone().requires_grad_(True)
+    for _ in range(steps):
+        with torch.enable_grad():
+            loss = SparsityPredictor(w_in, w_out).loss(xs, hs)
+            g_in, g_out = torch.autograd.grad(loss, (w_in, w_out))
+        with torch.no_grad():
+            w_in -= lr * g_in
+            w_out -= lr * g_out
+    return SparsityPredictor(w_in.detach(), w_out.detach())
+
+
+# ---------------------------------------------------------------------------
+# Traffic accounting (the unit the paper argues in)
+
+
+def ffn_weight_bytes_predicted(d_model: int, d_ff: int, bytes_per_el: float,
+                               glu: bool, active_frac: float,
+                               predictor_rank: int) -> float:
+    """Off-chip weight bytes of one FFN application with a predictor: the
+    up/gate columns AND the down rows are gathered at ``active_frac``,
+    and the predictor itself costs d*r + r*d_ff elements."""
+    up = d_model * d_ff * bytes_per_el * (2.0 if glu else 1.0) * active_frac
+    down = d_model * d_ff * bytes_per_el * active_frac
+    pred = (d_model * predictor_rank + predictor_rank * d_ff) * bytes_per_el
+    return up + down + pred

@@ -5,12 +5,13 @@ random weights from a seeded generator.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch nectar-relu-llama-1.7m --requests 8 --max-new 16 \\
         --max-batch 4 [--paged] [--prefix-cache] [--kv-quant] \\
-        [--attn-backend flash] [--temperature 0.7 --seed 0] [--device cpu]
+        [--spec ngram|selfspec --spec-k 4] [--attn-backend flash] \\
+        [--temperature 0.7 --seed 0] [--device cpu]
 
 It runs on the CUDA device unless ``--device cpu`` is given, and prints a
 JSON summary. The reference CLI's flags of features this port does not
-have yet (checkpoints, sharded serving, speculative decoding, the async
-engine, disagg and fleet serving, tracing and metrics export) are
+have yet (checkpoints, sharded serving, the async engine, disagg and
+fleet serving, tracing and metrics export) are
 accepted by name and refused with the ROADMAP item that brings them.
 """
 
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ServeConfig
+from repro_torch.configs.base import ServeConfig, SpecConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
 from repro_torch.serve.engine import Engine
@@ -40,9 +41,6 @@ LATER = (
      "item 9 (multi-device, sharded serving)"),
     (("--shard-kv-seq",), {"action": "store_true"},
      "item 9 (multi-device, sharded serving)"),
-    (("--spec",), {"default": None}, "item 2 (speculative decoding)"),
-    (("--spec-k",), {"type": int, "default": 4},
-     "item 2 (speculative decoding)"),
     (("--async",), {"dest": "async_", "action": "store_true"},
      "item 3 (async engine core)"),
     (("--async-k",), {"type": int, "default": 8},
@@ -91,6 +89,12 @@ def parser() -> argparse.ArgumentParser:
                     help="radix prefix cache (implies --paged)")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV pools (implies --paged; naive backend)")
+    ap.add_argument("--spec", default=None, choices=("ngram", "selfspec"),
+                    help="speculative decode drafter (implies --paged; the "
+                         "'model' drafter needs trained draft weights: use "
+                         "the API)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft length, also the adaptive-K ceiling")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 samples")
     ap.add_argument("--top-k", type=int, default=0)
@@ -119,11 +123,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
     cfg = get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(0)
     params = Model(cfg).init(gen, device=device)
-    paged = args.paged or args.prefix_cache or args.kv_quant
+    paged = args.paged or args.prefix_cache or args.kv_quant \
+        or args.spec is not None
+    # --spec-k is the user's cap: adaptive K may shrink below it, never
+    # exceed it
+    spec = None if args.spec is None else SpecConfig(
+        drafter=args.spec, k=args.spec_k, k_max=args.spec_k)
     scfg = ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
                        sparse_decode=not args.dense, paged=paged,
                        prefix_cache=args.prefix_cache,
-                       kv_quant=args.kv_quant, block_size=args.block_size,
+                       kv_quant=args.kv_quant, spec=spec,
+                       block_size=args.block_size,
                        prefill_chunk=args.prefill_chunk, policy=args.policy,
                        attn_backend=args.attn_backend)
     eng = Engine(cfg, params, scfg, device=device)
@@ -160,6 +170,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     "prefix_cached_tokens": s["prefix_cached_tokens"],
                     "kv_pool_capacity_bytes":
                         s["kv_pool"]["capacity_bytes"]})
+        if spec is not None:
+            out.update({
+                "spec_steps": s["spec_steps"],
+                "spec_acceptance_rate": s["spec_acceptance_rate"],
+                "spec_tokens_per_verify": s["spec_tokens_per_verify"]})
     print(json.dumps(out, indent=1))
     return out
 

@@ -3,12 +3,14 @@
 The port of the reference engine's two synchronous modes:
 
   * ``ServeConfig(paged=True)``: every phase of every request — chunked
-    prefill and single-token decode — is a ROW of one batched
+    prefill, single-token decode and the K+1 verify rows of speculative
+    decoding (``spec``, repro_torch.spec) — is a ROW of one batched
     ``ModelRunner.step`` per tick. The engine is pure host policy:
     admission (serve.scheduler, with the radix prefix cache under
-    ``prefix_cache``), block accounting and copy-on-write
-    (serve.paged_kv), building the per-tick ``StepBatch`` and committing
-    tokens through per-request ``SamplingParams`` (serve.sampling), prompt
+    ``prefix_cache``), block accounting, copy-on-write and speculative
+    rollback (serve.paged_kv), drafting, building the per-tick
+    ``StepBatch`` and committing tokens through per-request
+    ``SamplingParams`` (serve.sampling) or the acceptance rules, prompt
     log-probabilities included. ``kv_quant`` stores the KV pools in int8.
   * ``ServeConfig(paged=False)``, the default: fixed slots over a
     contiguous [max_batch, max_seq] KV cache. ``add_request`` prefills the
@@ -16,10 +18,10 @@ The port of the reference engine's two synchronous modes:
     draws the first token on the host (``sampling.sample_np``); each
     ``step`` decodes one token for every slot.
 
-Speculative decoding, the async tick pipeline, sharded serving, disagg
-handoff and tracing are later slices of the port: asking for any of them
-raises ``NotImplementedError`` (or ``ValueError`` where the reference's
-slot mode refuses them too).
+The async tick pipeline, sharded serving, disagg handoff and tracing are
+later slices of the port: asking for any of them raises
+``NotImplementedError`` (or ``ValueError`` where the reference's slot
+mode refuses them too).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import spec as spec_mod
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
@@ -37,7 +40,8 @@ from repro_torch.serve import (kv_cache, metrics as metrics_mod, paged_kv,
                                sampling)
 from repro_torch.serve.metrics import StepStats
 from repro_torch.serve.prefix_cache import RadixPrefixCache
-from repro_torch.serve.runner import DECODE, PREFILL, ModelRunner, StepOutput
+from repro_torch.serve.runner import (DECODE, PREFILL, VERIFY, ModelRunner,
+                                      StepOutput)
 from repro_torch.serve.scheduler import Request, SchedEntry, Scheduler, State
 
 
@@ -63,7 +67,6 @@ def _unsupported(scfg: ServeConfig) -> List[str]:
     """The ServeConfig features outside this slice that ``scfg`` asks
     for."""
     return [name for name, on in (
-        ("spec", scfg.spec is not None),
         ("async_cfg", scfg.async_cfg is not None
          and scfg.async_cfg.enabled),
         ("mesh", scfg.mesh is not None and scfg.mesh.n_devices > 1),
@@ -81,7 +84,13 @@ class Engine:
     ``device`` defaults to CUDA; the params move there."""
 
     def __init__(self, cfg: ModelConfig, params: dict, scfg: ServeConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 drafter=None, draft_params: Optional[dict] = None):
+        """``scfg.spec`` turns on speculative decoding (paged mode only).
+        ``drafter`` injects a ready repro_torch.spec drafter; otherwise one
+        is built from the spec config (``draft_params`` are the weights of
+        the small model for spec.drafter='model'; they move to
+        ``device``)."""
         self.device = resolve_device(device)
         paged_only = [] if scfg.paged else _paged_only(scfg)
         if paged_only:
@@ -91,6 +100,10 @@ class Engine:
         if missing:
             raise NotImplementedError(
                 f"not in this slice of the port: {', '.join(missing)}")
+        if scfg.spec is not None and (cfg.n_codebooks or cfg.mrope):
+            raise ValueError(
+                f"{cfg.name}: speculative decode supports plain token "
+                f"streams only (no codebooks / M-RoPE)")
         self.cfg = cfg
         self.scfg = scfg
         self.model = Model(cfg)
@@ -98,13 +111,15 @@ class Engine:
         self.metrics = metrics_mod.MetricsCollector(cfg, scfg)
         self._requests: Dict[int, Request] = {}
         self._rids = itertools.count()
+        self.spec = scfg.spec
+        self.drafter = None
         self.sampler = sampling.Sampler()
         # per-slot token-id presence for the repetition penalty
         self._presence = np.zeros((scfg.max_batch, cfg.vocab), bool)
         self._draw_ctr: Dict[int, int] = {}    # rid -> sample-draw counter
         self._tick_overlap = False
         if scfg.paged:
-            self._init_paged()
+            self._init_paged(drafter, draft_params)
         else:
             self._init_slots()
 
@@ -201,6 +216,7 @@ class Engine:
             self.metrics.requests.pop(rid, None)
             self._draw_ctr.pop(rid, None)
             getattr(self, "_host_rngs", {}).pop(rid, None)
+            getattr(self, "_accept_rngs", {}).pop(rid, None)
 
     def step(self) -> List[int]:
         """One engine tick; returns the rids that finished this tick."""
@@ -218,6 +234,12 @@ class Engine:
 
     # ------------------------------------------------------------------
     # sampling plumbing (shared by both modes)
+
+    def _sp(self, req: Request) -> sampling.SamplingParams:
+        """Resolve the request's params; under speculation, requests that
+        set no temperature inherit SpecConfig.temperature."""
+        fallback = self.spec.temperature if self.spec is not None else 0.0
+        return sampling.effective_params(req.sampling, fallback)
 
     def _seed_presence(self, slot: int, req: Request) -> None:
         self._presence[slot, :] = False
@@ -239,7 +261,7 @@ class Engine:
         rep = np.ones((B,), np.float32)
         keys = np.zeros((B, 2), np.uint32)
         for slot, req in pairs:
-            sp = sampling.effective_params(req.sampling)
+            sp = self._sp(req)
             temp[slot] = sp.temperature
             top_k[slot] = sp.top_k
             top_p[slot] = sp.top_p
@@ -271,7 +293,7 @@ class Engine:
     # ------------------------------------------------------------------
     # paged mode
 
-    def _init_paged(self) -> None:
+    def _init_paged(self, drafter=None, draft_params=None) -> None:
         scfg = self.scfg
         self.pool = paged_kv.PagedKVCache(
             self.cfg, n_blocks=scfg.pool_blocks, block_size=scfg.block_size,
@@ -286,6 +308,43 @@ class Engine:
                                   self.device)
         self._kv_per_tok = paged_kv.kv_bytes_per_token(self.cfg,
                                                        scfg.kv_quant)
+        if self.spec is not None:
+            self.drafter = drafter if drafter is not None else \
+                spec_mod.make_drafter(
+                    self.spec, self.cfg, self.params, scfg,
+                    draft_params=None if draft_params is None
+                    else _to(draft_params, self.device),
+                    device=self.device)
+            self.kctl = spec_mod.AdaptiveK.from_config(self.spec)
+            # per-request acceptance RNGs: a request's accept/resample
+            # draws do not depend on the batch's composition. The spawn
+            # key's second element keeps each stream independent of the
+            # drafter's per-rid sampling RNG (spawn_key=(rid,)) even when
+            # both derive from spec.seed.
+            self._accept_rngs: Dict[int, np.random.Generator] = {}
+            self._draft_w_per_step = self.drafter.weight_bytes_per_step(
+                scfg)
+            self._draft_steps_seen = 0
+
+    def _accept_rng(self, rid: int, sp: sampling.SamplingParams
+                    ) -> np.random.Generator:
+        rng = self._accept_rngs.get(rid)
+        if rng is None:
+            ent = self.spec.seed if sp.seed is None else sp.seed
+            rng = self._accept_rngs[rid] = np.random.default_rng(
+                np.random.SeedSequence(entropy=ent,
+                                       spawn_key=(rid & 0xFFFFFFFF,
+                                                  0xACC)))
+        return rng
+
+    def _propose(self, items):
+        """Batched drafting where the drafter has it (ModelDrafter decodes
+        every slot in one device step per draft token), else one propose
+        per row."""
+        batched = getattr(self.drafter, "propose_batch", None)
+        if batched is not None:
+            return batched(items)
+        return [self.drafter.propose(rid, ctx, k) for rid, ctx, k in items]
 
     def _commit_emitted(self, e: SchedEntry, tok: int, lp: float,
                         finished: List[int], first: bool = False) -> bool:
@@ -325,8 +384,9 @@ class Engine:
     def _tick_paged(self) -> List[int]:
         """One tick = one batched ModelRunner.step serving every phase:
         admission (prefix match), capacity resolution (may evict),
-        copy-on-write, one device step over prefill and decode rows, one
-        batched sample and the host-side commit."""
+        drafting for speculative rows, copy-on-write, one device step over
+        prefill, decode and verify rows, one batched sample and the
+        host-side commit (acceptance and rollback for verify rows)."""
         finished: List[int] = []
         for e in self.sched.admit():
             self._seed_presence(e.slot, e.req)
@@ -334,7 +394,13 @@ class Engine:
                     and not e.req.sampling.prompt_logprobs:
                 # prompt_logprobs requests never consult the index
                 self.metrics.on_prefix_lookup(e.req.rid, e.cached_len)
+        spec = self.spec
+        S_spec = spec.k_max + 1 if spec is not None else 0
+        K = 0
+        if spec is not None:
+            K = self.kctl.k if spec.adaptive else min(spec.k, spec.k_max)
 
+        # ---- 1) capacity resolution -----------------------------------
         prefill_plan: List[Tuple[SchedEntry, int, int]] = []
         for e in self.sched.prefill_entries():
             if e.req.rid not in self.sched.active:
@@ -350,7 +416,17 @@ class Engine:
         for e in list(self.sched.decode_entries()):
             if e.req.rid not in self.sched.active:
                 continue
-            st = self._ensure_blocks(e, e.ctx_len + 1)
+            if spec is not None:
+                # cover the worst-case speculative or resync tail FIRST:
+                # rows that end up deferred must not burn drafting work;
+                # what a short proposal leaves unused the post-commit
+                # truncate returns
+                need = min(len(e.resync), S_spec) if e.resync \
+                    else min(K, max(self.scfg.max_seq - e.ctx_len - 2,
+                                    0)) + 1
+            else:
+                need = 1
+            st = self._ensure_blocks(e, e.ctx_len + need)
             if st == "never":
                 self._finish(e, finished)      # context ceiling reached
             elif st == "defer":
@@ -360,21 +436,54 @@ class Engine:
         run_rows = [e for e in self.sched.decode_entries()
                     if e.req.rid not in deferred]
         self._tick_overlap = bool(prefill_plan)
+
+        # ---- 2) drafting (spec only) ----------------------------------
+        # rows replaying after eviction re-feed committed tokens through
+        # the same verify math that first wrote their KV ("resync":
+        # forced acceptance, no emission)
+        proposals: Dict[int, tuple] = {}
+        if spec is not None and run_rows:
+            items = []
+            for e in run_rows:
+                if e.resync:
+                    proposals[e.req.rid] = (
+                        "resync", np.asarray(e.resync[:S_spec], np.int32),
+                        None)
+                    continue
+                budget = min(K, self.scfg.max_seq - e.ctx_len - 2)
+                ctx = np.concatenate([
+                    np.asarray(e.req.prompt, np.int32),
+                    np.asarray(e.req.tokens_out, np.int32)])
+                items.append((e.req.rid, ctx, max(budget, 0)))
+            for (rid, _, _), (toks, qd) in zip(items, self._propose(items)):
+                proposals[rid] = ("draft", np.asarray(toks, np.int32), qd)
+
         if not prefill_plan and not run_rows:
             return finished
 
+        # ---- 3) one batched step ---------------------------------------
         rows: List[Tuple[int, int, np.ndarray, int]] = []
         for e, pos, valid in prefill_plan:
             rows.append((e.slot, PREFILL,
                          np.asarray(e.prefill_tokens()[pos:pos + valid],
                                     np.int32), pos))
         for e in run_rows:
-            rows.append((e.slot, DECODE,
-                         np.asarray([e.req.tokens_out[-1]], np.int32),
-                         e.ctx_len))
+            if spec is None:
+                rows.append((e.slot, DECODE,
+                             np.asarray([e.req.tokens_out[-1]], np.int32),
+                             e.ctx_len))
+                continue
+            kind, toks, _ = proposals[e.req.rid]
+            seq = toks if kind == "resync" else np.concatenate(
+                [np.asarray([e.req.tokens_out[-1]], np.int32), toks])
+            rows.append((e.slot, VERIFY, seq, e.ctx_len))
+            # pin across the step: a defrag must not move blocks the
+            # step's block table has captured
+            self.pool.pin(e.slot)
         # copy-on-write BEFORE the tables snapshot: a row whose write span
-        # lands in a block referenced elsewhere (a prefix-shared block)
-        # gets a private copy, so siblings never observe the write
+        # lands in a block referenced elsewhere (a prefix-shared block, a
+        # rollback into a shared partial tail) gets a private copy, so
+        # siblings never observe the write
         cow: List[Tuple[int, int]] = []
         for slot, _, toks, start in rows:
             cow.extend(self.pool.cow_for_write(slot, start, len(toks)))
@@ -386,6 +495,7 @@ class Engine:
             batch.add_row(slot, phase, toks, start)
         out = self.runner.step(batch)
 
+        # ---- 4) sample + commit ----------------------------------------
         sample_pairs: List[Tuple[int, Request]] = []
         completing = set()
         for e, pos, valid in prefill_plan:
@@ -393,7 +503,8 @@ class Engine:
                 completing.add(e.req.rid)
                 if not e.replay:
                     sample_pairs.append((e.slot, e.req))
-        sample_pairs.extend((e.slot, e.req) for e in run_rows)
+        if spec is None:
+            sample_pairs.extend((e.slot, e.req) for e in run_rows)
         tok_np = lp_np = None
         if sample_pairs:
             tok_np, lp_np = self._sample_rows(sample_pairs, out.last_logits)
@@ -413,10 +524,19 @@ class Engine:
             self.sched.index_prefix(e, e.prefill_tokens(), e.pos)
             if e.replay:
                 e.replay = False
+                if e.resync_replay:
+                    # prompt KV restored; the generated tokens' KV
+                    # re-derives through verify steps (bit for bit as it
+                    # was first written) before drafting resumes
+                    e.resync = [int(t) for t in e.req.tokens_out[:-1]]
+                    e.resync_replay = False
             else:
                 self._commit_emitted(e, int(tok_np[e.slot]),
                                      lp_np[e.slot], finished, first=True)
-        self._commit_decode(run_rows, tok_np, lp_np, finished)
+        if spec is None:
+            self._commit_decode(run_rows, tok_np, lp_np, finished)
+        else:
+            self._commit_verify(run_rows, proposals, out, finished)
         return finished
 
     def _record_prompt_logprobs(self, e: SchedEntry, out: StepOutput,
@@ -473,9 +593,89 @@ class Engine:
                 self._finish(e, finished)
         self.metrics.on_decode_step(len(rows), kv_bytes=kv_read)
 
+    def _commit_verify(self, rows: List[SchedEntry], proposals, out,
+                       finished: List[int]) -> None:
+        """Acceptance and rollback for verify rows: commit the longest
+        correct prefix plus the free target token, truncate the rejected
+        tail's blocks, unpin."""
+        if not rows:
+            return
+        logits = out.logits.float().cpu().numpy()   # one copy for all rows
+        kv_read = 0.0
+        drafted = accepted = emitted_total = 0
+        for e in rows:
+            kind, toks, qd = proposals[e.req.rid]
+            m = len(toks)
+            nv = m if kind == "resync" else m + 1  # query j reads ctx+j keys
+            kv_read += (nv * e.ctx_len
+                        + nv * (nv - 1) / 2) * self._kv_per_tok
+            if kind == "resync":
+                # committed history: KV now re-written, nothing to emit
+                e.ctx_len += m
+                del e.resync[:m]
+                self.pool.unpin(e.slot)
+                continue
+            row_logits = logits[e.slot, :m + 1]
+            sp = self._sp(e.req)
+            if sp.top_k > 0 or sp.top_p < 1.0 \
+                    or sp.repetition_penalty != 1.0:
+                # the request's full filters: acceptance against the law
+                # the plain sampler draws from
+                seen = list(np.asarray(e.req.prompt, np.int64)) \
+                    + list(e.req.tokens_out)
+                emitted, a = spec_mod.filtered_accept(
+                    self._accept_rng(e.req.rid, sp), toks, qd, row_logits,
+                    sp, seen)
+            elif sp.temperature <= 0:
+                emitted, a = spec_mod.greedy_accept(
+                    toks, row_logits.argmax(axis=-1).astype(np.int32))
+            else:
+                emitted, a = spec_mod.rejection_accept(
+                    self._accept_rng(e.req.rid, sp), toks, qd, row_logits,
+                    sp.temperature)
+            drafted += m
+            accepted += a
+            space = e.req.max_new - len(e.req.tokens_out)
+            emitted = emitted[:space]
+            P = len(np.asarray(e.req.prompt))
+            alive = True
+            row_emitted = 0
+            for j, t in enumerate(emitted):
+                lp = 0.0
+                if sp.logprobs:
+                    p = sampling.softmax(row_logits[j], 1.0)
+                    lp = float(np.log(np.maximum(p[int(t)], 1e-30)))
+                alive = self._commit_emitted(e, int(t), lp, finished)
+                emitted_total += 1
+                row_emitted += 1
+                if not alive:
+                    break
+            self.metrics.on_spec_request(e.req.rid, m, a, row_emitted)
+            # committed frontier: the last emitted token's KV is written by
+            # the NEXT verify step; a stop truncation shrinks tokens_out,
+            # so re-derive rather than add
+            e.ctx_len = P + max(len(e.req.tokens_out) - 1, 0)
+            # rollback: free whole blocks past the committed frontier
+            self.pool.truncate(e.slot, e.ctx_len)
+            self.pool.unpin(e.slot)
+            if alive and e.ctx_len + 1 > self.scfg.max_seq:
+                self._finish(e, finished)
+        draft_steps = getattr(self.drafter, "steps", 0)
+        draft_w = (draft_steps - self._draft_steps_seen) \
+            * self._draft_w_per_step
+        self._draft_steps_seen = draft_steps
+        self.metrics.on_spec_step(len(rows), drafted, accepted,
+                                  emitted_total, kv_bytes=kv_read,
+                                  draft_weight_bytes=draft_w)
+        if self.spec.adaptive and drafted:
+            self.kctl.update(accepted / drafted)
+
     def _finish(self, e: SchedEntry, finished: List[int]) -> None:
         self.metrics.on_finish(e.req.rid)
         self.sched.finish(e)
+        if self.drafter is not None:
+            self.drafter.forget(e.req.rid)
+            self._accept_rngs.pop(e.req.rid, None)
         finished.append(e.req.rid)
 
     # ------------------------------------------------------------------
@@ -516,7 +716,7 @@ class Engine:
         self._seed_presence(slot, req)
         # the first token is drawn on the host, from a per-request numpy
         # generator (the reference's slot engine does the same)
-        sp = sampling.effective_params(req.sampling)
+        sp = self._sp(req)
         rng = self._host_rngs.setdefault(
             req.rid, np.random.default_rng(np.random.SeedSequence(
                 entropy=0 if sp.seed is None else sp.seed,

@@ -7,8 +7,7 @@ gauges spliced into ``summary()``.
 The port's copy of the reference's collector. The reference keeps every
 scalar in an ``obs.Registry`` with a Prometheus export; here they are
 plain counters (the registry and its metrics server come with the
-observability slice). The speculative-decoding counters come with the
-speculation slice.
+observability slice).
 
 Empty windows report ``None`` (explicit null), never a fake 0."""
 
@@ -86,6 +85,11 @@ class RequestMetrics:
     n_generated: int = 0
     preemptions: int = 0
     cached_prompt_tokens: int = 0   # prefix-cache hit size at admission
+    # speculative decode, per request
+    spec_drafted: int = 0           # draft tokens verified for this req
+    spec_accepted: int = 0          # ... accepted
+    spec_emitted: int = 0           # tokens committed via verify passes
+    spec_verifies: int = 0          # verify passes this request rode
 
     @property
     def ttft(self) -> Optional[float]:
@@ -107,6 +111,20 @@ class RequestMetrics:
             return None
         return (self.finished_at - self.first_token_at) \
             / (self.n_generated - 1)
+
+    @property
+    def spec_acceptance(self) -> Optional[float]:
+        """Realized per-request draft acceptance rate (None: no spec)."""
+        if self.spec_drafted == 0:
+            return None
+        return self.spec_accepted / self.spec_drafted
+
+    @property
+    def spec_tokens_per_verify(self) -> Optional[float]:
+        """Tokens committed per verify pass for this request."""
+        if self.spec_verifies == 0:
+            return None
+        return self.spec_emitted / self.spec_verifies
 
 
 def percentile(values: List[float], p: float) -> Optional[float]:
@@ -142,6 +160,10 @@ class MetricsCollector:
         self.prefix_lookups = 0
         self.prefix_hits = 0
         self.prefix_cached_tokens = 0
+        self.spec_steps = 0          # verify passes
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
         self.weight_bytes = 0.0
         self.kv_bytes = 0.0
         self.sparse_savings_bytes = 0.0
@@ -205,8 +227,37 @@ class MetricsCollector:
     def on_decode_step(self, n_tokens: int,
                        kv_bytes: Optional[float] = None) -> None:
         self.decode_steps += 1
-        stats = traffic_step(self.cfg, self.scfg, n_tokens,
+        self._traffic(traffic_step(self.cfg, self.scfg, n_tokens,
+                                   kv_bytes=kv_bytes))
+
+    def on_spec_step(self, n_rows: int, drafted: int, accepted: int,
+                     emitted: int, kv_bytes: Optional[float] = None,
+                     draft_weight_bytes: float = 0.0) -> None:
+        """One draft->verify pass: ``emitted`` tokens committed for one
+        read of the target's weight stream. ``draft_weight_bytes`` adds
+        the drafter's own weight stream (0 for n-gram) to the totals."""
+        self.spec_steps += 1
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        self.spec_emitted += emitted
+        stats = traffic_step(self.cfg, self.scfg, emitted,
                              kv_bytes=kv_bytes)
+        stats.weight_bytes += draft_weight_bytes
+        self._traffic(stats)
+
+    def on_spec_request(self, rid: int, drafted: int, accepted: int,
+                        emitted: int) -> None:
+        """One request's share of a verify pass; ``emitted`` counts the
+        tokens that landed in tokens_out."""
+        r = self.requests.get(rid)
+        if r is None:
+            return
+        r.spec_drafted += drafted
+        r.spec_accepted += accepted
+        r.spec_emitted += emitted
+        r.spec_verifies += 1
+
+    def _traffic(self, stats: StepStats) -> None:
         self.step_stats.append(stats)
         self.weight_bytes += stats.weight_bytes
         self.kv_bytes += stats.kv_bytes
@@ -218,8 +269,7 @@ class MetricsCollector:
 
     # --- summary ---
     def summary(self) -> dict:
-        """The reference's summary keys, less the speculative-decoding
-        ones (``spec_*``) and the tracer's (``ticks``,
+        """The reference's summary keys, less the tracer's (``ticks``,
         ``phase_ms_per_tick``, ``bucket_attainment``)."""
         done = [r for r in self.requests.values()
                 if r.finished_at is not None]
@@ -233,6 +283,12 @@ class MetricsCollector:
                     if r.ttft is not None and r.cached_prompt_tokens > 0]
         ttft_miss = [r.ttft for r in done
                      if r.ttft is not None and r.cached_prompt_tokens == 0]
+        spec_req = {
+            r.rid: {"acceptance": r.spec_acceptance,
+                    "tokens_per_verify": r.spec_tokens_per_verify,
+                    "drafted": r.spec_drafted,
+                    "emitted": r.spec_emitted}
+            for r in done if r.spec_verifies > 0}
         return {
             "n_finished": len(done),
             "generated_tokens": n_tok,
@@ -254,6 +310,12 @@ class MetricsCollector:
             "decode_steps": self.decode_steps,
             "prefill_chunks": self.prefill_chunks,
             "evictions": self.evictions,
+            "spec_steps": self.spec_steps,
+            "spec_acceptance_rate": (self.spec_accepted
+                                     / max(self.spec_drafted, 1)),
+            "spec_tokens_per_verify": (self.spec_emitted
+                                       / max(self.spec_steps, 1)),
+            "spec_per_request": spec_req,
             "weight_bytes": self.weight_bytes,
             "kv_bytes": self.kv_bytes,
             "sparse_savings_bytes": self.sparse_savings_bytes,

@@ -13,9 +13,9 @@ correctness. ``defrag`` compacts the live blocks; the byte gauges feed
 ``metrics.summary()["kv_pool"]``.
 
 Block index ``n_blocks`` is the sentinel the device path understands:
-writes through it drop, reads through it see nothing. Speculative
-rollback (``truncate``) and the disagg handoff (``export_blocks``,
-``import_blocks``) come with the slices that use them.
+writes through it drop, reads through it see nothing. ``truncate`` is
+the speculative rollback; the disagg handoff (``export_blocks``,
+``import_blocks``) comes with the slice that uses it.
 """
 
 from __future__ import annotations
@@ -181,6 +181,28 @@ class PagedKVCache:
         self.pinned.discard(slot)
         return len(blocks)
 
+    def truncate(self, slot: int, new_len: int) -> int:
+        """Speculative rollback: shrink ``slot`` to cover only positions
+        [0, new_len), releasing whole tail blocks. The partial tail block
+        (the one holding position new_len-1) is kept: its stale positions
+        >= new_len are masked by ``lens`` on the read path and overwritten
+        by the next write. A second call with the same length frees
+        nothing. Returns the references dropped (shared blocks survive
+        their siblings, as in ``free_slot``)."""
+        blocks = self.owned.get(slot)
+        if not blocks:
+            return 0
+        keep = self.blocks_for(max(new_len, 0))
+        freed = blocks[keep:]
+        if not freed:
+            return 0
+        del blocks[keep:]
+        for b in freed:
+            self._release_block(b)
+        self._tables[slot, keep:] = self.n_blocks
+        self.free_count += len(freed)
+        return len(freed)
+
     def tables(self) -> np.ndarray:
         return self._tables
 
@@ -234,7 +256,7 @@ class PagedKVCache:
                 pairs.append(pair)
         return pairs
 
-    # --- pinning (a step in flight) ----------------------------------------
+    # --- pinning (a verify step in flight) ---------------------------------
     def pin(self, slot: int) -> None:
         """Freeze ``slot``'s physical block ids: a step in flight has
         captured them in a device block table, so defrag must not move

@@ -2,8 +2,9 @@
 
 One call of ``Model.forward_step`` serves chunked-prefill rows and decode
 rows in the same fixed-width batch. The per-tick token width is bucketed
-as in the reference — {1} for pure decode ticks and the prefill chunk
-width — so a step's shapes match the reference's step for the same tick.
+as in the reference — {1} for pure decode ticks, the prefill chunk width
+and k_max+1 under speculation — so a step's shapes match the reference's
+step for the same tick.
 The runner owns the device cache; the engine republishes the host-truth
 ``lens`` and block tables before every step. ``copy_blocks`` (copy-on-write)
 and ``apply_perm`` (defrag) mirror the host pool's block moves on every
@@ -20,9 +21,8 @@ import torch
 
 from repro_torch.configs.base import ServeConfig
 
-# row phases (StepBatch.phase values; the reference's VERIFY = 3 comes
-# with speculative decoding)
-IDLE, PREFILL, DECODE = 0, 1, 2
+# row phases (StepBatch.phase values)
+IDLE, PREFILL, DECODE, VERIFY = 0, 1, 2, 3
 
 BACKENDS = ("naive", "flash")
 
@@ -32,8 +32,9 @@ class StepBatch:
     """Host-side description of one step: tokens i32[B, S] (row b's valid
     tokens occupy [0, n_valid[b])), the absolute position of each row's
     first token (``row_start``), the row phase and the block tables.
-    PREFILL rows use the dense FFN, DECODE rows the sparse one,
-    IDLE rows are masked out (sentinel tables, garbage logits)."""
+    PREFILL rows use the dense FFN, DECODE and VERIFY (K+1 speculative)
+    rows the sparse one, IDLE rows are masked out (sentinel tables,
+    garbage logits)."""
 
     tokens: np.ndarray
     row_start: np.ndarray
@@ -98,7 +99,9 @@ class ModelRunner:
             scfg.max_batch, scfg.pool_blocks, scfg.block_size,
             scfg.blocks_per_seq, dtype=dtype, device=device,
             int8_kv=scfg.kv_quant)
-        self.buckets = sorted({1, scfg.prefill_chunk})
+        self.buckets = sorted({1, scfg.prefill_chunk}
+                              | ({scfg.spec.k_max + 1}
+                                 if scfg.spec is not None else set()))
         self.n_steps = 0
 
     def width_for(self, max_valid: int) -> int:

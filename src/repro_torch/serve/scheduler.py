@@ -2,10 +2,11 @@
 decode, FIFO/priority ordering, preemption-by-eviction, prefix reuse.
 
 The port's copy of the reference's scheduler: pure host policy over slots
-and the block pool, without the speculative-decoding and disagg branches
-that later slices bring. Preemption is vLLM-style recompute: the victim's
-blocks are freed and its prompt plus already generated tokens replay
-through chunked prefill when capacity returns.
+and the block pool, without the disagg branch that a later slice brings.
+Preemption is vLLM-style recompute: the victim's blocks are freed and its
+prompt plus already generated tokens replay through chunked prefill when
+capacity returns (under speculation the prompt only: the generated tokens
+re-feed through verify steps, ``SchedEntry.resync``).
 
 With ``ServeConfig.prefix_cache`` a radix index over token prefixes
 (serve.prefix_cache) rides along: admission matches the longest cached
@@ -73,14 +74,25 @@ class SchedEntry:
     cached_len: int = 0         # prefix-cache hit: tokens mapped at admit
     plp_prev: Optional[np.ndarray] = None  # prompt-logprobs chunk seam:
     #                              last-position logits of the prior chunk
+    resync_replay: bool = False  # spec mode: replay prompt only, then
+    #                              re-feed generated KV via verify steps
+    resync: List[int] = dataclasses.field(default_factory=list)
 
     def prefill_tokens(self) -> np.ndarray:
         """What chunked prefill must process: the prompt, plus — after an
         eviction — every generated token except the last (whose KV is
         written by the next decode step, same as the steady-state
-        invariant)."""
+        invariant).
+
+        Speculative engines replay the prompt ONLY (resync_replay): the
+        generated tokens' KV was first written by verify steps through the
+        sparse-gather FFN, and a dense-prefill recompute of those
+        positions would differ in the last bits and could flip a later
+        greedy argmax. The engine re-feeds them through the same verify
+        step instead (``resync``)."""
         prompt = np.asarray(self.req.prompt)
-        if not self.replay or len(self.req.tokens_out) <= 1:
+        if not self.replay or self.resync_replay \
+                or len(self.req.tokens_out) <= 1:
             return prompt
         gen = np.asarray(self.req.tokens_out[:-1], dtype=prompt.dtype)
         return np.concatenate([prompt, gen], axis=0)
@@ -228,6 +240,8 @@ class Scheduler:
         e.cached_len = 0
         e.state = State.WAITING
         e.replay = bool(e.req.tokens_out)
+        e.resync_replay = e.replay and self.scfg.spec is not None
+        e.resync = []
         if e.req.sampling.prompt_logprobs:
             P = len(np.asarray(e.req.prompt).reshape(-1))
             if len(e.req.prompt_logprobs_out) < P:

@@ -355,3 +355,127 @@ def test_quantize_int8_on_the_card_equals_the_cpu(cuda, axis):
     want = quant.quantize_int8(x, axis=axis)
     assert torch.equal(got.q.cpu(), want.q)
     assert torch.equal(got.scale.cpu(), want.scale)
+
+
+# ---------------------------------------------------------------------------
+# the shapes speculative decoding gives the kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [5, 9])
+def test_paged_attention_at_the_verify_shape(cuda, S):
+    """Verify rows of nectar (Hq = Kv = 4, Dh 32, bs 16, 128 blocks a
+    row): S = K+1 query rows a slot at k_max 4 and 8, the last slot IDLE.
+    Launched twice: the same bits."""
+    rng = np.random.default_rng(100 + S)
+    B, bs, MB, nb = 8, 16, 128, 8 * 128
+    lens = rng.integers(1, 232 - S, B).astype(np.int32)
+    tables = np.full((B, MB), nb, np.int32)
+    free = list(rng.permutation(nb))
+    for b in range(B - 1):
+        n = -(-(int(lens[b]) + S) // bs)
+        tables[b, :n] = [free.pop() for _ in range(n)]
+    q = torch.tensor(rng.standard_normal((B, S, 4, 32)), dtype=torch.float32,
+                     device=cuda)
+    kp, vp = (torch.tensor(rng.standard_normal((nb, bs, 4, 32)),
+                           dtype=torch.float32, device=cuda) for _ in range(2))
+    t, ln = (torch.tensor(a, device=cuda) for a in (tables, lens))
+    got = decode_attn.paged_attention(q, kp, vp, t, ln)
+    again = decode_attn.paged_attention(q, kp, vp, t, ln)
+    want = ref.paged_attention_plain(q, kp, vp, t, ln)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[:B - 1].cpu().numpy(),
+                               want[:B - 1].cpu().numpy(), **TOL)
+    assert torch.equal(got[B - 1], torch.zeros_like(got[B - 1]))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_decode_attention_at_the_draft_shape_with_parked_rows(cuda):
+    """The draft model's step (Hq = Kv = 2, Dh 32, a [8, 2048] cache):
+    rows parked at lens = max_seq read kv_len max_seq + 1, clamped to the
+    cache. Launched twice: the same bits."""
+    rng = np.random.default_rng(7)
+    B, S = 8, 2048
+    kv_len = np.array([1, 17, 230, S + 1, 64, S + 1, 9, S + 1], np.int32)
+    q = torch.tensor(rng.standard_normal((B, 2, 32)), dtype=torch.float32,
+                     device=cuda)
+    k, v = (torch.tensor(rng.standard_normal((B, S, 2, 32)),
+                         dtype=torch.float32, device=cuda) for _ in range(2))
+    ln = torch.tensor(kv_len, device=cuda)
+    got = decode_attn.decode_attention(q, k, v, ln)
+    again = decode_attn.decode_attention(q, k, v, ln)
+    want = ref.decode_attention_plain(q, k, v, ln)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,k,d_ff,d", [
+    (72, 128, 640, 128),      # verify rows: 8 slots x 9 positions
+    (8, 128, 256, 64),        # the draft model's sparse FFN
+    (8, 32, 640, 128),        # self-spec's predicted down rows
+])
+def test_sparse_gather_at_the_spec_shapes(cuda, B, k, d_ff, d):
+    rng = np.random.default_rng(B + k + d)
+    idx = np.stack([rng.permutation(d_ff)[:k] for _ in range(B)])
+    idx = np.where(rng.random((B, k)) < 0.1, d_ff, idx)
+    h = torch.tensor(np.abs(rng.standard_normal((B, k))),
+                     dtype=torch.float32, device=cuda)
+    w = torch.tensor(rng.standard_normal((d_ff, d)) * d_ff ** -0.5,
+                     dtype=torch.float32, device=cuda)
+    i = torch.tensor(idx, dtype=torch.int32, device=cuda)
+    got = sparse_ffn.sparse_gather_matvec(h, i, w)
+    again = sparse_ffn.sparse_gather_matvec(h, i, w)
+    want = ref.sparse_gather_matvec_plain(h, i, w)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_verify_row_matches_sequential_decode_on_the_card(cuda):
+    """One K+1-position VERIFY row through kernels 1 and 2 gives, within
+    1e-4, the logits of feeding the same tokens one DECODE row at a
+    time."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("nectar-relu-llama-1.7m")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, cfg.vocab, 13, dtype=np.int32)
+    toks = rng.integers(0, cfg.vocab, 9, dtype=np.int32)
+    bs, MB, nb = 16, 8, 16
+    P = len(prompt)
+
+    def fresh():
+        c = model.init_paged_cache(1, nb, bs, MB, device=cuda)
+        c["block_tables"] = torch.arange(MB, dtype=torch.int32,
+                                         device=cuda)[None]
+        c["lens"] = torch.zeros(1, dtype=torch.int32, device=cuda)
+        with torch.no_grad():
+            model.forward_step(
+                params, torch.tensor(np.pad(prompt, (0, 32 - P))[None],
+                                     device=cuda), c,
+                torch.tensor([P], dtype=torch.int32, device=cuda),
+                torch.ones(1, dtype=torch.bool, device=cuda), bs,
+                backend="flash")
+        return c
+
+    def step(c, t, lens):
+        c["lens"] = torch.tensor([lens], dtype=torch.int32, device=cuda)
+        with torch.no_grad():
+            return model.forward_step(
+                params, torch.tensor(np.asarray(t, np.int32)[None],
+                                     device=cuda), c,
+                torch.tensor([len(t)], dtype=torch.int32, device=cuda),
+                torch.zeros(1, dtype=torch.bool, device=cuda), bs,
+                backend="flash", has_prefill=False)[0].cpu().numpy()
+
+    verify = step(fresh(), toks, P)
+    c = fresh()
+    seq = np.stack([step(c, [t], P + i)[0] for i, t in enumerate(toks)])
+    np.testing.assert_allclose(verify, seq, atol=1e-4, rtol=0)

@@ -2,8 +2,9 @@
 
 ``python -m repro_torch.launch.serve --device cpu`` serves a SMOKE config
 end to end; the reference CLI's flags of later slices are refused with
-the ROADMAP item that brings them; ``metrics.summary()`` has the
-reference's keys less those ROADMAP names as waiting for speculation.
+the ROADMAP item that brings them; ``--spec ngram|selfspec`` serves
+speculatively; ``metrics.summary()`` has the reference's keys, the
+speculative-decoding counters included.
 """
 
 import json
@@ -29,8 +30,7 @@ from repro_torch.serve.scheduler import Request
 from repro_torch.weights import from_jax_params
 
 ROOT = Path(__file__).resolve().parents[1]
-# the reference's summary keys that wait for speculative decoding
-# (ROADMAP queue 1, item 2)
+# the reference's summary keys of speculative decoding
 SPEC_KEYS = {"spec_steps", "spec_acceptance_rate", "spec_tokens_per_verify",
              "spec_per_request"}
 
@@ -64,8 +64,7 @@ def test_cli_main_in_process(argv):
 
 @pytest.mark.parametrize("flags,item", [
     (["--ckpt-dir", "/nonexistent"], "item 9"), (["--mesh", "2"], "item 9"),
-    (["--shard-kv-seq"], "item 9"), (["--spec", "ngram"], "item 2"),
-    (["--spec-k", "3"], "item 2"), (["--async"], "item 3"),
+    (["--shard-kv-seq"], "item 9"), (["--async"], "item 3"),
     (["--async-k", "2"], "item 3"), (["--async-sync-every", "2"], "item 3"),
     (["--disagg"], "item 5"), (["--disagg-prefill-batch", "2"], "item 5"),
     (["--disagg-prefill-blocks", "2"], "item 5"),
@@ -82,10 +81,41 @@ def test_cli_refuses_flags_of_later_slices(flags, item, capsys):
     assert flags[0] in err and f"ROADMAP queue 1 {item}" in err
 
 
+@pytest.mark.parametrize("drafter", ["ngram", "selfspec"])
+def test_cli_serves_speculatively(drafter):
+    """``--spec`` (which implies the paged engine) and ``--spec-k`` run as
+    a program and print the reference CLI's spec summary keys. The
+    program runs single-threaded: beside the other test workers, torch's
+    default thread count oversubscribes the host and self-spec's
+    predictor calibration then takes minutes instead of a second."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "nectar-relu-llama-smoke", "--requests", "3",
+         "--max-new", "6", "--max-batch", "2", "--spec", drafter,
+         "--spec-k", "3"],
+        capture_output=True, text=True, env=env, timeout=600, check=True)
+    s = json.loads(out.stdout)
+    assert s["requests"] == 3 and s["tokens"] == 18
+    assert {"spec_steps", "spec_acceptance_rate",
+            "spec_tokens_per_verify"} <= set(s)
+    assert s["spec_steps"] > 0 and s["spec_tokens_per_verify"] >= 1.0
+    assert 0.0 <= s["spec_acceptance_rate"] <= 1.0
+
+
+def test_cli_refuses_the_model_drafter(capsys):
+    """The draft model needs trained weights: the CLI offers ngram and
+    selfspec only, as the reference's does."""
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--device", "cpu", "--spec", "model"])
+    assert exc.value.code != 0
+    assert "--spec" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("paged", [True, False])
 def test_summary_has_the_reference_keys(paged):
-    """The same keys as the reference's summary, less the spec counters;
-    the nested pool and index gauges too."""
+    """The same keys as the reference's summary, the spec counters
+    included; the nested pool and index gauges too."""
     cfg = get_config("nectar-relu-llama-smoke")
     jparams = JaxModel(cfg).init(jax.random.PRNGKey(0))
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams),
@@ -99,11 +129,13 @@ def test_summary_has_the_reference_keys(paged):
                  device="cpu")
     eng.run([Request(rid=0, prompt=prompt, max_new=3)])
     js, s = jeng.metrics.summary(), eng.metrics.summary()
-    assert set(s) == set(js) - SPEC_KEYS
+    assert set(s) == set(js) and SPEC_KEYS <= set(s)
     assert set(s["kv_pool"]) == set(js["kv_pool"])
     assert set(s["prefix_index"]) == set(js["prefix_index"])
     for key in ("n_finished", "generated_tokens", "decode_steps",
-                "prefill_chunks", "weight_bytes", "kv_bytes",
+                "prefill_chunks", "spec_steps", "spec_acceptance_rate",
+                "spec_tokens_per_verify", "spec_per_request",
+                "weight_bytes", "kv_bytes",
                 "sparse_savings_bytes", "prefix_lookups", "kv_pool",
                 "tpot_overlap_samples", "tpot_steady_samples"):
         assert s[key] == js[key], key
