@@ -79,12 +79,26 @@ Phases, each reporting on lines of its own:
                rows (ngram, temperature 0.7), card against CPU, where a
                sampled verify token's margin is the distance of a
                uniform from its accept threshold or draw boundary.
- 13. profile — the paged, slot, prefix, sampled, int8kv and the ngram and
-               model spec serves again under torch.profiler: each
-               kernel's device time per launch at the shapes the serve
-               gives it, the profiler's launch counts against the
-               counters, the serve's device time over the unprofiled
-               serve's wall, and the same tokens as before.
+ 15. async   — the async engine (runs before phase 13): the phase-5
+               prompts sync once more (the baseline), then with overlap
+               ticks (K = 1) and device-resident bursts (K = 8), each a
+               CUDA graph of one decode iteration replayed; tokens agree with the phase-5 paged serve and
+               with the serve's CPU run (near-tie rule); then the
+               decode-heavy traffic (8 prompts of 16-64 tokens, max_new
+               256) sync, K = 1 and K = 8, the async serves against the
+               eager one; tokens/s, TTFT and TPOT, wall per device tick,
+               async_stats, graph captures and replays, and kernels 1
+               and 2 at 6 launches per device tick by the graph-aware
+               counters; every tick after the prefills of an async serve
+               under torch.cuda.set_sync_debug_mode("error").
+ 13. profile — the paged, slot, prefix, sampled, int8kv, the ngram and
+               model spec serves and the K = 8 decode-heavy async serve
+               again under torch.profiler: each kernel's device time per
+               launch at the shapes the serve gives it, the profiler's
+               launch counts against the counters, the serve's device
+               time over the unprofiled serve's wall, and the same tokens
+               as before; then one record_shapes window over the paged
+               serve names the shapes and the Python line of every GEMM.
 It exits non-zero, printing no result, when there is no CUDA device or a
 check fails. Its last line is the result JSON; the line before it holds
 the per-kernel JSON. Details go to build/chip_smoke.json.
@@ -848,11 +862,12 @@ def profile_serve(label, make_engine, prompts, max_new, tokens, launches,
     first, unprofiled serve's ``wall`` and the TOP_DEVICE names that took
     most of it (None and empty where the profiler was blind); for the slot
     engine also the range of kv_len its decode attention saw."""
-    kv_lens = []
+    kv_lens, made = [], []
 
     def fresh_engine():
         engine = make_engine()
         kv_lens.clear()
+        made[:] = [engine]
         if not engine.scfg.paged:
             decode_step = engine.model.decode_step
 
@@ -874,11 +889,16 @@ def profile_serve(label, make_engine, prompts, max_new, tokens, launches,
     out = {"kernel_device_ms": {}, "device_ms": None, "busy_share": None,
            "profiled_wall_s": pwall, "top_device": []}
     if averages is not None:
+        graphs = (made[0].runner.graph_replays if made[0].scfg.paged
+                  else 0)
         for key, n in launches.items():
             if n:
                 us, count = kernel_device(averages, key)
                 check(count == n, f"{label}: the profiler saw {key} run "
-                      f"{count} times, its counter {n}")
+                      f"{count} times, its counter {n}"
+                      + (f" ({graphs} CUDA graph replays in the serve: "
+                         f"the profiler does not see every kernel of a "
+                         f"graph)" if graphs else ""))
                 out["kernel_device_ms"][key] = us / n / 1e3
         on_device = device_events(averages)
         out["device_ms"] = sum(e.self_device_time_total
@@ -1067,6 +1087,147 @@ def timed_drafting(engine):
             acc["s"] += time.perf_counter() - t0
     engine._propose = timed
     return acc
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the async engine
+
+
+def heavy_prompts(cfg):
+    """The decode-heavy traffic: 8 prompts of 16-64 tokens, one admission
+    wave at max_batch 8, so every tick after the prefills is decode only."""
+    hrng = np.random.default_rng(SEED + 8)
+    return [hrng.integers(0, cfg.vocab, int(n), dtype=np.int32)
+            for n in hrng.integers(16, 65, 8)]
+
+
+def async_record(label, cfg, engine, n, summary, wall, launches):
+    """Check and print one serve of the paged engine, sync or async: kernels
+    1 and 2 launch once per layer per device tick by the graph-aware
+    counters (an eager step's launches, and each graph replay's; these
+    serves have no stops, so every replay is a device tick); print
+    tokens/s, TTFT and TPOT, wall per device tick, async_stats, graph
+    captures and replays and the launches per device tick. Returns the
+    serve's record."""
+    r = engine.runner
+    ticks = engine.device_ticks
+    over = engine.async_stats()["overlap_ticks"] \
+        if engine._async is not None else 0
+    ran = r.n_steps - over + r.graph_replays
+    for key in ("paged_attention", "sparse_gather_matvec"):
+        check(launches[key] == cfg.n_layers * ticks == cfg.n_layers * ran,
+              f"{label}: {key} launched {launches[key]} times in {ticks} "
+              f"device ticks ({r.n_steps} runner steps, {r.graph_replays} "
+              f"graph replays), expected {cfg.n_layers} a device tick")
+    per_tick = {key: launches[key] / ticks
+                for key in ("paged_attention", "sparse_gather_matvec")}
+    rec = dict(summary, wall_s=wall, device_ticks=ticks,
+               wall_per_device_tick_ms=1e3 * wall / ticks,
+               launches=launches, launches_per_device_tick=per_tick,
+               graph_captures=r.graph_captures,
+               graph_replays=r.graph_replays)
+    if engine._async is not None:
+        rec["async"] = engine.async_stats()
+    print_serve(label, n, summary, wall, ticks, launches)
+    print(f"{label}: wall per device tick "
+          f"{rec['wall_per_device_tick_ms']:.3f} ms; async_stats "
+          f"{rec.get('async', '-')}; graph captures {r.graph_captures}, "
+          f"replays {r.graph_replays}; kernel 1 / 2 launches per device "
+          f"tick {per_tick['paged_attention']:.2f} / "
+          f"{per_tick['sparse_gather_matvec']:.2f}")
+    return rec
+
+
+def sync_free_ticks(cfg, params, sc, dev, prompts, max_new):
+    """Serve ``prompts`` through an async engine and run every tick after
+    the prefills (everything between one reconcile and the next: host
+    bookkeeping, staging, graph replays, the queued copies back) under
+    torch.cuda.set_sync_debug_mode("error"): a device-to-host sync there
+    raises. The designed waits, one CUDA event a reconcile or a burst, do
+    not synchronize the stream. Returns the ticks so run and the engine's
+    async_stats."""
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import Request
+    engine = Engine(cfg, params, sc, device=dev)
+    reqs = [Request(rid=engine.new_rid(), prompt=p, max_new=max_new)
+            for p in prompts]
+    for req in reqs:
+        check(engine.add_request(req), "sync-free: a request was refused")
+    while not (engine.sched.decode_only()
+               and all(req.tokens_out for req in reqs)):
+        engine.step()
+    before = dict(engine.async_stats())
+    ticks = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while engine._busy():
+            engine.step()
+            ticks += 1
+        engine.step()               # reconciles the last, overrun tick
+        ticks += 1
+    except RuntimeError as exc:
+        raise Failure(f"sync-free: an async tick synchronized: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(all(len(req.tokens_out) == max_new for req in reqs),
+          "sync-free: a request did not finish")
+    after = engine.async_stats()
+    check(after["overlap_ticks"] + after["loop_bursts"]
+          > before["overlap_ticks"] + before["loop_bursts"],
+          "sync-free: no async tick ran under the debug mode")
+    return ticks, after
+
+
+class CallSites(torch.overrides.TorchFunctionMode):
+    """Wraps each matmul the port calls in a profiler range named after
+    the port's source line that called it ("site attention.py:62 ...")."""
+
+    MATMULS = (torch.Tensor.__matmul__, torch.Tensor.matmul, torch.matmul)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in self.MATMULS:
+            return func(*args, **kwargs)
+        import traceback
+        site = next((f"{Path(f.filename).name}:{f.lineno} {f.line}"
+                     for f in reversed(traceback.extract_stack()[:-1])
+                     if "repro_torch" in f.filename), "?")
+        with torch.profiler.record_function(f"site {site}"):
+            return func(*args, **kwargs)
+
+
+def gemm_shapes(engine, prompts, max_new):
+    """One torch.profiler window with record_shapes over a serve, each
+    matmul in a range named after its calling line (``CallSites``): every
+    GEMM kernel it ran, grouped by kernel, launching op, input shapes and
+    calling line, most device time first (kernel, op, shapes, site,
+    calls, device ms per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof, CallSites():
+        serve(engine, prompts, max_new)
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        for k in getattr(e, "kernels", []):
+            if "gemm" not in k.name.lower():
+                continue
+            site, up = "?", e
+            while up is not None:
+                if up.name.startswith("site "):
+                    site = up.name[5:]
+                    break
+                up = up.cpu_parent
+            key = (k.name, e.name, str(e.input_shapes), site)
+            r = rows.setdefault(key, [0, 0.0])
+            r[0] += 1
+            r[1] += k.duration
+    out = [[*key, n, us / n / 1e3] for key, (n, us) in rows.items()]
+    return sorted(out, key=lambda r: -r[4] * r[5])
 
 
 def verify_against_sequential(cfg, params, dev, n_tok, bs=16):
@@ -1682,24 +1843,124 @@ def main():
 
     lap(clock, "14) speculative decoding")
 
+    # ---- 15) the async engine (runs before phase 13, which profiles its
+    # K = 8 decode-heavy serve) -----------------------------------------------
+    from repro_torch.configs.base import AsyncConfig
+    async_cfgs = {"K1": AsyncConfig(enabled=True, max_device_ticks=1),
+                  "K8": AsyncConfig(enabled=True, max_device_ticks=8)}
+    details["async"] = {"phase5": {}, "heavy": {}}
+    async_launches = dict.fromkeys(KERNELS, 0)
+    # the sync paged serve once more, as this phase's baseline: phase 5's
+    # serve was the card's first and pays one-time costs in its TTFT
+    again = Engine(cfg, params, scfg, device=dev)
+    again_tokens, _, again_wall, again_summary, again_launches = serve(
+        again, prompts, max_new)
+    check(again_tokens == gpu_tokens,
+          "async: the second sync paged serve's tokens differ from phase 5's")
+    details["async"]["phase5"]["sync"] = async_record(
+        "async sync", cfg, again, len(prompts), again_summary, again_wall,
+        again_launches)
+    for key in KERNELS:
+        async_launches[key] += again_launches[key]
+    for label, acfg in async_cfgs.items():
+        asc = dataclasses.replace(scfg, async_cfg=acfg)
+        eng = Engine(cfg, params, asc, device=dev)
+        a_tokens, _, a_wall, a_summary, a_launches = serve(eng, prompts,
+                                                           max_new)
+        check_tokens(f"async {label}", a_tokens, cfg, max_new, [])
+        rec = async_record(f"async {label}", cfg, eng, len(prompts),
+                           a_summary, a_wall, a_launches)
+        paged_flips = compare_cpu(f"async {label} vs paged", a_tokens,
+                                  gpu_tokens, gpu_margins, gpu_rids)
+        a_cpu = Engine(cfg, params, asc, device="cpu")
+        a_cpu_tokens, _, _, _, _ = serve(a_cpu, prompts, max_new)
+        # the async CPU serve against the sync one (phase 6), whose
+        # margins also judge the card's flips against the async CPU serve
+        cpu_sync_flips = compare_cpu(f"async {label}-cpu vs cpu",
+                                     a_cpu_tokens, cpu_tokens, margins,
+                                     cpu_rids)
+        cpu_flips = compare_cpu(f"async {label}-cpu", a_tokens,
+                                a_cpu_tokens, margins, cpu_rids)
+        ratio = a_summary["tokens_per_s"] / again_summary["tokens_per_s"]
+        print(f"async {label}: {ratio:.3f}x the second sync serve's "
+              f"tokens/s; against the paged serve "
+              f"{len(prompts) - len(paged_flips)}/{len(prompts)} requests "
+              f"token-identical, near-tie flips {paged_flips}; against its "
+              f"CPU run {len(prompts) - len(cpu_flips)}/{len(prompts)}, "
+              f"near-tie flips {cpu_flips}; the CPU run against the sync "
+              f"CPU run: flips {cpu_sync_flips} (CPU: "
+              f"{a_cpu.async_stats()})")
+        details["async"]["phase5"][label] = dict(
+            rec, tokens_per_s_ratio=ratio, paged_flips=paged_flips,
+            cpu_flips=cpu_flips,
+            cpu_sync_flips=cpu_sync_flips, cpu_async=a_cpu.async_stats())
+        for key in KERNELS:
+            async_launches[key] += a_launches[key]
+    # the decode-heavy traffic: sync, then K = 1 and K = 8, on the card
+    heavy = heavy_prompts(cfg)
+    heavy_new = 256
+    h_sync = Engine(cfg, params, scfg, device=dev)
+    h_ticks, _, h_margins = recording_engine(h_sync)
+    h_tokens, h_rids, h_wall, h_summary, h_launches = serve(h_sync, heavy,
+                                                            heavy_new)
+    check_tokens("heavy sync", h_tokens, cfg, heavy_new, h_ticks)
+    details["async"]["heavy"]["sync"] = async_record(
+        "heavy sync", cfg, h_sync, len(heavy), h_summary, h_wall,
+        h_launches)
+    heavy_runs = {}
+    for key in KERNELS:
+        async_launches[key] += h_launches[key]
+    for label, acfg in async_cfgs.items():
+        asc = dataclasses.replace(scfg, async_cfg=acfg)
+        eng = Engine(cfg, params, asc, device=dev)
+        a_tokens, _, a_wall, a_summary, a_launches = serve(eng, heavy,
+                                                           heavy_new)
+        check_tokens(f"heavy {label}", a_tokens, cfg, heavy_new, [])
+        rec = async_record(f"heavy {label}", cfg, eng, len(heavy),
+                           a_summary, a_wall, a_launches)
+        flips = compare_cpu(f"heavy {label} vs sync", a_tokens, h_tokens,
+                            h_margins, h_rids)
+        ratio = a_summary["tokens_per_s"] / h_summary["tokens_per_s"]
+        print(f"heavy {label}: {ratio:.3f}x the sync serve's tokens/s; "
+              f"against the sync serve {len(heavy) - len(flips)}/"
+              f"{len(heavy)} requests token-identical, near-tie flips "
+              f"(the eager serve's margin) {flips}")
+        details["async"]["heavy"][label] = dict(rec, flips=flips,
+                                                tokens_per_s_ratio=ratio)
+        heavy_runs[label] = (asc, a_tokens, a_launches, a_wall)
+        for key in KERNELS:
+            async_launches[key] += a_launches[key]
+    for label, acfg in async_cfgs.items():
+        ticks, stats = sync_free_ticks(
+            cfg, params, dataclasses.replace(scfg, async_cfg=acfg), dev,
+            heavy, 24)
+        print(f"async {label}: {ticks} ticks after the prefills ran under "
+              f"set_sync_debug_mode(\"error\") without a sync ({stats})")
+        details["async"][f"sync_free_{label}"] = {"ticks": ticks,
+                                                   "async": stats}
+    lap(clock, "15) async engine")
+
     # ---- 13) the serves again, under torch.profiler ---------------------------
     profiles = {}
-    for label, sc, pr_prompts, pr_sps, toks, lnch, w in (
-            ("paged", scfg, prompts, None, gpu_tokens, launches, wall),
+    for label, sc, pr_prompts, pr_sps, toks, lnch, w, pr_new in (
+            ("paged", scfg, prompts, None, gpu_tokens, launches, wall,
+             max_new),
             ("slot", slot_scfg, prompts, None, slot_tokens, slot_launches,
-             slot_wall),
+             slot_wall, max_new),
             ("prefix", prefix_scfg, prefix_prompts, None, pre_tokens,
-             pre_launches, pre_wall),
+             pre_launches, pre_wall, max_new),
             ("sampled", scfg, prompts, sps, smp_tokens, smp_launches,
-             smp_wall),
+             smp_wall, max_new),
             ("int8kv", q8_scfg, prompts, None, q8_tokens, q8_launches,
-             q8_wall)) + tuple(
+             q8_wall, max_new)) + tuple(
                 (f"spec {d}", spec_runs[d][0], prompts, None,
-                 *spec_runs[d][1:]) for d in ("ngram", "model")):
+                 *spec_runs[d][1:], max_new) for d in ("ngram", "model")) \
+            + (("async K8 heavy", heavy_runs["K8"][0], heavy, None,
+                *heavy_runs["K8"][1:], heavy_new),):
         pr = profile_serve(f"profile {label}",
                            lambda sc=sc: Engine(cfg, params, sc, device=dev,
                                                 draft_params=dparams),
-                           pr_prompts, max_new, toks, lnch, w, pr_sps)
+                           pr_prompts, pr_new, toks, lnch, w, pr_sps)
         profiles[label] = pr
         per = ", ".join(f"{k} {v:.5f}"
                         for k, v in pr["kernel_device_ms"].items())
@@ -1714,6 +1975,16 @@ def main():
         print(f"profile {label}: most device time (name, count, ms): "
               + "; ".join(f"{n} x{c} {t:.3f}" for n, c, t in pr["top_device"]))
     details["profile"] = profiles
+    # which projection runs the slow f32 GEMM: one window with shapes and
+    # Python lines over the paged serve
+    gemms = gemm_shapes(Engine(cfg, params, scfg, device=dev), prompts,
+                        max_new)
+    check(gemms, "gemm: the record_shapes window attributes no GEMM kernel "
+          "to an op")
+    for kernel, op, shapes, site, calls, call_ms in gemms[:8]:
+        print(f"gemm: {kernel[:72]} x{calls} {call_ms:.5f} ms a call: {op} "
+              f"{shapes} from {site}")
+    details["gemm_shapes"] = gemms
 
     lap(clock, "13) profiled serves")
 
@@ -1722,8 +1993,8 @@ def main():
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     # each kernel's launches on the paths that run it (paged attention:
-    # the paged, prefix and greedy spec serves; the gather: those and the
-    # slot serve; decode attention: the slot serve and the model and
+    # the paged, prefix, greedy spec and async serves; the gather: those
+    # and the slot serve; decode attention: the slot serve and the model and
     # self-spec drafters; nmce_matmul: the ops phase), and its row at the
     # shape the main path gives it
     spec_launches = {key: sum(run[2][key] for run in spec_runs.values())
@@ -1731,11 +2002,13 @@ def main():
     path_launches = {
         "paged_attention": launches["paged_attention"]
         + pre_launches["paged_attention"]
-        + spec_launches["paged_attention"],
+        + spec_launches["paged_attention"]
+        + async_launches["paged_attention"],
         "sparse_gather_matvec": launches["sparse_gather_matvec"]
         + slot_launches["sparse_gather_matvec"]
         + pre_launches["sparse_gather_matvec"]
-        + spec_launches["sparse_gather_matvec"],
+        + spec_launches["sparse_gather_matvec"]
+        + async_launches["sparse_gather_matvec"],
         "decode_attention": slot_launches["decode_attention"]
         + spec_launches["decode_attention"],
         "relu_ffn": slot_launches["relu_ffn"],

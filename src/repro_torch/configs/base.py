@@ -135,7 +135,29 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AsyncConfig:
+    """Asynchronous engine ticks (serve.engine, paged mode only).
+
+    With ``enabled=True`` the engine runs a pure-decode tick without the
+    synchronous round trip, two ways:
+
+      * overlap ticks: tick t's decode step and its on-device sample are
+        dispatched without waiting; tick t-1's tokens are committed while
+        t runs, and t+1's input token chains on t's on the device;
+      * device-resident decode bursts: up to ``max_device_ticks`` decode
+        steps chained on the device, one host wait per burst (on CUDA a
+        captured graph of one decode iteration, replayed per step).
+
+    The host replays every emitted token through the synchronous commit
+    path, so greedy and seeded sampled output stay token-identical to the
+    synchronous engine. Ticks that need host policy (prefill, admission,
+    speculation, eviction pressure, the repetition penalty) run
+    synchronously."""
+
     enabled: bool = False
+    max_device_ticks: int = 8       # K: decode ticks per device burst (>=1)
+    sync_every: int = 0             # force a synchronous tick every N engine
+    #                                 ticks (0 = only when the engine needs
+    #                                 one); bounds streaming staleness
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,11 +7,15 @@ change rebuilds it and later uses load it as built. The libraries go to
 ``build/kernels/`` at the repository root.
 
 ``LAUNCHES`` counts kernel launches: each wrapper adds one where it
-launches its kernel, and nowhere else.
+launches its kernel (``count_launch``), and nowhere else. A launch made
+while a CUDA graph is captured does not run then: it counts in the
+capture's tally (``capturing``), and runs, and counts, each time the graph
+is replayed (``add_replay``). So the counters equal what ran on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -19,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -32,6 +36,32 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0, "sparse_gather_matvec": 0,
                             "decode_attention": 0, "relu_ffn": 0,
                             "nmce_matmul": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_CAPTURES: List[Dict[str, int]] = []     # the tallies of open captures
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name``: in LAUNCHES, or in the tally
+    of the CUDA graph being captured."""
+    (_CAPTURES[-1] if _CAPTURES else LAUNCHES)[name] += 1
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph capture: yields the tally of the launches the
+    graph holds, which LAUNCHES does not count."""
+    tally = dict.fromkeys(LAUNCHES, 0)
+    _CAPTURES.append(tally)
+    try:
+        yield tally
+    finally:
+        _CAPTURES.pop()
+
+
+def add_replay(tally: Dict[str, int], replays: int) -> None:
+    """Count the launches of ``replays`` replays of a graph whose capture
+    tallied ``tally``."""
+    for name, n in tally.items():
+        LAUNCHES[name] += n * replays
 
 
 def _nvcc() -> str:

@@ -158,7 +158,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
-    build.LAUNCHES["paged_attention"] += 1
+    build.count_launch("paged_attention")
     return out
 
 
@@ -265,5 +265,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {err}")
-    build.LAUNCHES["decode_attention"] += 1
+    build.count_launch("decode_attention")
     return out

@@ -128,5 +128,5 @@ def nmce_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"nmce_matmul kernel launch failed: cudaError "
                            f"{err}")
-    build.LAUNCHES["nmce_matmul"] += 1
+    build.count_launch("nmce_matmul")
     return out

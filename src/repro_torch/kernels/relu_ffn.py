@@ -125,5 +125,5 @@ def relu_ffn(x: torch.Tensor, w_up: torch.Tensor,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"relu_ffn kernel launch failed: cudaError {err}")
-    build.LAUNCHES["relu_ffn"] += 1
+    build.count_launch("relu_ffn")
     return out

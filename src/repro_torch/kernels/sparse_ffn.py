@@ -104,5 +104,5 @@ def sparse_gather_matvec(h: torch.Tensor, idx: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"sparse_gather_matvec kernel launch failed: "
                            f"cudaError {err}")
-    build.LAUNCHES["sparse_gather_matvec"] += 1
+    build.count_launch("sparse_gather_matvec")
     return out

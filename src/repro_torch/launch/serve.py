@@ -6,13 +6,15 @@ random weights from a seeded generator.
         --arch nectar-relu-llama-1.7m --requests 8 --max-new 16 \\
         --max-batch 4 [--paged] [--prefix-cache] [--kv-quant] \\
         [--spec ngram|selfspec --spec-k 4] [--attn-backend flash] \\
+        [--async --async-k 8 --async-sync-every 0] \\
         [--temperature 0.7 --seed 0] [--device cpu]
 
 It runs on the CUDA device unless ``--device cpu`` is given, and prints a
-JSON summary. The reference CLI's flags of features this port does not
-have yet (checkpoints, sharded serving, the async engine, disagg and
-fleet serving, tracing and metrics export) are
-accepted by name and refused with the ROADMAP item that brings them.
+JSON summary (with ``--async``, the engine's ``async_stats()`` under
+"async"). The reference CLI's flags of features this port does not
+have yet (checkpoints, sharded serving, disagg and fleet serving,
+tracing and metrics export) are accepted by name and refused with the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ServeConfig, SpecConfig
+from repro_torch.configs.base import AsyncConfig, ServeConfig, SpecConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
 from repro_torch.serve.engine import Engine
@@ -41,12 +43,6 @@ LATER = (
      "item 9 (multi-device, sharded serving)"),
     (("--shard-kv-seq",), {"action": "store_true"},
      "item 9 (multi-device, sharded serving)"),
-    (("--async",), {"dest": "async_", "action": "store_true"},
-     "item 3 (async engine core)"),
-    (("--async-k",), {"type": int, "default": 8},
-     "item 3 (async engine core)"),
-    (("--async-sync-every",), {"type": int, "default": 0},
-     "item 3 (async engine core)"),
     (("--disagg",), {"action": "store_true"}, "item 5 (disagg and fleet)"),
     (("--disagg-prefill-batch",), {"type": int, "default": 0},
      "item 5 (disagg and fleet)"),
@@ -95,6 +91,16 @@ def parser() -> argparse.ArgumentParser:
                          "the API)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft length, also the adaptive-K ceiling")
+    ap.add_argument("--async", dest="async_", action="store_true",
+                    help="asynchronous engine ticks (implies --paged): "
+                         "double-buffered dispatch and device-resident "
+                         "decode bursts; output stays token-identical to "
+                         "the synchronous engine")
+    ap.add_argument("--async-k", type=int, default=8,
+                    help="max device ticks per decode burst (1 = "
+                         "double-buffered overlap only)")
+    ap.add_argument("--async-sync-every", type=int, default=0,
+                    help="force a synchronous tick every N ticks (0 = off)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 samples")
     ap.add_argument("--top-k", type=int, default=0)
@@ -124,18 +130,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
     gen = torch.Generator(device=device).manual_seed(0)
     params = Model(cfg).init(gen, device=device)
     paged = args.paged or args.prefix_cache or args.kv_quant \
-        or args.spec is not None
+        or args.spec is not None or args.async_
     # --spec-k is the user's cap: adaptive K may shrink below it, never
     # exceed it
     spec = None if args.spec is None else SpecConfig(
         drafter=args.spec, k=args.spec_k, k_max=args.spec_k)
+    async_cfg = None if not args.async_ else AsyncConfig(
+        enabled=True, max_device_ticks=args.async_k,
+        sync_every=args.async_sync_every)
     scfg = ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
                        sparse_decode=not args.dense, paged=paged,
                        prefix_cache=args.prefix_cache,
                        kv_quant=args.kv_quant, spec=spec,
                        block_size=args.block_size,
                        prefill_chunk=args.prefill_chunk, policy=args.policy,
-                       attn_backend=args.attn_backend)
+                       attn_backend=args.attn_backend, async_cfg=async_cfg)
     eng = Engine(cfg, params, scfg, device=device)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p,
@@ -175,6 +184,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 "spec_steps": s["spec_steps"],
                 "spec_acceptance_rate": s["spec_acceptance_rate"],
                 "spec_tokens_per_verify": s["spec_tokens_per_verify"]})
+    if args.async_:
+        out["async"] = eng.async_stats()
     print(json.dumps(out, indent=1))
     return out
 

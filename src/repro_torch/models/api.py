@@ -48,11 +48,13 @@ class Model:
                          max_blocks_per_seq: int,
                          dtype: torch.dtype = torch.float32,
                          device: Optional[Union[str, torch.device]] = None,
-                         int8_kv: bool = False) -> dict:
+                         int8_kv: bool = False,
+                         max_width: Optional[int] = None) -> dict:
         return transformer.init_paged_cache(self.cfg, batch, n_blocks,
                                             block_size, max_blocks_per_seq,
                                             dtype=dtype, device=device,
-                                            int8_kv=int8_kv)
+                                            int8_kv=int8_kv,
+                                            max_width=max_width)
 
     def forward_step(self, params, tokens, cache, n_valid, is_prefill,
                      block_size: int, backend: str = "naive",
@@ -63,3 +65,15 @@ class Model:
                                         n_valid, is_prefill, block_size,
                                         backend=backend,
                                         has_prefill=has_prefill)
+
+    def decode_burst(self, params, cache, tables, tok0, lens0, alive0,
+                     budget, stops, stop_len, hist0, sample_fn,
+                     block_size: int, backend: str, k_ticks: int,
+                     k_max: int):
+        """The async engine's device-resident decode loop: k_ticks
+        width-1 steps with the sample fed back on the device and per-row
+        early exit (see transformer.decode_burst)."""
+        return transformer.decode_burst(params, self.cfg, cache, tables,
+                                        tok0, lens0, alive0, budget, stops,
+                                        stop_len, hist0, sample_fn,
+                                        block_size, backend, k_ticks, k_max)

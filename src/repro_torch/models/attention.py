@@ -36,7 +36,9 @@ def init_paged_kv_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
                         int8_kv: bool = False) -> dict:
     """Block-pool KV storage: requests own scattered fixed-size token
     blocks. Block index ``n_blocks`` is the invalid sentinel — writes
-    through it drop, reads through it see nothing.
+    through it drop, reads through it see nothing. (The serving cache
+    allocates a few more blocks behind the pool, which no table names:
+    ``transformer.init_paged_cache`` and ``_store_paged``.)
 
     ``int8_kv``: 1 byte per element plus one f32 scale per (token, head)
     for each of K and V (the ``kv_cache.quantize_kv`` layout), as
@@ -127,24 +129,46 @@ def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return o @ p["wo"]
 
 
-def _store_paged(cache: dict, name: str, blk: torch.Tensor,
-                 off: torch.Tensor, val: torch.Tensor) -> None:
-    """Scatter ``val`` [B, S, Kv, Dh] into pool leaf ``name`` at (blk,
-    off); entries whose block is the sentinel drop. int8 pools (the leaf
-    has a ``{name}_scale`` sibling) store ``kv_cache.quantize_kv``'s bytes
-    and per-(token, head) scales. The reference's functional
-    ``.at[blk, off].set(val, mode="drop")`` becomes an in-place write here:
-    each leaf is a view of the stacked [n_units, ...] pool, so the write
-    lands in the engine's cache without a copy."""
-    pool = cache[name]
-    keep = blk < pool.shape[0]
-    b, o = blk[keep].long(), off[keep].long()
-    if f"{name}_scale" not in cache:
-        pool[b, o] = val[keep].to(pool.dtype)
-        return
-    (q8, scale), _ = kv_cache.quantize_kv(val, val)
-    pool[b, o] = q8[keep]
-    cache[f"{name}_scale"][b, o] = scale[keep]
+def _write_rows(blk: torch.Tensor, off: torch.Tensor, n_blocks: int,
+                block_size: int, trash_rows: int) -> torch.Tensor:
+    """Where each (blk, off) entry of a step writes, as a token row of the
+    pool's slab (``_store_paged``): a real block's row, or for an entry
+    whose block is the sentinel a row of the ``trash_rows`` trash tokens
+    behind the pool, which no table names and nothing reads. Entry e
+    takes trash row e, so no row is named twice. Returns i64[E]; nothing
+    here reads a device value on the host."""
+    if blk.numel() > trash_rows:
+        raise ValueError(f"a step of {blk.numel()} KV entries needs as many "
+                         f"trash rows behind the pool, the cache has "
+                         f"{trash_rows}: make it with init_paged_cache and a "
+                         f"max_width that covers the step")
+    e = torch.arange(blk.numel(), device=blk.device).reshape(blk.shape)
+    dst = torch.where(blk < n_blocks, blk.long() * block_size + off,
+                      n_blocks * block_size + e)
+    return dst.reshape(-1)
+
+
+def _store_paged(cache: dict, name: str, dst: torch.Tensor,
+                 val: torch.Tensor) -> None:
+    """Scatter ``val`` [B, S, Kv, Dh] into pool leaf ``name`` at the slab
+    rows ``dst`` (``_write_rows``); the sentinel entries land in the trash
+    blocks. int8 pools (the leaf has a ``{name}_scale`` sibling) store
+    ``kv_cache.quantize_kv``'s bytes and per-(token, head) scales. The
+    reference's functional ``.at[blk, off].set(val, mode="drop")`` becomes
+    an in-place write of fixed shape: no boolean mask, so no device-to-host
+    sync, and no row is named twice, so it is deterministic. Each leaf
+    [n_blocks, bs, ...] is a view of one layer's slab, whose
+    ``cache["trash_rows"]`` trash tokens follow the pool in memory
+    (``transformer.init_paged_cache``); the write goes through the slab
+    and lands in the engine's cache without a copy."""
+    writes = [(cache[name], val)]
+    if f"{name}_scale" in cache:
+        (q8, scale), _ = kv_cache.quantize_kv(val, val)
+        writes = [(cache[name], q8), (cache[f"{name}_scale"], scale)]
+    for leaf, v in writes:
+        rows = leaf.shape[0] * leaf.shape[1] + cache["trash_rows"]
+        slab = leaf.as_strided((rows,) + leaf.shape[2:], leaf.stride()[1:])
+        slab[dst] = v.reshape((-1,) + v.shape[2:]).to(leaf.dtype)
 
 
 def _read_paged(cache: dict, name: str, tables: torch.Tensor
@@ -174,8 +198,9 @@ def attn_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     fp pools directly.
 
     x: [B, S, d]; lens/n_valid: i32[B]; tables: i32[B, MB] (inactive rows
-    all-sentinel). Writes ``cache["k"]``/``cache["v"]`` in place and
-    returns the attention output [B, S, d]."""
+    all-sentinel). Writes ``cache["k"]``/``cache["v"]`` in place (their
+    trash size ``cache["trash_rows"]``) and returns the attention output
+    [B, S, d]."""
     B, S, _ = x.shape
     n_blocks = cache["k"].shape[0]
     MB = tables.shape[1]
@@ -189,8 +214,9 @@ def attn_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     blk = torch.where((j[None, :] < n_valid[:, None])
                       & (gpos // block_size < MB), blk, n_blocks)
     off = gpos % block_size
-    _store_paged(cache, "k", blk, off, k)
-    _store_paged(cache, "v", blk, off, v)
+    dst = _write_rows(blk, off, n_blocks, block_size, cache["trash_rows"])
+    _store_paged(cache, "k", dst, k)
+    _store_paged(cache, "v", dst, v)
     if backend == "flash":
         o = ops.paged_attention(q.contiguous(), cache["k"], cache["v"],
                                 tables, lens)

@@ -94,21 +94,35 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
                      block_size: int, max_blocks_per_seq: int,
                      dtype: torch.dtype = torch.float32,
                      device: Optional[Union[str, torch.device]] = None,
-                     int8_kv: bool = False) -> dict:
+                     int8_kv: bool = False,
+                     max_width: Optional[int] = None) -> dict:
     """Paged decode cache: one block pool per layer, stacked over units,
     plus per-slot block tables (sentinel-filled; serve.paged_kv assigns
     blocks). ``int8_kv`` stores int8 K/V with f32 per-(token, head)
-    scales (``attention.init_paged_kv_cache``)."""
+    scales (``attention.init_paged_kv_cache``).
+
+    Each pool leaf [n_units, n_blocks, ...] is a view of a slab with trash
+    blocks behind the pool, which no table names: the writes of sentinel
+    entries (padding, IDLE rows) land there, so a step writes its KV with
+    no host sync (``attention._store_paged``). ``cache["trash_rows"]``
+    is the trash's size in tokens: at least ``batch * max_width``, the
+    entries of the widest step the caller makes (default: a step as wide
+    as a sequence, ``max_blocks_per_seq * block_size``). A wider step
+    raises."""
     device = resolve_device(device)
     check_supported(cfg)
-    pools = _stack([attention.init_paged_kv_cache(cfg, n_blocks, block_size,
-                                                  dtype, device,
+    if max_width is None:
+        max_width = max_blocks_per_seq * block_size
+    n_trash = -(-batch * max_width // block_size)
+    slabs = _stack([attention.init_paged_kv_cache(cfg, n_blocks + n_trash,
+                                                  block_size, dtype, device,
                                                   int8_kv=int8_kv)
                     for _ in range(cfg.n_units)])
+    pools = {k: v[:, :n_blocks] for k, v in slabs.items()}
     return {"lens": torch.zeros(batch, dtype=torch.int32, device=device),
             "block_tables": torch.full((batch, max_blocks_per_seq), n_blocks,
                                        dtype=torch.int32, device=device),
-            "units": {"b0": pools}}
+            "units": {"b0": pools}, "trash_rows": n_trash * block_size}
 
 
 def _embed_inputs(params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -238,6 +252,112 @@ def forward_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
            "tables": tables, "block_size": block_size, "backend": backend}
     units = params["units"]["b0"]
     for i in range(cfg.n_units):
-        x = block_step_paged(_index(units, i), cfg, x, ctx, _index(pools, i))
+        layer = dict(_index(pools, i), trash_rows=cache["trash_rows"])
+        x = block_step_paged(_index(units, i), cfg, x, ctx, layer)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return project_logits(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# device-resident decode burst (the async engine's loop ticks)
+
+
+def decode_iteration(params: dict, cfg: ModelConfig, state: dict,
+                     sample_fn, block_size: int, backend: str) -> None:
+    """One iteration of ``decode_burst``, in place on ``state``, its loop
+    state as ``decode_burst`` makes it: the pools under "units" and their
+    ``trash_rows`` (``init_paged_cache``), the block
+    ``tables``, and ``tok``, ``lens``, ``alive``, ``budget``, ``stops``,
+    ``stop_len``, ``hist``, ``emitted``, ``lp``, ``n_emit`` and the
+    iteration index ``i`` (a 0-d tensor). The iteration is a width-1
+    ``forward_step`` of every live row with no prefill row, a sample, and
+    the loop's bookkeeping. A dead row (``alive`` 0) is an IDLE runner
+    row: its table goes all-sentinel, so it reads no block and writes only
+    the trash blocks. A row dies when it has emitted ``budget`` tokens or
+    the last L tokens of its stream (``hist``) end with one of its
+    ``stops``. Every shape here is fixed and no device value is read on
+    the host, so the iteration can be captured as a CUDA graph and
+    replayed (``serve.runner.ModelRunner.decode_burst``). Where ``state``
+    has ``logits``, the iteration's f32[B, V] logits are copied there."""
+    tok, lens, alive = state["tok"], state["lens"], state["alive"]
+    hist, stops, stop_len = state["hist"], state["stops"], state["stop_len"]
+    emitted, lp, n_emit, i = (state["emitted"], state["lp"],
+                              state["n_emit"], state["i"])
+    B, L = hist.shape
+    cache = {"lens": lens, "block_tables": state["tables"],
+             "units": state["units"], "trash_rows": state["trash_rows"]}
+    logits = forward_step(params, cfg, tok[:, None], cache, alive,
+                          torch.zeros(B, dtype=torch.bool, device=tok.device),
+                          block_size, backend=backend, has_prefill=False)
+    last = logits[:, 0].float()
+    if "logits" in state:
+        state["logits"].copy_(last)
+    ntok, nlp = sample_fn(last, i)
+    ntok = ntok.to(torch.int32)
+    live = alive > 0
+    col = (torch.arange(emitted.shape[1], device=tok.device)[None, :] == i) \
+        & live[:, None]
+    emitted.copy_(torch.where(col, ntok[:, None], emitted))
+    lp.copy_(torch.where(col, nlp[:, None].to(lp.dtype), lp))
+    hist.copy_(torch.where(live[:, None],
+                           torch.cat([hist[:, 1:], ntok[:, None]], dim=1),
+                           hist))
+    n_emit.add_(live.to(n_emit.dtype))
+    pos_mask = torch.arange(L, device=tok.device)[None, None, :] \
+        < (L - stop_len[:, :, None])
+    matched = ((pos_mask | (hist[:, None, :] == stops)).all(dim=-1)
+               & (stop_len > 0)).any(dim=-1)
+    alive.copy_((live & ~matched & (n_emit < state["budget"]))
+                .to(alive.dtype))
+    tok.copy_(torch.where(live, ntok, tok))
+    lens.add_(live.to(lens.dtype))
+    i.add_(1)
+
+
+def decode_burst(params: dict, cfg: ModelConfig, cache: dict,
+                 tables: torch.Tensor, tok0: torch.Tensor,
+                 lens0: torch.Tensor, alive0: torch.Tensor,
+                 budget: torch.Tensor, stops: torch.Tensor,
+                 stop_len: torch.Tensor, hist0: torch.Tensor, sample_fn,
+                 block_size: int, backend: str, k_ticks: int, k_max: int):
+    """Device-resident decode loop: ``k_ticks`` single-token decode steps
+    (``decode_iteration``), each feeding its sampled token back as the
+    next step's input without a host round trip.
+
+    Row b goes dead once it has emitted ``budget[b]`` tokens or its
+    generated stream ends with a stop: ``stops`` i32[B, NS, L]
+    right-aligned (-1 padded) with lengths ``stop_len`` i32[B, NS] (0 =
+    unused); ``hist0`` i32[B, L] holds the last L tokens already
+    generated, so a stop across the burst boundary still matches. Longer
+    stops match on the host at replay. ``sample_fn(last_logits, i) ->
+    (tokens [B], logprobs f32[B])`` samples iteration ``i`` (a 0-d device
+    tensor, which selects the draw's key).
+
+    The reference's ``lax.while_loop`` also stops once every row is dead;
+    this plain loop runs all ``k_ticks`` iterations, and an iteration with
+    every row dead changes no state that is read. The pools of ``cache`` are written in
+    place (the reference donates them).
+
+    Returns (emitted i32[B, k_max], -1 past each row's last live step;
+    logprobs f32[B, k_max]; the cache with the final lens; the final lens;
+    n_emit i32[B])."""
+    dev = tok0.device
+    B = tok0.shape[0]
+    # the loop state, updated in place; the inputs are copied, so the
+    # caller's tensors stay as they were
+    state = {"units": cache["units"], "trash_rows": cache["trash_rows"],
+             "tables": tables.clone(),
+             "tok": tok0.clone(), "lens": lens0.clone(),
+             "alive": alive0.clone(), "budget": budget.clone(),
+             "stops": stops.clone(), "stop_len": stop_len.clone(),
+             "hist": hist0.clone(),
+             "emitted": torch.full((B, k_max), -1, dtype=torch.int32,
+                                   device=dev),
+             "lp": torch.zeros((B, k_max), dtype=torch.float32, device=dev),
+             "n_emit": torch.zeros(B, dtype=torch.int32, device=dev),
+             "i": torch.zeros((), dtype=torch.int32, device=dev)}
+    for _ in range(int(k_ticks)):
+        decode_iteration(params, cfg, state, sample_fn, block_size, backend)
+    new_cache = dict(cache, lens=state["lens"])
+    return (state["emitted"], state["lp"], new_cache, state["lens"],
+            state["n_emit"])

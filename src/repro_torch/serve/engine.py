@@ -18,10 +18,14 @@ The port of the reference engine's two synchronous modes:
     draws the first token on the host (``sampling.sample_np``); each
     ``step`` decodes one token for every slot.
 
-The async tick pipeline, sharded serving, disagg handoff and tracing are
-later slices of the port: asking for any of them raises
-``NotImplementedError`` (or ``ValueError`` where the reference's slot
-mode refuses them too).
+``ServeConfig.async_cfg`` (paged mode) turns on the asynchronous tick
+pipeline: overlap ticks and device-resident decode bursts, whose tokens
+the host replays through the synchronous commit path (see the section
+"asynchronous tick pipeline" below).
+
+Sharded serving, disagg handoff and tracing are later slices of the
+port: asking for any of them raises ``NotImplementedError`` (or
+``ValueError`` where the reference's slot mode refuses them too).
 """
 
 from __future__ import annotations
@@ -40,8 +44,8 @@ from repro_torch.serve import (kv_cache, metrics as metrics_mod, paged_kv,
                                sampling)
 from repro_torch.serve.metrics import StepStats
 from repro_torch.serve.prefix_cache import RadixPrefixCache
-from repro_torch.serve.runner import (DECODE, PREFILL, VERIFY, ModelRunner,
-                                      StepOutput)
+from repro_torch.serve.runner import (DECODE, PREFILL, STOP_L, STOP_NS,
+                                      VERIFY, ModelRunner, StepOutput)
 from repro_torch.serve.scheduler import Request, SchedEntry, Scheduler, State
 
 
@@ -67,8 +71,6 @@ def _unsupported(scfg: ServeConfig) -> List[str]:
     """The ServeConfig features outside this slice that ``scfg`` asks
     for."""
     return [name for name, on in (
-        ("async_cfg", scfg.async_cfg is not None
-         and scfg.async_cfg.enabled),
         ("mesh", scfg.mesh is not None and scfg.mesh.n_devices > 1),
         ("obs", scfg.obs.enabled or scfg.obs.profile)) if on]
 
@@ -117,7 +119,24 @@ class Engine:
         # per-slot token-id presence for the repetition penalty
         self._presence = np.zeros((scfg.max_batch, cfg.vocab), bool)
         self._draw_ctr: Dict[int, int] = {}    # rid -> sample-draw counter
+        # the disagg coordinator (ROADMAP queue 1, item 5) sets this each
+        # tick, so that the decode engine's interference split sees its
+        # paired prefill engine's work; async ticks read it
+        self.external_prefill_overlap = False
         self._tick_overlap = False
+        # async tick pipeline: double-buffered overlap ticks and
+        # device-resident decode bursts. ``_pending`` holds the one
+        # in-flight overlap tick awaiting reconciliation.
+        acfg = scfg.async_cfg
+        self._async = acfg if (acfg is not None and acfg.enabled) else None
+        self._pending = None
+        self._flushed_finished: List[int] = []
+        self._async_tick_no = 0
+        self._loop_device_ticks = 0
+        self._async_stats = {"sync_ticks": 0, "overlap_ticks": 0,
+                             "loop_bursts": 0, "loop_device_ticks": 0}
+        if self._async is not None and self._async.max_device_ticks < 1:
+            raise ValueError("AsyncConfig.max_device_ticks must be >= 1")
         if scfg.paged:
             self._init_paged(drafter, draft_params)
         else:
@@ -148,6 +167,9 @@ class Engine:
         gauges; the pool's and index's event counters restart with it, so
         every rate in one summary() covers the same window. Pool state
         (blocks, refcounts, the radix tree) is untouched."""
+        if self._async is not None:
+            # commit any deferred tokens into the OLD window first
+            self.flush_async()
         self.metrics = metrics_mod.MetricsCollector(self.cfg, self.scfg)
         if self.scfg.paged:
             self.metrics.pool = self.pool
@@ -219,14 +241,19 @@ class Engine:
             getattr(self, "_accept_rngs", {}).pop(rid, None)
 
     def step(self) -> List[int]:
-        """One engine tick; returns the rids that finished this tick."""
+        """One engine tick; returns the rids that finished this tick.
+        (The reference runs it inside its tracer's ``tick`` span: tracing
+        is ROADMAP queue 1, item 4.)"""
         if self.scfg.paged:
+            if self._async is not None:
+                return self._tick_paged_async()
             return self._tick_paged()
         return self._step_slots()
 
     def defrag(self) -> Optional[np.ndarray]:
         """Compact the block pool: host bookkeeping, then the same moves
         on the device pools (the next step republishes the tables)."""
+        self.flush_async()   # in-flight tables must not capture a move
         perm = self.pool.defrag()
         if perm is not None:
             self.runner.apply_perm(perm)
@@ -677,6 +704,329 @@ class Engine:
             self.drafter.forget(e.req.rid)
             self._accept_rngs.pop(e.req.rid, None)
         finished.append(e.req.rid)
+
+    # ------------------------------------------------------------------
+    # asynchronous tick pipeline (ServeConfig.async_cfg)
+    #
+    # Three tick flavors, chosen per tick:
+    #   * loop    — pure-decode steady state: up to max_device_ticks
+    #               forward+sample iterations chained on the device
+    #               (runner.decode_burst: on CUDA, replays of a captured
+    #               graph); the host then REPLAYS the emitted tokens
+    #               through the synchronous commit path (token identity by
+    #               construction).
+    #   * overlap — double-buffered: dispatch tick t's step and its
+    #               on-device sample WITHOUT waiting (runner.graph_step),
+    #               reconcile tick t-1's pending tokens while t runs; tick
+    #               t+1 chains on t's still-in-flight tokens via a device
+    #               where().
+    #   * sync    — the plain _tick_paged, used whenever anything beyond
+    #               pure decode is in play (prefill, spec, admissions,
+    #               eviction pressure, rep-penalty rows, forced cadence).
+    #               Sync ticks always flush the pending overlap tick first,
+    #               so admissions and preemptions never race an in-flight
+    #               reconcile.
+    #
+    # Overrun is harmless by design: a row that finished at reconcile may
+    # have one more step in flight. Its results are dropped by the
+    # entry-identity check, and its stale KV writes are never read: the
+    # sync path republishes host-truth lens and tables, and a freed block
+    # is reused only by steps queued behind the in-flight one on the same
+    # stream. The reference's tracer spans and tick attributes in these
+    # methods (schedule, batch_assemble, device_dispatch, sample_sync,
+    # device_wait, postprocess) come with tracing, ROADMAP queue 1, item 4.
+
+    def flush_async(self) -> None:
+        """Reconcile any in-flight overlap tick now, so that out-of-band
+        mutators (defrag, metric-window resets) see fully committed host
+        state; rids finished during a flush are returned by the next
+        step() call."""
+        if self._pending is not None:
+            self._flushed_finished.extend(self._reconcile_pending())
+
+    def _tick_paged_async(self) -> List[int]:
+        acfg = self._async
+        self._async_tick_no += 1
+        pre = self._flushed_finished
+        self._flushed_finished = []
+        force = acfg.sync_every > 0 \
+            and self._async_tick_no % acfg.sync_every == 0
+        rows = None if force else self._async_decode_rows()
+        if rows is None:
+            fin = self._reconcile_pending()
+            self._async_stats["sync_ticks"] += 1
+            return pre + fin + self._tick_paged()
+        if acfg.max_device_ticks > 1:
+            # loop mode wants committed state: flush the pending overlap
+            # tick, drop rows it finished, then burst on the device (the
+            # reference also keeps sharded engines out of loop mode: the
+            # port has no mesh yet)
+            fin = self._reconcile_pending()
+            rows = [e for e in rows
+                    if self.sched.active.get(e.req.rid) is e]
+            out = self._tick_async_loop(rows) if rows else None
+            if out is not None:
+                return pre + fin + out
+            self._async_stats["sync_ticks"] += 1
+            return pre + fin + self._tick_paged()
+        out = self._tick_async_overlap(rows)
+        if out is None:
+            fin = self._reconcile_pending()
+            self._async_stats["sync_ticks"] += 1
+            return pre + fin + self._tick_paged()
+        return pre + out
+
+    def _async_decode_rows(self) -> Optional[List[SchedEntry]]:
+        """The decode rows an async tick may run, or None when this tick
+        needs the synchronous path. Conservative by design: anything that
+        samples from host state (the repetition penalty) or mutates
+        scheduling state (admission, prefill, eviction, speculation's
+        drafting and resync) falls back to sync — identity first, overlap
+        second."""
+        if self.spec is not None or self.cfg.n_codebooks:
+            return None
+        if not self.sched.decode_only():
+            return None
+        rows = list(self.sched.decode_entries())
+        if not rows:
+            return None
+        for e in rows:
+            sp = self._sp(e.req)
+            if sp.repetition_penalty != 1.0 or e.resync \
+                    or not e.req.tokens_out:
+                return None
+        return rows
+
+    def _reconcile_pending(self) -> List[int]:
+        """Commit the deferred overlap tick: wait for its tokens (the only
+        host wait of the pair of ticks), then replay them through the
+        synchronous commit path. Rows whose entry is no longer the active
+        one for their rid (finished or evicted since dispatch) are
+        overrun: their tokens are dropped."""
+        pend = self._pending
+        if pend is None:
+            return []
+        self._pending = None
+        finished: List[int] = []
+        tok_np, lp_np = pend["host"].wait()
+        live = [e for e in pend["entries"]
+                if self.sched.active.get(e.req.rid) is e]
+        prev = self._tick_overlap
+        self._tick_overlap = pend["overlap"]
+        try:
+            self._commit_decode(live, tok_np, lp_np, finished)
+        finally:
+            self._tick_overlap = prev
+        return finished
+
+    def _sampling_arrays(self, rows: List[SchedEntry]):
+        """Per-slot temperature, top-k and top-p of ``rows``, and whether
+        any of them samples."""
+        B = self.scfg.max_batch
+        temp = np.zeros((B,), np.float32)
+        top_k = np.zeros((B,), np.int32)
+        top_p = np.ones((B,), np.float32)
+        for e in rows:
+            sp = self._sp(e.req)
+            temp[e.slot], top_k[e.slot], top_p[e.slot] = (
+                sp.temperature, sp.top_k, sp.top_p)
+        return temp, top_k, top_p, bool(np.any(temp > 0))
+
+    def _tick_async_overlap(self, rows: List[SchedEntry]
+                            ) -> Optional[List[int]]:
+        """Double-buffered decode tick: dispatch this tick's step and its
+        on-device sample, then reconcile LAST tick's pending tokens while
+        this one runs. Rows with a pending token chain on it through a
+        device where(): their input token never touches the host. Returns
+        None (state untouched, the caller falls back to sync) when
+        capacity would need eviction or a row is at its context ceiling.
+        """
+        scfg = self.scfg
+        pend = self._pending
+        prids = pend["rids"] if pend is not None else frozenset()
+        B = scfg.max_batch
+        need_blocks = 0
+        needs = []
+        for e in rows:
+            off = 1 if e.req.rid in prids else 0
+            need = e.ctx_len + off + 1
+            nb = self.pool.blocks_for(need)
+            if need > scfg.max_seq or nb > self.pool.max_blocks_per_seq:
+                return None
+            have = len(self.pool.owned.get(e.slot, ()))
+            need_blocks += max(nb - have, 0)
+            needs.append((e, off, need))
+        if need_blocks > self.pool.n_free:
+            return None                        # eviction is sync work
+        for e, off, need in needs:
+            ok = self.pool.allocate(e.slot, need)
+            assert ok, "n_free precheck covered this allocation"
+        self._tick_overlap = self.external_prefill_overlap
+        cow: List[Tuple[int, int]] = []
+        for e, off, _ in needs:
+            cow.extend(self.pool.cow_for_write(e.slot, e.ctx_len + off, 1))
+        if cow:
+            self.runner.copy_blocks(cow)
+        batch = self.runner.new_batch(1, self.pool.tables())
+        chain = np.zeros((B,), bool)
+        for e, off, _ in needs:
+            if off:
+                # placeholder token: overridden on the device by the
+                # still-in-flight pending sample for this row
+                batch.add_row(e.slot, DECODE, [0], e.ctx_len + 1)
+                chain[e.slot] = True
+            else:
+                batch.add_row(e.slot, DECODE,
+                              [int(e.req.tokens_out[-1])], e.ctx_len)
+        # sample THIS tick on the device too; the host wait is deferred to
+        # next tick's reconcile
+        temp, top_k, top_p, sampled = self._sampling_arrays(rows)
+        keys = np.zeros((B, 2), np.int64)
+        for e in rows:
+            sp = self._sp(e.req)
+            ctr = self._draw_ctr.get(e.req.rid, 0)
+            self._draw_ctr[e.req.rid] = ctr + 1
+            keys[e.slot] = sampling.request_key(sp.seed, e.req.rid, ctr)
+        tok_dev, lp_dev, host = self.runner.graph_step(
+            batch, sampled, keys, temp, top_k, top_p, chain=chain,
+            pending=pend["tok"] if pend is not None and chain.any()
+            else None)
+        new_pend = {"entries": list(rows),
+                    "rids": frozenset(e.req.rid for e in rows),
+                    "tok": tok_dev, "lp": lp_dev, "host": host,
+                    "overlap": self._tick_overlap}
+        finished = self._reconcile_pending()
+        self._pending = new_pend
+        self._async_stats["overlap_ticks"] += 1
+        return finished
+
+    def _tick_async_loop(self, rows: List[SchedEntry]
+                         ) -> Optional[List[int]]:
+        """Device-resident burst: chain up to max_device_ticks decode
+        iterations on the device (one host wait), then replay the emitted
+        tokens through the synchronous commit path. Returns None (state
+        untouched) when the burst cannot pre-allocate without eviction."""
+        scfg = self.scfg
+        K = self._async.max_device_ticks
+        B = scfg.max_batch
+        budgets: Dict[int, int] = {}
+        need_blocks = 0
+        for e in rows:
+            b = min(K, e.req.max_new - len(e.req.tokens_out),
+                    scfg.max_seq - e.ctx_len)
+            if b < 1:
+                return None            # at a ceiling: a sync tick finishes
+            nb = self.pool.blocks_for(e.ctx_len + b)
+            if nb > self.pool.max_blocks_per_seq:
+                return None
+            budgets[e.slot] = b
+            have = len(self.pool.owned.get(e.slot, ()))
+            need_blocks += max(nb - have, 0)
+        if need_blocks > self.pool.n_free:
+            return None                        # eviction is sync work
+        for e in rows:
+            ok = self.pool.allocate(e.slot, e.ctx_len + budgets[e.slot])
+            assert ok, "n_free precheck covered this allocation"
+        self._tick_overlap = self.external_prefill_overlap
+        cow: List[Tuple[int, int]] = []
+        for e in rows:
+            cow.extend(self.pool.cow_for_write(e.slot, e.ctx_len,
+                                               budgets[e.slot]))
+        if cow:
+            self.runner.copy_blocks(cow)
+        temp, top_k, top_p, sampled = self._sampling_arrays(rows)
+        tok0 = np.zeros((B,), np.int32)
+        lens0 = np.zeros((B,), np.int32)
+        alive0 = np.zeros((B,), np.int32)
+        budget = np.zeros((B,), np.int32)
+        hist0 = np.full((B, STOP_L), -1, np.int32)
+        stops = np.full((B, STOP_NS, STOP_L), -1, np.int32)
+        stop_len = np.zeros((B, STOP_NS), np.int32)
+        keys = np.zeros((K, B, 2), np.int64)
+        k_burst = max(budgets.values())
+        ctr0: Dict[int, int] = {}
+        for e in rows:
+            s, sp = e.slot, self._sp(e.req)
+            tok0[s] = int(e.req.tokens_out[-1])
+            lens0[s] = e.ctx_len
+            alive0[s] = 1
+            budget[s] = budgets[s]
+            tail = e.req.tokens_out[-STOP_L:]
+            if tail:
+                hist0[s, STOP_L - len(tail):] = tail
+            ns = 0
+            for seq in sp.stop:
+                # longer stops (or more than STOP_NS of them) match on the
+                # host at replay: the device match only buys early exit
+                if 0 < len(seq) <= STOP_L and ns < STOP_NS:
+                    stops[s, ns, STOP_L - len(seq):] = seq
+                    stop_len[s, ns] = len(seq)
+                    ns += 1
+            ctr0[s] = self._draw_ctr.get(e.req.rid, 0)
+            if sampled:
+                for k in range(budgets[s]):
+                    keys[k, s] = sampling.request_key(
+                        sp.seed, e.req.rid, ctr0[s] + k)
+        em_np, lp_np, n_dev = self.runner.decode_burst(
+            sampled, K, self.pool.tables(), tok0, lens0, alive0, budget,
+            stops, stop_len, hist0, keys, temp, top_k, top_p,
+            k_burst).wait()
+        iters_dev = int(n_dev.max()) if rows else 0
+        self._loop_device_ticks += iters_dev
+        self._async_stats["loop_bursts"] += 1
+        self._async_stats["loop_device_ticks"] += iters_dev
+        finished: List[int] = []
+        committed: Dict[int, int] = {}
+        for e in rows:
+            s = e.slot
+            n = 0
+            alive = True
+            for j in range(int(n_dev[s])):
+                t = int(em_np[s, j])
+                if t < 0:
+                    break
+                alive = self._commit_emitted(e, t, float(lp_np[s, j]),
+                                             finished)
+                e.ctx_len += 1
+                n += 1
+                if alive and e.ctx_len + 1 > scfg.max_seq:
+                    self._finish(e, finished)
+                    alive = False
+                if not alive:
+                    break                      # overrun tokens dropped
+            committed[s] = n
+            self._draw_ctr[e.req.rid] = ctr0[s] + n
+            if alive:
+                # return unused burst blocks so pool pressure matches the
+                # synchronous engine's one-token-at-a-time walk
+                self.pool.truncate(e.slot, e.ctx_len)
+        # replay the synchronous engine's per-tick decode metrics: burst
+        # iteration j had exactly the rows with > j commits live, reading
+        # their (lens0 + j)-token contexts
+        for j in range(max(committed.values(), default=0)):
+            live = [e for e in rows if committed[e.slot] > j]
+            kv = sum(int(lens0[e.slot]) + j for e in live) \
+                * self._kv_per_tok
+            self.metrics.on_decode_step(len(live), kv_bytes=kv)
+        return finished
+
+    @property
+    def device_ticks(self) -> int:
+        """Device decode, verify and prefill steps dispatched: the
+        runner's steps plus the iterations of device-resident bursts."""
+        r = getattr(self, "runner", None)
+        return ((r.n_steps if r is not None else 0)
+                + self._loop_device_ticks)
+
+    def async_stats(self) -> dict:
+        """Tick-flavor counters plus ``overlap_frac``: the fraction of
+        device steps whose host bookkeeping overlapped device execution
+        (overlap ticks and every iteration of a loop burst)."""
+        total = self.device_ticks
+        overlapped = (self._async_stats["overlap_ticks"]
+                      + self._async_stats["loop_device_ticks"])
+        return dict(self._async_stats, device_ticks=total,
+                    overlap_frac=overlapped / total if total else 0.0)
 
     # ------------------------------------------------------------------
     # legacy fixed-slot mode

@@ -1,4 +1,5 @@
-"""ModelRunner: ONE batched ``step(StepBatch) -> StepOutput`` for serving.
+"""ModelRunner: ONE batched ``step(StepBatch) -> StepOutput`` for serving,
+and the async engine's device-resident decode burst.
 
 One call of ``Model.forward_step`` serves chunked-prefill rows and decode
 rows in the same fixed-width batch. The per-tick token width is bucketed
@@ -9,22 +10,103 @@ The runner owns the device cache; the engine republishes the host-truth
 ``lens`` and block tables before every step. ``copy_blocks`` (copy-on-write)
 and ``apply_perm`` (defrag) mirror the host pool's block moves on every
 layer's pool leaves, int8 scales included.
+
+Host arrays reach the device through pinned host buffers, packed into one
+buffer and moved by one ``non_blocking`` copy a call (``_stage``): the
+host never waits for the stream to drain. PyTorch's caching host
+allocator keeps a pinned block until the copy that reads it has run, so a
+buffer is never refilled while its copy is still queued.
+
+The async engine's ticks (``decode_burst`` and ``graph_step``) run one
+decode iteration (``transformer.decode_iteration``) over static tensors.
+On a CUDA device that iteration is captured once per (sampled, k_max) as
+a ``torch.cuda.CUDAGraph`` and replayed: one launch of the graph stands
+for the hundreds of small launches of an eager step, as one jitted
+dispatch does in the reference. On the CPU the same iteration runs
+eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ServeConfig
+from repro_torch.kernels import build
+from repro_torch.models import transformer
+from repro_torch.serve import sampling
 
 # row phases (StepBatch.phase values)
 IDLE, PREFILL, DECODE, VERIFY = 0, 1, 2, 3
 
 BACKENDS = ("naive", "flash")
+
+# device-side stop-sequence bounds for the async decode burst: stops up
+# to STOP_L tokens, STOP_NS per request, get on-device early exit;
+# longer or extra stops still match on the host at replay (identity is
+# unaffected: the device match only trims overrun compute)
+STOP_L = 4
+STOP_NS = 2
+
+_NUMPY = {torch.int32: np.int32, torch.int64: np.int64,
+          torch.float32: np.float32, torch.bool: np.bool_}
+
+
+class _Layout:
+    """Named arrays packed into one byte buffer, each at a 16-byte aligned
+    offset: one host->device copy moves them all, and each is a typed view
+    of the device buffer. ``fields`` is (name, dtype, shape) each."""
+
+    def __init__(self, fields: Sequence[Tuple[str, torch.dtype, tuple]]):
+        self.fields: Dict[str, tuple] = {}
+        off = 0
+        for name, dtype, shape in fields:
+            n = int(np.prod(shape, dtype=np.int64)) \
+                * torch.empty((), dtype=dtype).element_size()
+            self.fields[name] = (off, n, dtype, tuple(shape))
+            off += -(-n // 16) * 16
+        self.nbytes = off
+
+    def views(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {name: buf[off:off + n].view(dtype).view(shape)
+                for name, (off, n, dtype, shape) in self.fields.items()}
+
+    def pack(self, buf: np.ndarray, arrays: Dict[str, np.ndarray]) -> None:
+        for name, a in arrays.items():
+            off, n, dtype, shape = self.fields[name]
+            buf[off:off + n].view(_NUMPY[dtype]).reshape(shape)[...] = a
+
+
+class HostCopy:
+    """Device tensors on their way to the host: the copies are queued on
+    the stream when this is made, and ``wait`` blocks until they landed
+    (on a CUDA device the one host wait of an async tick)."""
+
+    def __init__(self, host: List[torch.Tensor], event=None):
+        self._host, self._event = host, event
+
+    def wait(self) -> List[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.numpy() for h in self._host]
+
+
+@dataclasses.dataclass
+class _Burst:
+    """The static tensors of one (sampled, k_max) decode iteration: the
+    inputs and outputs in one device byte buffer (``layout``, ``buf``) and
+    their views, and the pools (``state``); its
+    sampler; on a CUDA device its captured graph and the kernel launches
+    one replay makes (``tally``)."""
+    layout: _Layout
+    buf: torch.Tensor
+    state: dict
+    sample_fn: object
+    graph: Optional[object] = None
+    tally: Optional[Dict[str, int]] = None
 
 
 @dataclasses.dataclass
@@ -79,7 +161,8 @@ class StepOutput:
 
 class ModelRunner:
     """Owns the device-side paged cache; the engine builds a StepBatch
-    per tick and calls ``step``."""
+    per tick and calls ``step``, and its async ticks call ``graph_step``
+    and ``decode_burst``."""
 
     def __init__(self, model, params: dict, scfg: ServeConfig,
                  device: torch.device, dtype: torch.dtype = torch.float32):
@@ -95,14 +178,25 @@ class ModelRunner:
         self.params = params
         self.scfg = scfg
         self.device = device
-        self.cache = model.init_paged_cache(
-            scfg.max_batch, scfg.pool_blocks, scfg.block_size,
-            scfg.blocks_per_seq, dtype=dtype, device=device,
-            int8_kv=scfg.kv_quant)
         self.buckets = sorted({1, scfg.prefill_chunk}
                               | ({scfg.spec.k_max + 1}
                                  if scfg.spec is not None else set()))
-        self.n_steps = 0
+        self.cache = model.init_paged_cache(
+            scfg.max_batch, scfg.pool_blocks, scfg.block_size,
+            scfg.blocks_per_seq, dtype=dtype, device=device,
+            int8_kv=scfg.kv_quant, max_width=max(self.buckets))
+        self.n_steps = 0            # device steps dispatched (async
+        #                             engines add burst iterations on top)
+        self._layouts: Dict[int, _Layout] = {}
+        self._bursts: Dict[Tuple[bool, int], _Burst] = {}
+        self.graph_captures = 0
+        self.graph_replays = 0
+        acfg = scfg.async_cfg
+        if acfg is not None and acfg.enabled and device.type == "cuda":
+            # capture both graphs now, so their warm-up launches happen
+            # before the engine serves
+            for sampled in (False, True):
+                self._burst(sampled, acfg.max_device_ticks)
 
     def width_for(self, max_valid: int) -> int:
         """Smallest bucket covering ``max_valid`` tokens per row."""
@@ -117,31 +211,237 @@ class ModelRunner:
         return StepBatch.empty(self.scfg.max_batch,
                                self.width_for(max_valid), tables)
 
+    # --- host -> device ---------------------------------------------------
+    def _stage(self, layout: _Layout, arrays: Dict[str, np.ndarray],
+               dst: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
+        """Pack ``arrays`` into one host buffer and move it to the device
+        with one copy that does not block the host (into ``dst``, a
+        device byte buffer of ``layout``, where given); returns the typed
+        views. On a CUDA device the host buffer is pinned; PyTorch's
+        caching host allocator does not hand it out again before the copy
+        that reads it has run."""
+        pinned = self.device.type == "cuda"
+        host = torch.empty(layout.nbytes, dtype=torch.uint8,
+                           pin_memory=pinned)
+        layout.pack(host.numpy(), arrays)
+        if dst is None:
+            if not pinned:
+                return layout.views(host)
+            dst = torch.empty(layout.nbytes, dtype=torch.uint8,
+                              device=self.device)
+        dst.copy_(host, non_blocking=True)
+        return layout.views(dst)
+
+    def _to_host(self, *tensors: torch.Tensor) -> HostCopy:
+        """Queue copies of ``tensors`` to the host (pinned buffers, on the
+        current stream) and return without waiting."""
+        if self.device.type != "cuda":
+            return HostCopy([t.clone() for t in tensors])
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return HostCopy(host, event)
+
+    def _step_layout(self, width: int) -> _Layout:
+        lay = self._layouts.get(width)
+        if lay is None:
+            B, MB = self.scfg.max_batch, self.scfg.blocks_per_seq
+            lay = self._layouts[width] = _Layout((
+                ("lens", torch.int32, (B,)),
+                ("tables", torch.int32, (B, MB)),
+                ("n_valid", torch.int32, (B,)),
+                ("tokens", torch.int32, (B, width)),
+                ("is_prefill", torch.bool, (B,))))
+        return lay
+
+    # --- the one step -------------------------------------------------------
     def step(self, batch: StepBatch) -> StepOutput:
         """Republish host-truth lens/tables, run the step, return the
-        per-position and the last-valid logits."""
-        dev = self.device
-        self.cache["lens"] = torch.tensor(batch.row_start, device=dev)
-        self.cache["block_tables"] = torch.tensor(batch.tables, device=dev)
-        n_valid = torch.tensor(batch.n_valid, device=dev)
+        per-position and the last-valid logits. (The reference's ``fence``
+        comes with the tracer, ROADMAP queue 1 item 4, and its device
+        ``tokens`` override with a caller that needs it, item 5: the
+        overlap tick here chains its token in ``graph_step``.)"""
+        width = batch.tokens.shape[1]
+        t = self._stage(self._step_layout(width), {
+            "lens": batch.row_start, "tables": batch.tables,
+            "n_valid": batch.n_valid, "tokens": batch.tokens,
+            "is_prefill": batch.phase == PREFILL})
+        self.cache["lens"] = t["lens"]
+        self.cache["block_tables"] = t["tables"]
+        n_valid = t["n_valid"]
         with torch.no_grad():
             logits = self.model.forward_step(
-                self.params, torch.tensor(batch.tokens, device=dev),
-                self.cache, n_valid,
-                torch.tensor(batch.phase == PREFILL, device=dev),
-                self.scfg.block_size, backend=self.scfg.attn_backend,
+                self.params, t["tokens"], self.cache, n_valid,
+                t["is_prefill"], self.scfg.block_size,
+                backend=self.scfg.attn_backend,
                 has_prefill=bool(np.any(batch.phase == PREFILL)))
             idx = (n_valid.long() - 1).clamp(0, logits.shape[1] - 1)
-            last = logits[torch.arange(logits.shape[0], device=dev), idx]
+            last = logits[torch.arange(logits.shape[0],
+                                       device=self.device), idx]
         self.n_steps += 1
         return StepOutput(logits=logits, last_logits=last)
+
+    # --- the async engine's decode iteration -----------------------------
+    def _burst(self, sampled: bool, k_max: int) -> _Burst:
+        """The static tensors of the (sampled, k_max) decode iteration,
+        made at first use; on a CUDA device the iteration's graph is
+        captured then."""
+        key = (sampled, k_max)
+        st = self._bursts.get(key)
+        if st is not None:
+            return st
+        B, MB = self.scfg.max_batch, self.scfg.blocks_per_seq
+        i32, f32 = torch.int32, torch.float32
+        layout = _Layout((
+            ("tables", i32, (B, MB)), ("tok", i32, (B,)),
+            ("lens", i32, (B,)), ("alive", i32, (B,)),
+            ("budget", i32, (B,)), ("stops", i32, (B, STOP_NS, STOP_L)),
+            ("stop_len", i32, (B, STOP_NS)), ("hist", i32, (B, STOP_L)),
+            ("keys", torch.int64, (k_max, B, 2)), ("temp", f32, (B,)),
+            ("top_k", i32, (B,)), ("top_p", f32, (B,)),
+            ("chain", torch.bool, (B,)),
+            ("emitted", i32, (B, k_max)), ("lp", f32, (B, k_max)),
+            ("n_emit", i32, (B,)), ("i", i32, ())))
+        buf = torch.zeros(layout.nbytes, dtype=torch.uint8,
+                          device=self.device)
+        state = layout.views(buf)
+        state["units"] = self.cache["units"]
+        state["trash_rows"] = self.cache["trash_rows"]
+        sampler = sampling.Sampler()
+        if sampled:
+            # repetition-penalty rows never reach the async ticks (they
+            # need the host token stream): no presence, no penalty
+            no_presence = torch.zeros((B, 1), dtype=torch.bool,
+                                      device=self.device)
+            no_rep = torch.ones(B, dtype=f32, device=self.device)
+
+            def sample_fn(last, i):
+                keys = state["keys"].index_select(0, i.view(1))[0]
+                return sampler.device_call(
+                    last, no_presence, state["temp"], state["top_k"],
+                    state["top_p"], no_rep, keys, greedy_only=False)
+        else:
+            def sample_fn(last, i):
+                return sampler.device_call(last, None, None, None, None,
+                                           None, None, greedy_only=True)
+        st = self._bursts[key] = _Burst(layout, buf, state, sample_fn)
+        if self.device.type == "cuda":
+            self._capture(st)
+        return st
+
+    def _iteration(self, st: _Burst) -> None:
+        with torch.no_grad():
+            transformer.decode_iteration(
+                self.params, self.cfg, st.state, st.sample_fn,
+                self.scfg.block_size, self.scfg.attn_backend)
+
+    def _capture(self, st: _Burst) -> None:
+        """Capture ``st``'s decode iteration as a CUDA graph. A warm-up
+        iteration runs first on a side stream, with every row dead (the
+        zeroed state: nothing but the trash blocks is written), so that the
+        first cuBLAS call, the kernels' build and load and their first
+        launch happen outside the capture. A failed capture raises."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._iteration(st)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with build.capturing() as tally, torch.cuda.graph(graph):
+            self._iteration(st)
+        st.graph, st.tally = graph, tally
+        self.graph_captures += 1
+
+    def _iterate(self, st: _Burst, n: int) -> None:
+        """``n`` decode iterations on ``st``: replays of its graph back to
+        back on a CUDA device (each counts the launches it makes), eager
+        iterations on the CPU."""
+        if st.graph is None:
+            for _ in range(n):
+                self._iteration(st)
+            return
+        for _ in range(n):
+            st.graph.replay()
+        build.add_replay(st.tally, n)
+        self.graph_replays += n
+
+    def _stage_burst(self, st: _Burst, tables: np.ndarray, tok0, lens0,
+                     alive0, budget, stops, stop_len, hist0, keys, temp,
+                     top_k, top_p, chain=None) -> None:
+        B, k_max = st.state["emitted"].shape
+        self._stage(st.layout, {
+            "tables": tables, "tok": tok0, "lens": lens0, "alive": alive0,
+            "budget": budget, "stops": stops, "stop_len": stop_len,
+            "hist": hist0, "keys": keys, "temp": temp, "top_k": top_k,
+            "top_p": top_p,
+            "chain": np.zeros(B, bool) if chain is None else chain,
+            "emitted": np.full((B, k_max), -1, np.int32),
+            "lp": np.zeros((B, k_max), np.float32),
+            "n_emit": np.zeros(B, np.int32), "i": np.zeros((), np.int32)},
+            dst=st.buf)
+
+    def decode_burst(self, sampled: bool, k_max: int, tables: np.ndarray,
+                     tok0, lens0, alive0, budget, stops, stop_len, hist0,
+                     keys, temp, top_k, top_p, k_burst: int) -> HostCopy:
+        """A device-resident burst of ``k_burst`` <= ``k_max`` decode
+        iterations (``transformer.decode_iteration``; the arguments are
+        ``transformer.decode_burst``'s, as host arrays, plus the sampling
+        inputs: keys i64[k_max, B, 2] (the uint32 words of each draw's
+        key), temp/top_p f32[B], top_k i32[B]). The inputs go to the
+        device in one copy; on a CUDA device the captured iteration is
+        replayed ``k_burst`` times back to back, with no host wait between
+        replays (an iteration after every row is dead changes nothing).
+        Returns the host copy, in flight, of (emitted i32[B, k_max], lp
+        f32[B, k_max], n_emit i32[B])."""
+        st = self._burst(sampled, k_max)
+        self._stage_burst(st, tables, tok0, lens0, alive0, budget, stops,
+                          stop_len, hist0, keys, temp, top_k, top_p)
+        self._iterate(st, k_burst)
+        return self._to_host(st.state["emitted"], st.state["lp"],
+                             st.state["n_emit"])
+
+    def graph_step(self, batch: StepBatch, sampled: bool, keys, temp,
+                   top_k, top_p, chain: Optional[np.ndarray] = None,
+                   pending: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, HostCopy]:
+        """The overlap tick's step: one decode iteration (the k_max-1
+        state of ``decode_burst``, one graph replay on a CUDA device) over
+        the DECODE rows of ``batch`` (width 1), sampled on the device.
+        Rows set in ``chain`` take their input token from ``pending``, the
+        previous tick's sampled tokens still on the device, instead of
+        ``batch.tokens``. Counts one runner step, as ``step`` does. Returns
+        (tokens i32[B], logprobs f32[B]) on the device and their host copy
+        in flight; nothing here waits for the device."""
+        st = self._burst(sampled, 1)
+        B = self.scfg.max_batch
+        alive = (batch.n_valid > 0).astype(np.int32)
+        self._stage_burst(
+            st, batch.tables, batch.tokens[:, 0], batch.row_start, alive,
+            alive, np.full((B, STOP_NS, STOP_L), -1, np.int32),
+            np.zeros((B, STOP_NS), np.int32),
+            np.full((B, STOP_L), -1, np.int32), np.asarray(keys)[None],
+            temp, top_k, top_p, chain=chain)
+        if pending is not None:
+            tok = st.state["tok"]
+            tok.copy_(torch.where(st.state["chain"], pending, tok))
+        self._iterate(st, 1)
+        self.n_steps += 1
+        tok = st.state["emitted"][:, 0].clone()
+        lp = st.state["lp"][:, 0].clone()
+        return tok, lp, self._to_host(tok, lp)
 
     # --- block maintenance --------------------------------------------------
     def apply_perm(self, perm: np.ndarray) -> None:
         """Apply a pool defrag permutation to the device block pools (new
         storage row i = old row perm[i]), every leaf of every layer."""
-        p = torch.as_tensor(np.asarray(perm), dtype=torch.long,
-                            device=self.device)
+        perm = np.asarray(perm, np.int64)
+        p = self._stage(_Layout((("perm", torch.int64, perm.shape),)),
+                        {"perm": perm})["perm"]
         for leaf in self.cache["units"]["b0"].values():
             leaf.copy_(leaf.index_select(1, p))
 
@@ -154,9 +454,9 @@ class ModelRunner:
         bit-identical to the shared original."""
         if not pairs:
             return
-        src = torch.tensor([a for a, _ in pairs], dtype=torch.long,
-                           device=self.device)
-        dst = torch.tensor([b for _, b in pairs], dtype=torch.long,
-                           device=self.device)
+        n = len(pairs)
+        idx = self._stage(
+            _Layout((("src", torch.int64, (n,)), ("dst", torch.int64, (n,)))),
+            {"src": [a for a, _ in pairs], "dst": [b for _, b in pairs]})
         for leaf in self.cache["units"]["b0"].values():
-            leaf[:, dst] = leaf[:, src]
+            leaf[:, idx["dst"]] = leaf[:, idx["src"]]

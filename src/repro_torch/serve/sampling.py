@@ -192,21 +192,32 @@ class Sampler:
     greedy with no penalty (the serving steady state) skip the filters: a
     plain argmax, as in the reference."""
 
+    def device_call(self, logits: torch.Tensor, presence: torch.Tensor,
+                    temp: torch.Tensor, top_k: torch.Tensor,
+                    top_p: torch.Tensor, rep: torch.Tensor,
+                    keys: torch.Tensor, greedy_only: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The async engine's sampler: (tokens int64[B], log-probabilities
+        f32[B]) as tensors on the logits' device, with no host sync, so
+        the next dispatch can chain on them. The per-row inputs are
+        tensors on that device (``sample_batch``'s); ``greedy_only`` is
+        decided on the host from the requests' SamplingParams, never from
+        device values."""
+        if greedy_only:
+            return greedy_batch(logits)
+        return sample_batch(logits, presence, temp, top_k, top_p, rep, keys)
+
     def __call__(self, logits: torch.Tensor, presence: np.ndarray,
                  temp: np.ndarray, top_k: np.ndarray, top_p: np.ndarray,
                  rep: np.ndarray, keys: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray]:
-        if not np.any(temp > 0) and np.all(rep == 1.0):
-            tok, lp = greedy_batch(logits)
-        else:
-            dev = logits.device
-            tok, lp = sample_batch(
-                logits, torch.from_numpy(presence).to(dev),
-                torch.from_numpy(temp).to(dev),
-                torch.from_numpy(top_k).to(dev),
-                torch.from_numpy(top_p).to(dev),
-                torch.from_numpy(rep).to(dev),
-                torch.from_numpy(keys.astype(np.int64)).to(dev))
+        dev = logits.device
+        greedy_only = not np.any(temp > 0) and np.all(rep == 1.0)
+        t = (lambda a: None) if greedy_only \
+            else (lambda a: torch.from_numpy(a).to(dev))
+        tok, lp = self.device_call(
+            logits, t(presence), t(temp), t(top_k), t(top_p), t(rep),
+            t(keys.astype(np.int64)), greedy_only=greedy_only)
         return tok.to(torch.int32).cpu().numpy(), lp.cpu().numpy()
 
 

@@ -212,6 +212,17 @@ class Scheduler:
         return sorted((e for e in self.active.values()
                        if e.state == State.RUNNING), key=lambda e: e.slot)
 
+    def decode_only(self) -> bool:
+        """True when this tick is pure decode steady state: no queued
+        admissions and no active entry still prefilling (or replaying a
+        prefill). The async engine overlaps or bursts only such ticks;
+        anything else runs the synchronous tick, which keeps admission and
+        preemption in the order of the synchronous engine."""
+        if self.waiting:
+            return False
+        return not any(e.state == State.PREFILL
+                       for e in self.active.values())
+
     # --- preemption -------------------------------------------------------
     def pick_victim(self, e: SchedEntry) -> Optional[SchedEntry]:
         """Lowest-precedence active request ranking strictly BELOW the

@@ -479,3 +479,132 @@ def test_verify_row_matches_sequential_decode_on_the_card(cuda):
     c = fresh()
     seq = np.stack([step(c, [t], P + i)[0] for i, t in enumerate(toks)])
     np.testing.assert_allclose(verify, seq, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the async engine's decode iteration on the card: a captured graph
+
+KERNEL_ATOL = 1e-4     # chip_smoke.py's: the same terms in another order
+
+
+def _async_engine(cuda, K, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import AsyncConfig, ServeConfig
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Engine
+    cfg = get_config("nectar-relu-llama-1.7m")
+    params = Model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    sc = ServeConfig(paged=True, attn_backend="flash", max_batch=8,
+                     async_cfg=AsyncConfig(enabled=True, max_device_ticks=K),
+                     **kw)
+    return cfg, Engine(cfg, params, sc, device=cuda)
+
+
+def _prefilled(cuda, K, n=5):
+    """An async engine with ``n`` nectar prompts prefilled (one sync
+    tick), and those requests."""
+    from repro_torch.serve.scheduler import Request
+    cfg, eng = _async_engine(cuda, K)
+    rng = np.random.default_rng(9)
+    reqs = [Request(rid=eng.new_rid(),
+                    prompt=rng.integers(0, cfg.vocab, int(m), dtype=np.int32),
+                    max_new=12) for m in rng.integers(5, 30, n)]
+    for r in reqs:
+        assert eng.add_request(r)
+    eng.step()
+    assert all(r.tokens_out for r in reqs)
+    return cfg, eng, reqs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True])
+def test_captured_iteration_matches_the_eager_iteration(cuda, sampled):
+    """One replay of the captured decode iteration against the same
+    iteration run eagerly on the same inputs: logits within KERNEL_ATOL
+    (cuBLAS may pick another algorithm under capture); two replays give
+    the same bits."""
+    from repro_torch.serve.runner import STOP_L, STOP_NS
+    cfg, eng, reqs = _prefilled(cuda, 4)
+    runner = eng.runner
+    st = runner._burst(sampled, 4)
+    assert st.graph is not None
+    B = eng.scfg.max_batch
+    # a served burst keeps no logits: this one captures again with them
+    # (from a zeroed state, so the warm-up writes only the trash blocks)
+    st.buf.zero_()
+    st.state["logits"] = torch.zeros((B, cfg.vocab), device=cuda)
+    runner._capture(st)
+    tok0 = np.zeros(B, np.int32)
+    lens0 = np.zeros(B, np.int32)
+    alive0 = np.zeros(B, np.int32)
+    for r in reqs:
+        e = eng.sched.active[r.rid]
+        tok0[e.slot], lens0[e.slot], alive0[e.slot] = (
+            r.tokens_out[-1], e.ctx_len, 1)
+    keys = np.random.default_rng(2).integers(0, 2 ** 32, (4, B, 2))
+    args = (eng.pool.tables(), tok0, lens0, alive0, alive0 * 4,
+            np.full((B, STOP_NS, STOP_L), -1, np.int32),
+            np.zeros((B, STOP_NS), np.int32),
+            np.full((B, STOP_L), -1, np.int32), keys,
+            np.full(B, 0.8, np.float32), np.zeros(B, np.int32),
+            np.ones(B, np.float32))
+    out = []
+    for replay in (True, True, False):
+        runner._stage_burst(st, *args)
+        if replay:
+            runner._iterate(st, 1)
+        else:
+            runner._iteration(st)
+        torch.cuda.synchronize()
+        out.append({k: st.state[k].clone()
+                    for k in ("logits", "emitted", "lp", "n_emit")})
+    rows = torch.tensor(alive0 > 0, device=cuda)
+    for k in out[0]:
+        assert torch.equal(out[0][k], out[1][k]), k
+    np.testing.assert_allclose(out[0]["logits"][rows].cpu().numpy(),
+                               out[2]["logits"][rows].cpu().numpy(),
+                               atol=KERNEL_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 8])
+def test_async_ticks_make_no_host_sync(cuda, K):
+    """Every async tick after the prefills (overlap ticks for K = 1,
+    bursts for K = 8) runs under set_sync_debug_mode("error"): nothing in
+    them synchronizes the stream, apart from the one CUDA event a tick
+    waits on."""
+    cfg, eng, reqs = _prefilled(cuda, K)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while eng._busy():
+            eng.step()
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(len(r.tokens_out) == 12 for r in reqs)
+    st = eng.async_stats()
+    assert st["overlap_ticks" if K == 1 else "loop_bursts"] > 0
+    assert eng.runner.graph_replays > 0
+
+
+@pytest.mark.cuda
+def test_sync_step_makes_no_host_sync(cuda):
+    """The synchronous step (staged inputs, the sync-free paged KV write,
+    a prefill and a decode row) dispatches without a sync as well."""
+    from repro_torch.serve.runner import DECODE, PREFILL
+    cfg, eng = _async_engine(cuda, 1)
+    runner = eng.runner
+    MB = eng.scfg.blocks_per_seq
+    tables = np.full((8, MB), eng.pool.n_blocks, np.int32)
+    tables[0, :2], tables[3, :1] = [4, 9], [2]
+    batch = runner.new_batch(20, tables)
+    batch.add_row(0, PREFILL, np.arange(20) % cfg.vocab, 0)
+    batch.add_row(3, DECODE, [7], 5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = runner.step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out.last_logits[[0, 3]]).all()

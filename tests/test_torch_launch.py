@@ -3,7 +3,7 @@
 ``python -m repro_torch.launch.serve --device cpu`` serves a SMOKE config
 end to end; the reference CLI's flags of later slices are refused with
 the ROADMAP item that brings them; ``--spec ngram|selfspec`` serves
-speculatively; ``metrics.summary()`` has the reference's keys, the
+speculatively and ``--async`` through the async engine; ``metrics.summary()`` has the reference's keys, the
 speculative-decoding counters included.
 """
 
@@ -64,8 +64,7 @@ def test_cli_main_in_process(argv):
 
 @pytest.mark.parametrize("flags,item", [
     (["--ckpt-dir", "/nonexistent"], "item 9"), (["--mesh", "2"], "item 9"),
-    (["--shard-kv-seq"], "item 9"), (["--async"], "item 3"),
-    (["--async-k", "2"], "item 3"), (["--async-sync-every", "2"], "item 3"),
+    (["--shard-kv-seq"], "item 9"),
     (["--disagg"], "item 5"), (["--disagg-prefill-batch", "2"], "item 5"),
     (["--disagg-prefill-blocks", "2"], "item 5"),
     (["--direct-max-suffix", "2"], "item 5"), (["--replicas", "2"], "item 5"),
@@ -79,6 +78,42 @@ def test_cli_refuses_flags_of_later_slices(flags, item, capsys):
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert flags[0] in err and f"ROADMAP queue 1 {item}" in err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--async"], ["--async", "--async-k", "2"],
+    ["--async", "--async-sync-every", "2"]])
+def test_cli_serves_async(flags):
+    """``--async`` (which implies the paged engine), ``--async-k`` and
+    ``--async-sync-every`` are served (they were refused before the async
+    slice) and the summary carries the engine's ``async_stats()``."""
+    s = cli.main(["--device", "cpu", "--arch", "nectar-relu-llama-smoke",
+                  "--requests", "3", "--max-new", "4", "--max-batch", "2",
+                  *flags])
+    assert s["tokens"] == 12 and "kv_pool_capacity_bytes" in s
+    a = s["async"]
+    assert a["device_ticks"] > 0 and a["sync_ticks"] > 0
+    k = int(flags[flags.index("--async-k") + 1]) if "--async-k" in flags \
+        else 8
+    assert (a["loop_bursts"] > 0) == (k > 1)
+    if "--async-sync-every" in flags:
+        assert a["sync_ticks"] >= a["loop_bursts"]
+
+
+def test_cli_serves_async_as_a_program():
+    """``python -m repro_torch.launch.serve --async --async-k 8`` serves on
+    the CPU and prints the async block."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "nectar-relu-llama-smoke", "--requests", "3",
+         "--max-new", "6", "--max-batch", "3", "--async", "--async-k", "8"],
+        capture_output=True, text=True, env=env, timeout=600, check=True)
+    s = json.loads(out.stdout)
+    assert s["requests"] == 3 and s["tokens"] == 18
+    a = s["async"]
+    assert a["loop_bursts"] > 0 and a["loop_device_ticks"] > 0
+    assert 0.0 < a["overlap_frac"] <= 1.0
 
 
 @pytest.mark.parametrize("drafter", ["ngram", "selfspec"])

@@ -169,13 +169,29 @@ def test_stop_sequences_and_max_tokens(nectar):
 
 @pytest.mark.parametrize("scfg_kw", [
     dict(paged=True, mesh=MeshConfig(model=2)),
-    dict(paged=True, async_cfg=AsyncConfig(enabled=True)),
     dict(paged=True, obs=ObsConfig(enabled=True)),
 ])
 def test_engine_raises_for_features_of_later_slices(nectar, scfg_kw):
     _, _, tcfg, tparams = nectar
     with pytest.raises(NotImplementedError):
         Engine(tcfg, tparams, ServeConfig(**scfg_kw), device="cpu")
+
+
+def test_async_engine_serves_the_sync_engines_tokens(nectar):
+    """``async_cfg`` is served (it was refused before the async slice):
+    the async engine's greedy tokens through the flash read equal the
+    synchronous engine's, and it ran device-resident bursts."""
+    _, _, tcfg, tparams = nectar
+    prompts = _prompts(tcfg, LENGTHS[:3], seed=3)
+    out = {}
+    for acfg in (None, AsyncConfig(enabled=True)):
+        eng = Engine(tcfg, tparams, ServeConfig(**ENGINE_KW, async_cfg=acfg),
+                     device="cpu")
+        done = eng.run([Request(rid=i, prompt=p, max_new=8)
+                        for i, p in enumerate(prompts)], max_steps=1000)
+        out[acfg is None] = {i: list(r.tokens_out) for i, r in done.items()}
+    assert out[False] == out[True] and len(out[True]) == 3
+    assert eng.async_stats()["loop_bursts"] > 0
 
 
 @pytest.mark.parametrize("scfg_kw", [
