@@ -91,6 +91,19 @@ Phases, each reporting on lines of its own:
                and 2 at 6 launches per device tick by the graph-aware
                counters; every tick after the prefills of an async serve
                under torch.cuda.set_sync_debug_mode("error").
+ 16. obs     — tracing and the roofline profiler (runs before phase 13):
+               the phase-5 prompts through the paged engine with
+               ObsConfig(enabled=True, profile=True), tokens against the
+               phase-15 sync serve (near-tie rule), the attainment table
+               against the H100 SXM entry (attain in (0, 1] in every
+               bucket, attain_raw printed); the Perfetto and JSONL traces
+               checked by tools/check_trace.py; one traced serve under
+               torch.profiler, whose summed tick device_ms must be at
+               least 0.95 of the profiler's CUDA kernel time; the
+               decode-heavy traffic at K = 8 traced (device ms per device
+               tick beside phase 15's wall per device tick); the phase-5
+               prompts with tracing off and on (the wall of each); one
+               scrape of the metrics endpoint on localhost.
  13. profile — the paged, slot, prefix, sampled, int8kv, the ngram and
                model spec serves and the K = 8 decode-heavy async serve
                again under torch.profiler: each kernel's device time per
@@ -1090,6 +1103,175 @@ def timed_drafting(engine):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: observability
+
+
+def kernel_ms(averages):
+    """The CUDA kernel time (ms) in a profiler window: every device event
+    but the memory copies and sets."""
+    return sum(e.self_device_time_total for e in device_events(averages)
+               if not e.key.startswith(("Memcpy", "Memset"))) / 1e3
+
+
+def obs_phase(cfg, params, scfg, dev, prompts, max_new, ref_tokens,
+              ref_margins, ref_rids, heavy, heavy_new, heavy_tokens,
+              heavy_margins, heavy_rids, heavy_wall_per_tick):
+    """Phase 16; returns (its details, the launches of its serves)."""
+    import importlib.util
+    import tempfile
+    import urllib.request
+    from repro_torch.configs.base import AsyncConfig, ObsConfig
+    from repro_torch.obs import (attainment_table, start_metrics_server,
+                                 write_jsonl, write_perfetto)
+    from repro_torch.roofline import hw
+    from repro_torch.serve.engine import Engine
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", ROOT / "tools" / "check_trace.py")
+    check_trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check_trace)
+    out, launches = {}, dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for key in KERNELS:
+            launches[key] += counts[key]
+
+    # (a) the traced, profiled paged serve
+    psc = dataclasses.replace(scfg, obs=ObsConfig(enabled=True,
+                                                  profile=True))
+    eng = Engine(cfg, params, psc, device=dev)
+    check(eng.profiler.chip is hw.H100_SXM,
+          f"obs: the profiler judges against {eng.profiler.chip.name}")
+    toks, _, wall, summary, lnch = serve(eng, prompts, max_new)
+    add(lnch)
+    steps = eng.runner.n_steps
+    for key in ("paged_attention", "sparse_gather_matvec"):
+        check(lnch[key] == cfg.n_layers * steps > 0,
+              f"obs: {key} launched {lnch[key]} times in {steps} steps")
+    flips = compare_cpu("obs vs paged", toks, ref_tokens, ref_margins,
+                        ref_rids)
+    print_serve("obs profiled", len(prompts), summary, wall, steps, lnch)
+    print(f"obs: against the phase-15 sync serve "
+          f"{len(prompts) - len(flips)}/{len(prompts)} requests "
+          f"token-identical, near-tie flips {flips}")
+    # (b) attainment against the H100 SXM entry
+    rows = summary["bucket_attainment"]
+    print(attainment_table(rows))
+    check(rows, "obs: the profiler reports no bucket")
+    for r in rows:
+        check(r["attain"] is not None and 0.0 < r["attain"] <= 1.0,
+              f"obs: bucket {r['bucket']} attain {r['attain']} "
+              f"(raw {r['attain_raw']})")
+        print(f"obs: bucket {r['bucket']}: {r['ticks']} ticks, device ms "
+              f"{r['dev_ms']:.4f} a tick, {r['flops']:.0f} flops and "
+              f"{r['hbm_bytes']:.0f} bytes a tick at {r['n_keys']:.1f} "
+              f"live keys, attain {r['attain']:.6f}, attain_raw "
+              f"{r['attain_raw']:.6f}, bound by {r['bound']}")
+    ticks = eng.tracer.tick_summary()
+    print(f"obs: ticks {ticks}; phase ms per tick "
+          f"{eng.tracer.phase_ms_per_tick()}")
+    out["profiled"] = dict(summary, wall_s=wall, launches=lnch,
+                           flips=flips)
+    # (c) the traces, through tools/check_trace.py
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = write_perfetto(eng.tracer, f"{tmp}/obs.trace.json",
+                               registry=eng.metrics.registry,
+                               profiler=eng.profiler)
+        events = write_jsonl(eng.tracer, f"{tmp}/obs.events.jsonl")
+        errs = check_trace.check_perfetto(
+            trace, expect_counters=("achieved_gflops", "achieved_gbs",
+                                    "roofline_attainment")) \
+            + check_trace.check_jsonl(events, expect_ordering=True)
+        check(not errs, f"obs: check_trace: {errs}")
+        sizes = [Path(trace).stat().st_size, Path(events).stat().st_size]
+    print(f"obs: Perfetto and JSONL traces ({sizes[0]} and {sizes[1]} "
+          f"bytes, {len(eng.tracer.spans)} spans, "
+          f"{len(eng.tracer.events)} events, {eng.tracer.dropped} dropped)"
+          f" pass tools/check_trace.py")
+    # (g) one scrape of the metrics endpoint (the profiled engine's)
+    srv = start_metrics_server(lambda: eng.metrics.registry, 0)
+    try:
+        port = srv.server_address[1]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10) as r:
+            body = r.read().decode()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    line = next((ln for ln in body.splitlines() if ln.startswith(
+        'bucket_attainment_attainment{bucket="decode"}')), None)
+    check(line is not None, "obs: the scrape has no decode attainment")
+    print(f"obs: scraped 127.0.0.1:{port}/metrics ({len(body)} bytes): "
+          f"{line}")
+    out["scrape"] = {"bytes": len(body), "decode_attainment": line}
+    # (d) the tracer's device time against torch.profiler's kernel time
+    tsc = dataclasses.replace(scfg, obs=ObsConfig(enabled=True))
+    made = []
+
+    def traced_engine():
+        made[:] = [Engine(cfg, params, tsc, device=dev)]
+        return made[0]
+    (ptoks, _, _, _, plnch), averages = profiled(
+        lambda e: serve(e, prompts, max_new), None, traced_engine)
+    check(ptoks == toks, "obs: the traced serve under the profiler gave "
+          "other tokens")
+    add(plnch)
+    tracer_ms = sum(t["device_ms"] for t in made[0].tracer.tick_stats)
+    if averages is None:
+        print("obs: the profiler was blind; the tracer's device time "
+              f"{tracer_ms:.3f} ms, the kernel time not measured")
+        out["tracer_vs_profiler"] = {"tracer_ms": tracer_ms,
+                                     "kernel_ms": None}
+    else:
+        kms = kernel_ms(averages)
+        check(tracer_ms >= 0.95 * kms,
+              f"obs: the tracer's device time {tracer_ms} ms < 0.95 of "
+              f"the profiler's kernel time {kms} ms")
+        print(f"obs: one traced serve under torch.profiler: the ticks' "
+              f"device_ms sum to {tracer_ms:.3f} ms, the profiler's CUDA "
+              f"kernel time {kms:.3f} ms, ratio {tracer_ms / kms:.3f}")
+        out["tracer_vs_profiler"] = {"tracer_ms": tracer_ms,
+                                     "kernel_ms": kms,
+                                     "ratio": tracer_ms / kms}
+    # (e) the decode-heavy traffic at K = 8, traced
+    hsc = dataclasses.replace(
+        scfg, obs=ObsConfig(enabled=True),
+        async_cfg=AsyncConfig(enabled=True, max_device_ticks=8))
+    heng = Engine(cfg, params, hsc, device=dev)
+    htoks, _, hwall, hsummary, hlnch = serve(heng, heavy, heavy_new)
+    add(hlnch)
+    hflips = compare_cpu("obs heavy K8 vs sync", htoks, heavy_tokens,
+                         heavy_margins, heavy_rids)
+    hticks = heng.tracer.tick_summary()
+    print(f"obs heavy K8: {len(heavy) - len(hflips)}/{len(heavy)} "
+          f"requests token-identical to the sync serve, near-tie flips "
+          f"{hflips}; device_ms_per_tick {hticks['device_ms_per_tick']:.4f}"
+          f" and host_ms_per_tick {hticks['host_ms_per_tick']:.4f} over "
+          f"{hticks['n_device_ticks']} device ticks ({hticks['n_ticks']} "
+          f"ticks), against phase 15's wall per device tick "
+          f"{heavy_wall_per_tick:.4f} ms; this serve's "
+          f"{1e3 * hwall / heng.device_ticks:.4f} ms")
+    out["heavy_K8"] = dict(hsummary, wall_s=hwall, flips=hflips,
+                           wall_per_device_tick_ms=1e3 * hwall
+                           / heng.device_ticks,
+                           phase15_wall_per_device_tick_ms=(
+                               heavy_wall_per_tick))
+    # (f) the phase-5 prompts with tracing off and on
+    walls = {}
+    for label, sc in (("off", scfg), ("on", tsc)):
+        e = Engine(cfg, params, sc, device=dev)
+        t, _, w, _, lnch_ = serve(e, prompts, max_new)
+        check(t == toks, f"obs: the serve with tracing {label} gave "
+              f"other tokens")
+        add(lnch_)
+        walls[label] = w
+    print(f"obs: the phase-5 prompts with tracing off {walls['off']:.4f} s,"
+          f" on {walls['on']:.4f} s of wall (ratio "
+          f"{walls['on'] / walls['off']:.4f})")
+    out["walls"] = walls
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 15: the async engine
 
 
@@ -1461,6 +1643,11 @@ def main():
     params = Model(cfg).init(gen, device=dev)
     prompts = [rng.integers(0, cfg.vocab, int(n), dtype=np.int32)
                for n in rng.integers(8, 201, 16)]
+    from repro_torch.tools import flip_probe
+    check(all(np.array_equal(a, b) for a, b in zip(
+        flip_probe.chip_smoke_prompts(cfg.vocab, SEED), prompts)),
+          "serve: flip_probe.chip_smoke_prompts no longer replays these "
+          "prompts")
     max_new = 32
     engine = Engine(cfg, params, scfg, device=dev)
     gpu_ticks, _, gpu_margins = recording_engine(engine)
@@ -1940,6 +2127,13 @@ def main():
                                                    "async": stats}
     lap(clock, "15) async engine")
 
+    # ---- 16) observability (runs before phase 13) ------------------------------
+    details["obs"], obs_launches = obs_phase(
+        cfg, params, scfg, dev, prompts, max_new, again_tokens, gpu_margins,
+        gpu_rids, heavy, heavy_new, h_tokens, h_margins, h_rids,
+        details["async"]["heavy"]["K8"]["wall_per_device_tick_ms"])
+    lap(clock, "16) observability")
+
     # ---- 13) the serves again, under torch.profiler ---------------------------
     profiles = {}
     for label, sc, pr_prompts, pr_sps, toks, lnch, w, pr_new in (
@@ -1993,8 +2187,8 @@ def main():
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     # each kernel's launches on the paths that run it (paged attention:
-    # the paged, prefix, greedy spec and async serves; the gather: those
-    # and the slot serve; decode attention: the slot serve and the model and
+    # the paged, prefix, greedy spec, async and obs serves; the gather:
+    # those and the slot serve; decode attention: the slot serve and the model and
     # self-spec drafters; nmce_matmul: the ops phase), and its row at the
     # shape the main path gives it
     spec_launches = {key: sum(run[2][key] for run in spec_runs.values())
@@ -2003,12 +2197,14 @@ def main():
         "paged_attention": launches["paged_attention"]
         + pre_launches["paged_attention"]
         + spec_launches["paged_attention"]
-        + async_launches["paged_attention"],
+        + async_launches["paged_attention"]
+        + obs_launches["paged_attention"],
         "sparse_gather_matvec": launches["sparse_gather_matvec"]
         + slot_launches["sparse_gather_matvec"]
         + pre_launches["sparse_gather_matvec"]
         + spec_launches["sparse_gather_matvec"]
-        + async_launches["sparse_gather_matvec"],
+        + async_launches["sparse_gather_matvec"]
+        + obs_launches["sparse_gather_matvec"],
         "decode_attention": slot_launches["decode_attention"]
         + spec_launches["decode_attention"],
         "relu_ffn": slot_launches["relu_ffn"],

@@ -119,8 +119,29 @@ class SpecConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ObsConfig:
+    """Tracing and telemetry (repro_torch.obs).
+
+    Disabled by default: every instrumentation hook of the engine and the
+    runner then resolves to a shared no-op singleton
+    (``obs.trace.NULL_TRACER``): no span object, no CUDA event, no host
+    sync. With ``enabled=True`` the engine records per-tick phase spans
+    (schedule, draft, batch_assemble, device_dispatch, device_wait,
+    sample_sync, postprocess) with each tick's device time, per-row-kind
+    and padding figures, and per-request lifecycle events. ``profile``
+    adds roofline attainment per width bucket (``obs.profile``)."""
+
     enabled: bool = False
-    profile: bool = False
+    profile: bool = False           # roofline attainment per width bucket;
+    #                                 implies enabled (it reads the ticks'
+    #                                 device time)
+    tick_spans: bool = True         # per-tick phase spans
+    timeline: bool = True           # per-request lifecycle events
+    fence_device: bool = True       # time each step's device work (CUDA
+    #                                 events on the card) and wait for it
+    torch_annotations: bool = False  # also open a torch.profiler
+    #                                 record_function range per span
+    max_events: int = 262_144       # storage bound: spans and events
+    #                                 past it are counted (dropped), not kept
 
 
 @dataclasses.dataclass(frozen=True)

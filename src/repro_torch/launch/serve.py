@@ -7,20 +7,26 @@ random weights from a seeded generator.
         --max-batch 4 [--paged] [--prefix-cache] [--kv-quant] \\
         [--spec ngram|selfspec --spec-k 4] [--attn-backend flash] \\
         [--async --async-k 8 --async-sync-every 0] \\
+        [--obs] [--trace-out PREFIX] [--metrics-port PORT] [--profile] \\
         [--temperature 0.7 --seed 0] [--device cpu]
 
 It runs on the CUDA device unless ``--device cpu`` is given, and prints a
 JSON summary (with ``--async``, the engine's ``async_stats()`` under
-"async"). The reference CLI's flags of features this port does not
-have yet (checkpoints, sharded serving, disagg and fleet serving,
-tracing and metrics export) are accepted by name and refused with the
-ROADMAP item that brings them.
+"async"; with tracing, the tracer's ``ticks``; with ``--profile``, the
+per-bucket ``bucket_attainment`` rows, whose table is printed first).
+``--trace-out PREFIX`` writes PREFIX.trace.json (Perfetto) and
+PREFIX.events.jsonl; ``--metrics-port`` serves the Prometheus text on
+localhost while the requests run. The reference CLI's flags of features
+this port does not have yet (checkpoints, sharded serving, disagg and
+fleet serving) are accepted by name and refused with the ROADMAP item
+that brings them.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 from typing import List, Optional
 
@@ -28,9 +34,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import AsyncConfig, ServeConfig, SpecConfig
+from repro_torch.configs.base import (AsyncConfig, ObsConfig, ServeConfig,
+                                      SpecConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
+from repro_torch.obs import (attainment_table, start_metrics_server,
+                             write_jsonl, write_perfetto)
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import Request
@@ -54,11 +63,6 @@ LATER = (
      "item 5 (disagg and fleet)"),
     (("--router-policy",), {"default": "affinity"},
      "item 5 (disagg and fleet)"),
-    (("--obs",), {"action": "store_true"}, "item 4 (observability)"),
-    (("--trace-out",), {"default": None}, "item 4 (observability)"),
-    (("--metrics-port",), {"type": int, "default": 0},
-     "item 4 (observability)"),
-    (("--profile",), {"action": "store_true"}, "item 4 (observability)"),
 )
 
 
@@ -101,6 +105,19 @@ def parser() -> argparse.ArgumentParser:
                          "double-buffered overlap only)")
     ap.add_argument("--async-sync-every", type=int, default=0,
                     help="force a synchronous tick every N ticks (0 = off)")
+    ap.add_argument("--obs", action="store_true",
+                    help="tracing: per-tick phase spans, request "
+                         "timelines, host/device attribution (the "
+                         "summary's \"ticks\")")
+    ap.add_argument("--trace-out", default=None, metavar="PREFIX",
+                    help="write PREFIX.trace.json (Perfetto) and "
+                         "PREFIX.events.jsonl; implies --obs")
+    ap.add_argument("--metrics-port", type=int, default=0,
+                    help="serve Prometheus text on "
+                         "127.0.0.1:PORT/metrics while serving")
+    ap.add_argument("--profile", action="store_true",
+                    help="roofline attainment per width bucket (implies "
+                         "--obs and --paged); prints the table")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 samples")
     ap.add_argument("--top-k", type=int, default=0)
@@ -130,7 +147,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     gen = torch.Generator(device=device).manual_seed(0)
     params = Model(cfg).init(gen, device=device)
     paged = args.paged or args.prefix_cache or args.kv_quant \
-        or args.spec is not None or args.async_
+        or args.spec is not None or args.async_ or args.profile
     # --spec-k is the user's cap: adaptive K may shrink below it, never
     # exceed it
     spec = None if args.spec is None else SpecConfig(
@@ -138,14 +155,23 @@ def main(argv: Optional[List[str]] = None) -> dict:
     async_cfg = None if not args.async_ else AsyncConfig(
         enabled=True, max_device_ticks=args.async_k,
         sync_every=args.async_sync_every)
+    obs = ObsConfig(enabled=args.obs or args.trace_out is not None
+                    or args.profile, profile=args.profile)
     scfg = ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
                        sparse_decode=not args.dense, paged=paged,
                        prefix_cache=args.prefix_cache,
                        kv_quant=args.kv_quant, spec=spec,
                        block_size=args.block_size,
                        prefill_chunk=args.prefill_chunk, policy=args.policy,
-                       attn_backend=args.attn_backend, async_cfg=async_cfg)
+                       attn_backend=args.attn_backend, async_cfg=async_cfg,
+                       obs=obs)
     eng = Engine(cfg, params, scfg, device=device)
+    server = None
+    if args.metrics_port:
+        server = start_metrics_server(lambda: eng.metrics.registry,
+                                      args.metrics_port)
+        print(f"[serve] metrics on 127.0.0.1:{args.metrics_port}/metrics",
+              file=sys.stderr)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p,
                         repetition_penalty=args.repetition_penalty,
@@ -158,9 +184,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     max_new=args.max_new, sampling=sp)
             for i in range(args.requests)]
     t0 = time.perf_counter()
-    done = eng.run(reqs, max_steps=10000)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    try:
+        done = eng.run(reqs, max_steps=10000)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.tokens_out) for r in done.values())
     savings = sum(s.sparse_savings_bytes for s in eng.stats)
@@ -186,6 +217,18 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 "spec_tokens_per_verify": s["spec_tokens_per_verify"]})
     if args.async_:
         out["async"] = eng.async_stats()
+    if eng.tracer.enabled:
+        out["ticks"] = eng.tracer.tick_summary()
+    if args.profile:
+        rows = eng.profiler.report(eng.tracer.tick_stats)
+        out["bucket_attainment"] = rows
+        print(attainment_table(rows))
+    if args.trace_out:
+        trace = write_perfetto(eng.tracer, args.trace_out + ".trace.json",
+                               registry=eng.metrics.registry,
+                               profiler=eng.profiler)
+        events = write_jsonl(eng.tracer, args.trace_out + ".events.jsonl")
+        out["trace_files"] = [trace, events]
     print(json.dumps(out, indent=1))
     return out
 

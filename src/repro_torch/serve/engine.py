@@ -23,9 +23,18 @@ pipeline: overlap ticks and device-resident decode bursts, whose tokens
 the host replays through the synchronous commit path (see the section
 "asynchronous tick pipeline" below).
 
-Sharded serving, disagg handoff and tracing are later slices of the
-port: asking for any of them raises ``NotImplementedError`` (or
-``ValueError`` where the reference's slot mode refuses them too).
+``ServeConfig.obs`` turns on tracing (repro_torch.obs): every tick runs
+in the tracer's ``tick`` span, its phases in phase spans (schedule,
+admit, draft, batch_assemble, device_dispatch, device_wait, sample_sync,
+postprocess) with the tick's attributes, and each request's lifecycle
+events (arrival, admitted, prefix_hit, prefill_chunk, first_token,
+preempted, replay_done, spec_*, cow, finish) land on its timeline;
+``ObsConfig.profile`` (paged mode) adds the roofline profiler. The
+default tracer is the shared no-op ``NULL_TRACER``.
+
+Sharded serving and disagg handoff are later slices of the port: asking
+for them raises ``NotImplementedError`` (or ``ValueError`` where the
+reference's slot mode refuses them too).
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from repro_torch import spec as spec_mod
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
+from repro_torch.obs import ServingProfiler, make_tracer
 from repro_torch.serve import (kv_cache, metrics as metrics_mod, paged_kv,
                                sampling)
 from repro_torch.serve.metrics import StepStats
@@ -71,8 +81,7 @@ def _unsupported(scfg: ServeConfig) -> List[str]:
     """The ServeConfig features outside this slice that ``scfg`` asks
     for."""
     return [name for name, on in (
-        ("mesh", scfg.mesh is not None and scfg.mesh.n_devices > 1),
-        ("obs", scfg.obs.enabled or scfg.obs.profile)) if on]
+        ("mesh", scfg.mesh is not None and scfg.mesh.n_devices > 1),) if on]
 
 
 class Engine:
@@ -87,12 +96,14 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, params: dict, scfg: ServeConfig,
                  device: Optional[Union[str, torch.device]] = None,
-                 drafter=None, draft_params: Optional[dict] = None):
+                 drafter=None, draft_params: Optional[dict] = None,
+                 tracer=None):
         """``scfg.spec`` turns on speculative decoding (paged mode only).
         ``drafter`` injects a ready repro_torch.spec drafter; otherwise one
         is built from the spec config (``draft_params`` are the weights of
         the small model for spec.drafter='model'; they move to
-        ``device``)."""
+        ``device``). ``tracer`` injects a shared obs.Tracer; otherwise one
+        is made from ``scfg.obs`` (the no-op NULL_TRACER by default)."""
         self.device = resolve_device(device)
         paged_only = [] if scfg.paged else _paged_only(scfg)
         if paged_only:
@@ -110,7 +121,14 @@ class Engine:
         self.scfg = scfg
         self.model = Model(cfg)
         self.params = _to(params, self.device)
+        # tracing (repro_torch.obs): the instrumented tick path calls
+        # through unconditionally; the null tracer makes every hook a
+        # shared no-op
+        self.tracer = tracer if tracer is not None \
+            else make_tracer(scfg.obs)
         self.metrics = metrics_mod.MetricsCollector(cfg, scfg)
+        self.metrics.tracer = self.tracer
+        self.profiler = None           # obs.ServingProfiler (obs.profile)
         self._requests: Dict[int, Request] = {}
         self._rids = itertools.count()
         self.spec = scfg.spec
@@ -165,12 +183,17 @@ class Engine:
     def reset_metrics(self) -> None:
         """A fresh MetricsCollector wired to the live pool and prefix
         gauges; the pool's and index's event counters restart with it, so
-        every rate in one summary() covers the same window. Pool state
-        (blocks, refcounts, the radix tree) is untouched."""
+        every rate in one summary() covers the same window, and so does
+        the tracer's record. Pool state (blocks, refcounts, the radix
+        tree) is untouched."""
         if self._async is not None:
             # commit any deferred tokens into the OLD window first
             self.flush_async()
         self.metrics = metrics_mod.MetricsCollector(self.cfg, self.scfg)
+        self.metrics.tracer = self.tracer
+        self.tracer.reset()            # same window as the collector
+        if self.profiler is not None:
+            self.metrics.profiler = self.profiler
         if self.scfg.paged:
             self.metrics.pool = self.pool
             self.metrics.prefix = self.prefix
@@ -227,7 +250,9 @@ class Engine:
         if not self.sched.submit(req):
             return False                       # queue full: shed load
         self._requests[req.rid] = req
-        self.metrics.on_arrival(req.rid, len(np.asarray(req.prompt)))
+        n_prompt = len(np.asarray(req.prompt))
+        self.metrics.on_arrival(req.rid, n_prompt)
+        self.tracer.event(req.rid, "arrival", prompt_len=n_prompt)
         return True
 
     def forget(self, rid: int) -> None:
@@ -241,14 +266,15 @@ class Engine:
             getattr(self, "_accept_rngs", {}).pop(rid, None)
 
     def step(self) -> List[int]:
-        """One engine tick; returns the rids that finished this tick.
-        (The reference runs it inside its tracer's ``tick`` span: tracing
-        is ROADMAP queue 1, item 4.)"""
-        if self.scfg.paged:
-            if self._async is not None:
-                return self._tick_paged_async()
-            return self._tick_paged()
-        return self._step_slots()
+        """One engine tick; returns the rids that finished this tick. Under
+        tracing the whole tick runs inside a ``tick`` span whose exit folds
+        host/device attribution into ``tracer.tick_stats``."""
+        with self.tracer.tick():
+            if self.scfg.paged:
+                if self._async is not None:
+                    return self._tick_paged_async()
+                return self._tick_paged()
+            return self._step_slots()
 
     def defrag(self) -> Optional[np.ndarray]:
         """Compact the block pool: host bookkeeping, then the same moves
@@ -332,7 +358,12 @@ class Engine:
         self.metrics.pool = self.pool
         self.metrics.prefix = self.prefix
         self.runner = ModelRunner(self.model, self.params, scfg,
-                                  self.device)
+                                  self.device, tracer=self.tracer)
+        if scfg.obs.profile:
+            # roofline attainment (obs.profile): the static cost per
+            # bucket, from shapes, joins the ticks' device time
+            self.profiler = ServingProfiler(self.runner)
+            self.metrics.profiler = self.profiler
         self._kv_per_tok = paged_kv.kv_bytes_per_token(self.cfg,
                                                        scfg.kv_quant)
         if self.spec is not None:
@@ -381,6 +412,7 @@ class Engine:
         if status != "stop":
             if first:
                 self.metrics.on_first_token(e.req.rid)
+                self.tracer.event(e.req.rid, "first_token")
             else:
                 self.metrics.on_token(e.req.rid,
                                       prefill_overlap=self._tick_overlap)
@@ -405,6 +437,8 @@ class Engine:
                         f"request of {upto_len} tokens")
                 return "defer"
             self.metrics.on_preemption(victim.req.rid)
+            self.tracer.event(victim.req.rid, "preempted",
+                              by=e.req.rid, at_tokens=victim.ctx_len)
             self.sched.preempt(victim)
         return "ok"
 
@@ -415,54 +449,64 @@ class Engine:
         prefill, decode and verify rows, one batched sample and the
         host-side commit (acceptance and rollback for verify rows)."""
         finished: List[int] = []
-        for e in self.sched.admit():
-            self._seed_presence(e.slot, e.req)
-            if self.prefix is not None \
-                    and not e.req.sampling.prompt_logprobs:
-                # prompt_logprobs requests never consult the index
-                self.metrics.on_prefix_lookup(e.req.rid, e.cached_len)
-        spec = self.spec
-        S_spec = spec.k_max + 1 if spec is not None else 0
-        K = 0
-        if spec is not None:
-            K = self.kctl.k if spec.adaptive else min(spec.k, spec.k_max)
-
-        # ---- 1) capacity resolution -----------------------------------
-        prefill_plan: List[Tuple[SchedEntry, int, int]] = []
-        for e in self.sched.prefill_entries():
-            if e.req.rid not in self.sched.active:
-                continue                       # evicted making room above
-            valid = min(self.scfg.prefill_chunk,
-                        len(e.prefill_tokens()) - e.pos)
-            st = self._ensure_blocks(e, e.pos + valid)
-            if st == "never":
-                self._finish(e, finished)      # prompt can't fit: give up
-            elif st == "ok":
-                prefill_plan.append((e, e.pos, valid))
-        deferred = set()
-        for e in list(self.sched.decode_entries()):
-            if e.req.rid not in self.sched.active:
-                continue
+        tr = self.tracer
+        with tr.span("schedule"):
+            with tr.span("admit"):
+                for e in self.sched.admit():
+                    self._seed_presence(e.slot, e.req)
+                    tr.event(e.req.rid, "admitted", slot=e.slot,
+                             cached=e.cached_len, replay=e.replay)
+                    if self.prefix is not None \
+                            and not e.req.sampling.prompt_logprobs:
+                        # prompt_logprobs requests never consult the index
+                        self.metrics.on_prefix_lookup(e.req.rid,
+                                                      e.cached_len)
+                        if e.cached_len > 0:
+                            tr.event(e.req.rid, "prefix_hit",
+                                     cached_tokens=e.cached_len)
+            spec = self.spec
+            S_spec = spec.k_max + 1 if spec is not None else 0
+            K = 0
             if spec is not None:
-                # cover the worst-case speculative or resync tail FIRST:
-                # rows that end up deferred must not burn drafting work;
-                # what a short proposal leaves unused the post-commit
-                # truncate returns
-                need = min(len(e.resync), S_spec) if e.resync \
-                    else min(K, max(self.scfg.max_seq - e.ctx_len - 2,
-                                    0)) + 1
-            else:
-                need = 1
-            st = self._ensure_blocks(e, e.ctx_len + need)
-            if st == "never":
-                self._finish(e, finished)      # context ceiling reached
-            elif st == "defer":
-                deferred.add(e.req.rid)        # wait for capacity
-        prefill_plan = [(e, pos, v) for e, pos, v in prefill_plan
-                        if e.req.rid in self.sched.active]
-        run_rows = [e for e in self.sched.decode_entries()
-                    if e.req.rid not in deferred]
-        self._tick_overlap = bool(prefill_plan)
+                K = self.kctl.k if spec.adaptive \
+                    else min(spec.k, spec.k_max)
+
+            # ---- 1) capacity resolution -------------------------------
+            prefill_plan: List[Tuple[SchedEntry, int, int]] = []
+            for e in self.sched.prefill_entries():
+                if e.req.rid not in self.sched.active:
+                    continue                   # evicted making room above
+                valid = min(self.scfg.prefill_chunk,
+                            len(e.prefill_tokens()) - e.pos)
+                st = self._ensure_blocks(e, e.pos + valid)
+                if st == "never":
+                    self._finish(e, finished)  # prompt can't fit: give up
+                elif st == "ok":
+                    prefill_plan.append((e, e.pos, valid))
+            deferred = set()
+            for e in list(self.sched.decode_entries()):
+                if e.req.rid not in self.sched.active:
+                    continue
+                if spec is not None:
+                    # cover the worst-case speculative or resync tail
+                    # FIRST: rows that end up deferred must not burn
+                    # drafting work; what a short proposal leaves unused
+                    # the post-commit truncate returns
+                    need = min(len(e.resync), S_spec) if e.resync \
+                        else min(K, max(self.scfg.max_seq - e.ctx_len - 2,
+                                        0)) + 1
+                else:
+                    need = 1
+                st = self._ensure_blocks(e, e.ctx_len + need)
+                if st == "never":
+                    self._finish(e, finished)  # context ceiling reached
+                elif st == "defer":
+                    deferred.add(e.req.rid)    # wait for capacity
+            prefill_plan = [(e, pos, v) for e, pos, v in prefill_plan
+                            if e.req.rid in self.sched.active]
+            run_rows = [e for e in self.sched.decode_entries()
+                        if e.req.rid not in deferred]
+            self._tick_overlap = bool(prefill_plan)
 
         # ---- 2) drafting (spec only) ----------------------------------
         # rows replaying after eviction re-feed committed tokens through
@@ -470,56 +514,83 @@ class Engine:
         # forced acceptance, no emission)
         proposals: Dict[int, tuple] = {}
         if spec is not None and run_rows:
-            items = []
-            for e in run_rows:
-                if e.resync:
-                    proposals[e.req.rid] = (
-                        "resync", np.asarray(e.resync[:S_spec], np.int32),
-                        None)
-                    continue
-                budget = min(K, self.scfg.max_seq - e.ctx_len - 2)
-                ctx = np.concatenate([
-                    np.asarray(e.req.prompt, np.int32),
-                    np.asarray(e.req.tokens_out, np.int32)])
-                items.append((e.req.rid, ctx, max(budget, 0)))
-            for (rid, _, _), (toks, qd) in zip(items, self._propose(items)):
-                proposals[rid] = ("draft", np.asarray(toks, np.int32), qd)
+            with tr.span("draft", rows=len(run_rows), k=K):
+                items = []
+                for e in run_rows:
+                    if e.resync:
+                        proposals[e.req.rid] = (
+                            "resync",
+                            np.asarray(e.resync[:S_spec], np.int32), None)
+                        continue
+                    budget = min(K, self.scfg.max_seq - e.ctx_len - 2)
+                    ctx = np.concatenate([
+                        np.asarray(e.req.prompt, np.int32),
+                        np.asarray(e.req.tokens_out, np.int32)])
+                    items.append((e.req.rid, ctx, max(budget, 0)))
+                for (rid, _, _), (toks, qd) in zip(items,
+                                                   self._propose(items)):
+                    proposals[rid] = ("draft", np.asarray(toks, np.int32),
+                                      qd)
+                    tr.event(rid, "spec_draft", k=len(toks))
 
         if not prefill_plan and not run_rows:
             return finished
 
         # ---- 3) one batched step ---------------------------------------
-        rows: List[Tuple[int, int, np.ndarray, int]] = []
-        for e, pos, valid in prefill_plan:
-            rows.append((e.slot, PREFILL,
-                         np.asarray(e.prefill_tokens()[pos:pos + valid],
-                                    np.int32), pos))
-        for e in run_rows:
-            if spec is None:
-                rows.append((e.slot, DECODE,
-                             np.asarray([e.req.tokens_out[-1]], np.int32),
-                             e.ctx_len))
-                continue
-            kind, toks, _ = proposals[e.req.rid]
-            seq = toks if kind == "resync" else np.concatenate(
-                [np.asarray([e.req.tokens_out[-1]], np.int32), toks])
-            rows.append((e.slot, VERIFY, seq, e.ctx_len))
-            # pin across the step: a defrag must not move blocks the
-            # step's block table has captured
-            self.pool.pin(e.slot)
-        # copy-on-write BEFORE the tables snapshot: a row whose write span
-        # lands in a block referenced elsewhere (a prefix-shared block, a
-        # rollback into a shared partial tail) gets a private copy, so
-        # siblings never observe the write
-        cow: List[Tuple[int, int]] = []
-        for slot, _, toks, start in rows:
-            cow.extend(self.pool.cow_for_write(slot, start, len(toks)))
-        if cow:
-            self.runner.copy_blocks(cow)
-        batch = self.runner.new_batch(max(len(r[2]) for r in rows),
-                                      self.pool.tables())
-        for slot, phase, toks, start in rows:
-            batch.add_row(slot, phase, toks, start)
+        with tr.span("batch_assemble"):
+            rows: List[Tuple[int, int, np.ndarray, int]] = []
+            for e, pos, valid in prefill_plan:
+                rows.append((e.slot, PREFILL,
+                             np.asarray(e.prefill_tokens()[pos:pos + valid],
+                                        np.int32), pos))
+            for e in run_rows:
+                if spec is None:
+                    rows.append((e.slot, DECODE,
+                                 np.asarray([e.req.tokens_out[-1]],
+                                            np.int32),
+                                 e.ctx_len))
+                    continue
+                kind, toks, _ = proposals[e.req.rid]
+                seq = toks if kind == "resync" else np.concatenate(
+                    [np.asarray([e.req.tokens_out[-1]], np.int32), toks])
+                rows.append((e.slot, VERIFY, seq, e.ctx_len))
+                # pin across the step: a defrag must not move blocks the
+                # step's block table has captured
+                self.pool.pin(e.slot)
+            # copy-on-write BEFORE the tables snapshot: a row whose write
+            # span lands in a block referenced elsewhere (a prefix-shared
+            # block, a rollback into a shared partial tail) gets a private
+            # copy, so siblings never observe the write
+            slot_rid = {e.slot: e.req.rid
+                        for e in list(self.sched.active.values())}
+            cow: List[Tuple[int, int]] = []
+            for slot, _, toks, start in rows:
+                copies = self.pool.cow_for_write(slot, start, len(toks))
+                if copies:
+                    tr.event(slot_rid.get(slot, -1), "cow",
+                             n_blocks=len(copies))
+                cow.extend(copies)
+            if cow:
+                self.runner.copy_blocks(cow)
+            batch = self.runner.new_batch(max(len(r[2]) for r in rows),
+                                          self.pool.tables())
+            for slot, phase, toks, start in rows:
+                batch.add_row(slot, phase, toks, start)
+            if tr.enabled:
+                # width = the bucket (the step's token width), which the
+                # roofline profiler joins tick time to static cost by, as
+                # it does the live keys kernel 1 reads
+                valid_tokens = sum(len(r[2]) for r in rows)
+                width = batch.tokens.shape[1]
+                denom = self.scfg.max_batch * width
+                tr.tick_attrs(
+                    rows_prefill=len(prefill_plan),
+                    rows_decode=len(run_rows) if spec is None else 0,
+                    rows_verify=len(run_rows) if spec is not None else 0,
+                    width=width, valid_tokens=valid_tokens,
+                    pad_waste_frac=1.0 - valid_tokens / denom if denom
+                    else 0.0,
+                    n_keys=batch.live_keys(self.scfg.block_size))
         out = self.runner.step(batch)
 
         # ---- 4) sample + commit ----------------------------------------
@@ -534,36 +605,43 @@ class Engine:
             sample_pairs.extend((e.slot, e.req) for e in run_rows)
         tok_np = lp_np = None
         if sample_pairs:
-            tok_np, lp_np = self._sample_rows(sample_pairs, out.last_logits)
+            with tr.span("sample_sync", rows=len(sample_pairs)):
+                tok_np, lp_np = self._sample_rows(sample_pairs,
+                                                  out.last_logits)
 
         # prefill rows: advance the frontier; a completing row emits its
         # first token (a replayed row already knows its next token)
-        for e, pos, valid in prefill_plan:
-            self._record_prompt_logprobs(e, out, pos, valid)
-            e.pos = pos + valid
-            self.metrics.on_prefill_chunk(valid)
-            if e.req.rid not in completing:
-                continue
-            e.ctx_len = e.pos
-            e.state = State.RUNNING
-            # the prompt's KV is final: publish its full blocks so
-            # concurrent same-prefix requests share them now
-            self.sched.index_prefix(e, e.prefill_tokens(), e.pos)
-            if e.replay:
-                e.replay = False
-                if e.resync_replay:
-                    # prompt KV restored; the generated tokens' KV
-                    # re-derives through verify steps (bit for bit as it
-                    # was first written) before drafting resumes
-                    e.resync = [int(t) for t in e.req.tokens_out[:-1]]
-                    e.resync_replay = False
+        with tr.span("postprocess"):
+            for e, pos, valid in prefill_plan:
+                self._record_prompt_logprobs(e, out, pos, valid)
+                e.pos = pos + valid
+                self.metrics.on_prefill_chunk(valid)
+                tr.event(e.req.rid, "prefill_chunk", pos=pos, valid=valid)
+                if e.req.rid not in completing:
+                    continue
+                e.ctx_len = e.pos
+                e.state = State.RUNNING
+                # the prompt's KV is final: publish its full blocks so
+                # concurrent same-prefix requests share them now
+                self.sched.index_prefix(e, e.prefill_tokens(), e.pos)
+                if e.replay:
+                    e.replay = False
+                    tr.event(e.req.rid, "replay_done",
+                             resync=e.resync_replay)
+                    if e.resync_replay:
+                        # prompt KV restored; the generated tokens' KV
+                        # re-derives through verify steps (bit for bit as
+                        # it was first written) before drafting resumes
+                        e.resync = [int(t) for t in e.req.tokens_out[:-1]]
+                        e.resync_replay = False
+                else:
+                    self._commit_emitted(e, int(tok_np[e.slot]),
+                                         lp_np[e.slot], finished,
+                                         first=True)
+            if spec is None:
+                self._commit_decode(run_rows, tok_np, lp_np, finished)
             else:
-                self._commit_emitted(e, int(tok_np[e.slot]),
-                                     lp_np[e.slot], finished, first=True)
-        if spec is None:
-            self._commit_decode(run_rows, tok_np, lp_np, finished)
-        else:
-            self._commit_verify(run_rows, proposals, out, finished)
+                self._commit_verify(run_rows, proposals, out, finished)
         return finished
 
     def _record_prompt_logprobs(self, e: SchedEntry, out: StepOutput,
@@ -641,6 +719,8 @@ class Engine:
                 e.ctx_len += m
                 del e.resync[:m]
                 self.pool.unpin(e.slot)
+                self.tracer.event(e.req.rid, "spec_resync", n=m,
+                                  remaining=len(e.resync))
                 continue
             row_logits = logits[e.slot, :m + 1]
             sp = self._sp(e.req)
@@ -678,12 +758,17 @@ class Engine:
                 if not alive:
                     break
             self.metrics.on_spec_request(e.req.rid, m, a, row_emitted)
+            self.tracer.event(e.req.rid, "spec_verify", drafted=m,
+                              accepted=a, emitted=row_emitted)
             # committed frontier: the last emitted token's KV is written by
             # the NEXT verify step; a stop truncation shrinks tokens_out,
             # so re-derive rather than add
             e.ctx_len = P + max(len(e.req.tokens_out) - 1, 0)
             # rollback: free whole blocks past the committed frontier
-            self.pool.truncate(e.slot, e.ctx_len)
+            rolled = self.pool.truncate(e.slot, e.ctx_len)
+            if a < m:
+                self.tracer.event(e.req.rid, "spec_rollback",
+                                  rejected=m - a, freed_blocks=rolled or 0)
             self.pool.unpin(e.slot)
             if alive and e.ctx_len + 1 > self.scfg.max_seq:
                 self._finish(e, finished)
@@ -699,6 +784,8 @@ class Engine:
 
     def _finish(self, e: SchedEntry, finished: List[int]) -> None:
         self.metrics.on_finish(e.req.rid)
+        self.tracer.event(e.req.rid, "finish",
+                          n_tokens=len(e.req.tokens_out))
         self.sched.finish(e)
         if self.drafter is not None:
             self.drafter.forget(e.req.rid)
@@ -732,9 +819,10 @@ class Engine:
     # entry-identity check, and its stale KV writes are never read: the
     # sync path republishes host-truth lens and tables, and a freed block
     # is reused only by steps queued behind the in-flight one on the same
-    # stream. The reference's tracer spans and tick attributes in these
-    # methods (schedule, batch_assemble, device_dispatch, sample_sync,
-    # device_wait, postprocess) come with tracing, ROADMAP queue 1, item 4.
+    # stream. Under tracing an async tick's phases run in the reference's
+    # spans (schedule, batch_assemble, device_dispatch, sample_sync with
+    # the tick it reconciles, device_wait, postprocess) and a burst's
+    # tick records its device iterations as ``device_ticks``.
 
     def flush_async(self) -> None:
         """Reconcile any in-flight overlap tick now, so that out-of-band
@@ -782,8 +870,10 @@ class Engine:
         samples from host state (the repetition penalty) or mutates
         scheduling state (admission, prefill, eviction, speculation's
         drafting and resync) falls back to sync — identity first, overlap
-        second."""
-        if self.spec is not None or self.cfg.n_codebooks:
+        second. Profiling keeps every tick sync: its buckets are the
+        runner's eager steps."""
+        if self.spec is not None or self.cfg.n_codebooks \
+                or self.profiler is not None:
             return None
         if not self.sched.decode_only():
             return None
@@ -807,14 +897,20 @@ class Engine:
         if pend is None:
             return []
         self._pending = None
+        tr = self.tracer
         finished: List[int] = []
-        tok_np, lp_np = pend["host"].wait()
+        host = pend["host"]
+        with tr.span("sample_sync", rows=len(pend["entries"]),
+                     reconciles_tick=pend["tick"]):
+            with tr.device_wait(host.clock):
+                tok_np, lp_np = host.wait()
         live = [e for e in pend["entries"]
                 if self.sched.active.get(e.req.rid) is e]
         prev = self._tick_overlap
         self._tick_overlap = pend["overlap"]
         try:
-            self._commit_decode(live, tok_np, lp_np, finished)
+            with tr.span("postprocess"):
+                self._commit_decode(live, tok_np, lp_np, finished)
         finally:
             self._tick_overlap = prev
         return finished
@@ -841,52 +937,63 @@ class Engine:
         None (state untouched, the caller falls back to sync) when
         capacity would need eviction or a row is at its context ceiling.
         """
+        tr = self.tracer
         scfg = self.scfg
         pend = self._pending
         prids = pend["rids"] if pend is not None else frozenset()
         B = scfg.max_batch
-        need_blocks = 0
-        needs = []
-        for e in rows:
-            off = 1 if e.req.rid in prids else 0
-            need = e.ctx_len + off + 1
-            nb = self.pool.blocks_for(need)
-            if need > scfg.max_seq or nb > self.pool.max_blocks_per_seq:
-                return None
-            have = len(self.pool.owned.get(e.slot, ()))
-            need_blocks += max(nb - have, 0)
-            needs.append((e, off, need))
-        if need_blocks > self.pool.n_free:
-            return None                        # eviction is sync work
-        for e, off, need in needs:
-            ok = self.pool.allocate(e.slot, need)
-            assert ok, "n_free precheck covered this allocation"
-        self._tick_overlap = self.external_prefill_overlap
-        cow: List[Tuple[int, int]] = []
-        for e, off, _ in needs:
-            cow.extend(self.pool.cow_for_write(e.slot, e.ctx_len + off, 1))
-        if cow:
-            self.runner.copy_blocks(cow)
-        batch = self.runner.new_batch(1, self.pool.tables())
-        chain = np.zeros((B,), bool)
-        for e, off, _ in needs:
-            if off:
-                # placeholder token: overridden on the device by the
-                # still-in-flight pending sample for this row
-                batch.add_row(e.slot, DECODE, [0], e.ctx_len + 1)
-                chain[e.slot] = True
-            else:
-                batch.add_row(e.slot, DECODE,
-                              [int(e.req.tokens_out[-1])], e.ctx_len)
-        # sample THIS tick on the device too; the host wait is deferred to
-        # next tick's reconcile
-        temp, top_k, top_p, sampled = self._sampling_arrays(rows)
-        keys = np.zeros((B, 2), np.int64)
-        for e in rows:
-            sp = self._sp(e.req)
-            ctr = self._draw_ctr.get(e.req.rid, 0)
-            self._draw_ctr[e.req.rid] = ctr + 1
-            keys[e.slot] = sampling.request_key(sp.seed, e.req.rid, ctr)
+        with tr.span("schedule"):
+            need_blocks = 0
+            needs = []
+            for e in rows:
+                off = 1 if e.req.rid in prids else 0
+                need = e.ctx_len + off + 1
+                nb = self.pool.blocks_for(need)
+                if need > scfg.max_seq \
+                        or nb > self.pool.max_blocks_per_seq:
+                    return None
+                have = len(self.pool.owned.get(e.slot, ()))
+                need_blocks += max(nb - have, 0)
+                needs.append((e, off, need))
+            if need_blocks > self.pool.n_free:
+                return None                    # eviction is sync work
+            for e, off, need in needs:
+                ok = self.pool.allocate(e.slot, need)
+                assert ok, "n_free precheck covered this allocation"
+            self._tick_overlap = self.external_prefill_overlap
+        with tr.span("batch_assemble"):
+            cow: List[Tuple[int, int]] = []
+            for e, off, _ in needs:
+                cow.extend(self.pool.cow_for_write(e.slot,
+                                                   e.ctx_len + off, 1))
+            if cow:
+                self.runner.copy_blocks(cow)
+            batch = self.runner.new_batch(1, self.pool.tables())
+            chain = np.zeros((B,), bool)
+            for e, off, _ in needs:
+                if off:
+                    # placeholder token: overridden on the device by the
+                    # still-in-flight pending sample for this row
+                    batch.add_row(e.slot, DECODE, [0], e.ctx_len + 1)
+                    chain[e.slot] = True
+                else:
+                    batch.add_row(e.slot, DECODE,
+                                  [int(e.req.tokens_out[-1])], e.ctx_len)
+            # sample THIS tick on the device too; the host wait is
+            # deferred to next tick's reconcile
+            temp, top_k, top_p, sampled = self._sampling_arrays(rows)
+            keys = np.zeros((B, 2), np.int64)
+            for e in rows:
+                sp = self._sp(e.req)
+                ctr = self._draw_ctr.get(e.req.rid, 0)
+                self._draw_ctr[e.req.rid] = ctr + 1
+                keys[e.slot] = sampling.request_key(sp.seed, e.req.rid, ctr)
+            if tr.enabled:
+                tr.tick_attrs(rows_decode=len(rows), width=1,
+                              valid_tokens=len(rows),
+                              pad_waste_frac=1.0 - len(rows) / B,
+                              n_keys=batch.live_keys(scfg.block_size),
+                              device_ticks=1, async_mode="overlap")
         tok_dev, lp_dev, host = self.runner.graph_step(
             batch, sampled, keys, temp, top_k, top_p, chain=chain,
             pending=pend["tok"] if pend is not None and chain.any()
@@ -894,6 +1001,7 @@ class Engine:
         new_pend = {"entries": list(rows),
                     "rids": frozenset(e.req.rid for e in rows),
                     "tok": tok_dev, "lp": lp_dev, "host": host,
+                    "tick": getattr(tr, "n_ticks", 0),
                     "overlap": self._tick_overlap}
         finished = self._reconcile_pending()
         self._pending = new_pend
@@ -906,108 +1014,124 @@ class Engine:
         iterations on the device (one host wait), then replay the emitted
         tokens through the synchronous commit path. Returns None (state
         untouched) when the burst cannot pre-allocate without eviction."""
+        tr = self.tracer
         scfg = self.scfg
         K = self._async.max_device_ticks
         B = scfg.max_batch
-        budgets: Dict[int, int] = {}
-        need_blocks = 0
-        for e in rows:
-            b = min(K, e.req.max_new - len(e.req.tokens_out),
-                    scfg.max_seq - e.ctx_len)
-            if b < 1:
-                return None            # at a ceiling: a sync tick finishes
-            nb = self.pool.blocks_for(e.ctx_len + b)
-            if nb > self.pool.max_blocks_per_seq:
-                return None
-            budgets[e.slot] = b
-            have = len(self.pool.owned.get(e.slot, ()))
-            need_blocks += max(nb - have, 0)
-        if need_blocks > self.pool.n_free:
-            return None                        # eviction is sync work
-        for e in rows:
-            ok = self.pool.allocate(e.slot, e.ctx_len + budgets[e.slot])
-            assert ok, "n_free precheck covered this allocation"
-        self._tick_overlap = self.external_prefill_overlap
-        cow: List[Tuple[int, int]] = []
-        for e in rows:
-            cow.extend(self.pool.cow_for_write(e.slot, e.ctx_len,
-                                               budgets[e.slot]))
-        if cow:
-            self.runner.copy_blocks(cow)
-        temp, top_k, top_p, sampled = self._sampling_arrays(rows)
-        tok0 = np.zeros((B,), np.int32)
-        lens0 = np.zeros((B,), np.int32)
-        alive0 = np.zeros((B,), np.int32)
-        budget = np.zeros((B,), np.int32)
-        hist0 = np.full((B, STOP_L), -1, np.int32)
-        stops = np.full((B, STOP_NS, STOP_L), -1, np.int32)
-        stop_len = np.zeros((B, STOP_NS), np.int32)
-        keys = np.zeros((K, B, 2), np.int64)
-        k_burst = max(budgets.values())
-        ctr0: Dict[int, int] = {}
-        for e in rows:
-            s, sp = e.slot, self._sp(e.req)
-            tok0[s] = int(e.req.tokens_out[-1])
-            lens0[s] = e.ctx_len
-            alive0[s] = 1
-            budget[s] = budgets[s]
-            tail = e.req.tokens_out[-STOP_L:]
-            if tail:
-                hist0[s, STOP_L - len(tail):] = tail
-            ns = 0
-            for seq in sp.stop:
-                # longer stops (or more than STOP_NS of them) match on the
-                # host at replay: the device match only buys early exit
-                if 0 < len(seq) <= STOP_L and ns < STOP_NS:
-                    stops[s, ns, STOP_L - len(seq):] = seq
-                    stop_len[s, ns] = len(seq)
-                    ns += 1
-            ctr0[s] = self._draw_ctr.get(e.req.rid, 0)
-            if sampled:
-                for k in range(budgets[s]):
-                    keys[k, s] = sampling.request_key(
-                        sp.seed, e.req.rid, ctr0[s] + k)
-        em_np, lp_np, n_dev = self.runner.decode_burst(
-            sampled, K, self.pool.tables(), tok0, lens0, alive0, budget,
-            stops, stop_len, hist0, keys, temp, top_k, top_p,
-            k_burst).wait()
+        with tr.span("schedule"):
+            budgets: Dict[int, int] = {}
+            need_blocks = 0
+            for e in rows:
+                b = min(K, e.req.max_new - len(e.req.tokens_out),
+                        scfg.max_seq - e.ctx_len)
+                if b < 1:
+                    return None        # at a ceiling: a sync tick finishes
+                nb = self.pool.blocks_for(e.ctx_len + b)
+                if nb > self.pool.max_blocks_per_seq:
+                    return None
+                budgets[e.slot] = b
+                have = len(self.pool.owned.get(e.slot, ()))
+                need_blocks += max(nb - have, 0)
+            if need_blocks > self.pool.n_free:
+                return None                    # eviction is sync work
+            for e in rows:
+                ok = self.pool.allocate(e.slot,
+                                        e.ctx_len + budgets[e.slot])
+                assert ok, "n_free precheck covered this allocation"
+            self._tick_overlap = self.external_prefill_overlap
+        with tr.span("batch_assemble"):
+            cow: List[Tuple[int, int]] = []
+            for e in rows:
+                cow.extend(self.pool.cow_for_write(e.slot, e.ctx_len,
+                                                   budgets[e.slot]))
+            if cow:
+                self.runner.copy_blocks(cow)
+            temp, top_k, top_p, sampled = self._sampling_arrays(rows)
+            tok0 = np.zeros((B,), np.int32)
+            lens0 = np.zeros((B,), np.int32)
+            alive0 = np.zeros((B,), np.int32)
+            budget = np.zeros((B,), np.int32)
+            hist0 = np.full((B, STOP_L), -1, np.int32)
+            stops = np.full((B, STOP_NS, STOP_L), -1, np.int32)
+            stop_len = np.zeros((B, STOP_NS), np.int32)
+            keys = np.zeros((K, B, 2), np.int64)
+            k_burst = max(budgets.values())
+            ctr0: Dict[int, int] = {}
+            for e in rows:
+                s, sp = e.slot, self._sp(e.req)
+                tok0[s] = int(e.req.tokens_out[-1])
+                lens0[s] = e.ctx_len
+                alive0[s] = 1
+                budget[s] = budgets[s]
+                tail = e.req.tokens_out[-STOP_L:]
+                if tail:
+                    hist0[s, STOP_L - len(tail):] = tail
+                ns = 0
+                for seq in sp.stop:
+                    # longer stops (or more than STOP_NS of them) match on
+                    # the host at replay: the device match only buys early
+                    # exit
+                    if 0 < len(seq) <= STOP_L and ns < STOP_NS:
+                        stops[s, ns, STOP_L - len(seq):] = seq
+                        stop_len[s, ns] = len(seq)
+                        ns += 1
+                ctr0[s] = self._draw_ctr.get(e.req.rid, 0)
+                if sampled:
+                    for k in range(budgets[s]):
+                        keys[k, s] = sampling.request_key(
+                            sp.seed, e.req.rid, ctr0[s] + k)
+            tr.tick_attrs(rows_decode=len(rows), width=1,
+                          valid_tokens=len(rows),
+                          pad_waste_frac=1.0 - len(rows) / B,
+                          async_mode="loop")
+        with tr.span("device_dispatch", width=1, has_prefill=False,
+                     loop_k=k_burst):
+            host = self.runner.decode_burst(
+                sampled, K, self.pool.tables(), tok0, lens0, alive0, budget,
+                stops, stop_len, hist0, keys, temp, top_k, top_p, k_burst)
+        finished: List[int] = []
+        with tr.span("sample_sync", rows=len(rows),
+                     reconciles_tick=getattr(tr, "n_ticks", 0)):
+            with tr.device_wait(host.clock):
+                em_np, lp_np, n_dev = host.wait()
         iters_dev = int(n_dev.max()) if rows else 0
         self._loop_device_ticks += iters_dev
         self._async_stats["loop_bursts"] += 1
         self._async_stats["loop_device_ticks"] += iters_dev
-        finished: List[int] = []
-        committed: Dict[int, int] = {}
-        for e in rows:
-            s = e.slot
-            n = 0
-            alive = True
-            for j in range(int(n_dev[s])):
-                t = int(em_np[s, j])
-                if t < 0:
-                    break
-                alive = self._commit_emitted(e, t, float(lp_np[s, j]),
-                                             finished)
-                e.ctx_len += 1
-                n += 1
-                if alive and e.ctx_len + 1 > scfg.max_seq:
-                    self._finish(e, finished)
-                    alive = False
-                if not alive:
-                    break                      # overrun tokens dropped
-            committed[s] = n
-            self._draw_ctr[e.req.rid] = ctr0[s] + n
-            if alive:
-                # return unused burst blocks so pool pressure matches the
-                # synchronous engine's one-token-at-a-time walk
-                self.pool.truncate(e.slot, e.ctx_len)
-        # replay the synchronous engine's per-tick decode metrics: burst
-        # iteration j had exactly the rows with > j commits live, reading
-        # their (lens0 + j)-token contexts
-        for j in range(max(committed.values(), default=0)):
-            live = [e for e in rows if committed[e.slot] > j]
-            kv = sum(int(lens0[e.slot]) + j for e in live) \
-                * self._kv_per_tok
-            self.metrics.on_decode_step(len(live), kv_bytes=kv)
+        tr.tick_attrs(device_ticks=max(iters_dev, 1))
+        with tr.span("postprocess"):
+            committed: Dict[int, int] = {}
+            for e in rows:
+                s = e.slot
+                n = 0
+                alive = True
+                for j in range(int(n_dev[s])):
+                    t = int(em_np[s, j])
+                    if t < 0:
+                        break
+                    alive = self._commit_emitted(e, t, float(lp_np[s, j]),
+                                                 finished)
+                    e.ctx_len += 1
+                    n += 1
+                    if alive and e.ctx_len + 1 > scfg.max_seq:
+                        self._finish(e, finished)
+                        alive = False
+                    if not alive:
+                        break                  # overrun tokens dropped
+                committed[s] = n
+                self._draw_ctr[e.req.rid] = ctr0[s] + n
+                if alive:
+                    # return unused burst blocks so pool pressure matches
+                    # the synchronous engine's one-token-at-a-time walk
+                    self.pool.truncate(e.slot, e.ctx_len)
+            # replay the synchronous engine's per-tick decode metrics:
+            # burst iteration j had exactly the rows with > j commits
+            # live, reading their (lens0 + j)-token contexts
+            for j in range(max(committed.values(), default=0)):
+                live = [e for e in rows if committed[e.slot] > j]
+                kv = sum(int(lens0[e.slot]) + j for e in live) \
+                    * self._kv_per_tok
+                self.metrics.on_decode_step(len(live), kv_bytes=kv)
         return finished
 
     @property
@@ -1046,6 +1170,7 @@ class Engine:
         self._active.pop(req.rid, None)
         self._host_rngs.pop(req.rid, None)
         self.metrics.on_finish(req.rid)
+        self.tracer.event(req.rid, "finish", n_tokens=len(req.tokens_out))
 
     def _add_request_slots(self, req: Request) -> bool:
         slot = self.alloc.alloc(req.rid)
@@ -1055,6 +1180,8 @@ class Engine:
         self._active[req.rid] = req
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         self.metrics.on_arrival(req.rid, len(prompt))
+        self.tracer.event(req.rid, "arrival", prompt_len=len(prompt))
+        self.tracer.event(req.rid, "admitted", slot=slot)
         # prefill into a batch-1 cache, then splice that row into the live
         # cache at ``slot`` (slots advance independently via lens[b])
         tmp = self.model.init_cache(1, len(prompt), device=self.device)
@@ -1078,6 +1205,7 @@ class Engine:
         status = self._append_token(req, slot, tok, lp)
         if status != "stop":
             self.metrics.on_first_token(req.rid)
+            self.tracer.event(req.rid, "first_token")
         if status != "ok":                     # same checks the paged
             self._finish_slot(req)             # path makes after prefill
             self._done_at_admit.append(req.rid)
@@ -1099,26 +1227,41 @@ class Engine:
         self._done_at_admit = []
         if not self._active:
             return finished
+        tr = self.tracer
         reqs = list(self._active.values())
         slots = {req.rid: self.alloc.active[req.rid] for req in reqs}
-        tok = np.zeros((self.scfg.max_batch, 1), np.int32)
-        for req in reqs:
-            tok[slots[req.rid], 0] = req.tokens_out[-1]
-        with torch.no_grad():
-            logits, self.cache = self.model.decode_step(
-                self.params, torch.tensor(tok, device=self.device),
-                self.cache)
-        tok_np, lp_np = self._sample_rows(
-            [(slots[req.rid], req) for req in reqs], logits[:, 0])
+        B = self.scfg.max_batch
+        with tr.span("batch_assemble"):
+            tok = np.zeros((B, 1), np.int32)
+            for req in reqs:
+                tok[slots[req.rid], 0] = req.tokens_out[-1]
+            tr.tick_attrs(rows_prefill=0, rows_decode=len(reqs),
+                          rows_verify=0, width=1, valid_tokens=len(reqs),
+                          pad_waste_frac=1.0 - len(reqs) / B)
+        with tr.span("device_dispatch", rows=len(reqs)):
+            clock = tr.device_clock(self.device)
+            with torch.no_grad():
+                logits, self.cache = self.model.decode_step(
+                    self.params, torch.tensor(tok, device=self.device),
+                    self.cache)
+            if clock is not None:
+                clock.stop()
+        if clock is not None:
+            with tr.device_wait(clock):
+                pass
+        with tr.span("sample_sync", rows=len(reqs)):
+            tok_np, lp_np = self._sample_rows(
+                [(slots[req.rid], req) for req in reqs], logits[:, 0])
         done_now = []
-        for req in reqs:
-            slot = slots[req.rid]
-            status = self._append_token(req, slot, int(tok_np[slot]),
-                                        lp_np[slot])
-            if status != "stop":
-                self.metrics.on_token(req.rid)
-            if status != "ok":
-                self._finish_slot(req)
-                done_now.append(req.rid)
-        self.metrics.on_decode_step(len(reqs))
+        with tr.span("postprocess"):
+            for req in reqs:
+                slot = slots[req.rid]
+                status = self._append_token(req, slot, int(tok_np[slot]),
+                                            lp_np[slot])
+                if status != "stop":
+                    self.metrics.on_token(req.rid)
+                if status != "ok":
+                    self._finish_slot(req)
+                    done_now.append(req.rid)
+            self.metrics.on_decode_step(len(reqs))
         return finished + done_now

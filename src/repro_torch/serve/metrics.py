@@ -1,13 +1,17 @@
 """Serving metrics: per-request TTFT/TPOT, percentile latency, tokens/s,
 the prefill-interference split of inter-token gaps, the prefix-cache
 counters and the paper's Table-II off-chip traffic counters (weight bytes,
-KV bytes, sparsity savings), with the block pool's and the prefix index's
-gauges spliced into ``summary()``.
+KV bytes, sparsity savings).
 
-The port's copy of the reference's collector. The reference keeps every
-scalar in an ``obs.Registry`` with a Prometheus export; here they are
-plain counters (the registry and its metrics server come with the
-observability slice).
+The port's copy of the reference's collector. Every number lives in ONE
+``obs.Registry``: the event hooks increment registry counters (the legacy
+attribute names, ``decode_steps``, ``evictions``, ``spec_steps``, ..., are
+read-only properties over them), the block pool's, the prefix index's and
+the roofline profiler's stats are spliced in as pull-style gauge groups,
+and ``summary()``, the Prometheus text endpoint and the Perfetto trace
+metadata all read the same registry. With tracing on, ``summary()`` adds
+the tracer's ``ticks`` and ``phase_ms_per_tick`` and, with profiling, the
+per-bucket ``bucket_attainment``.
 
 Empty windows report ``None`` (explicit null), never a fake 0."""
 
@@ -20,6 +24,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.obs.registry import Registry
 from repro_torch.serve import kv_cache
 
 
@@ -142,9 +147,12 @@ def _ms(v: Optional[float]) -> Optional[float]:
 
 
 class MetricsCollector:
-    """Accumulates per-request and per-step serving metrics. ``pool`` and
-    ``prefix`` (set by the paged engine) splice their ``stats()`` into
-    ``summary()``."""
+    """Accumulates per-request and per-step serving metrics. Every scalar
+    lives in ``self.registry``; the legacy attribute names are read-only
+    properties over its counters. ``pool``, ``prefix`` and ``profiler``
+    (set by the paged engine) splice their stats into the registry and
+    ``summary()``; ``tracer`` (set by the engine) adds its per-tick
+    aggregates when it records."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig,
                  clock=time.monotonic):
@@ -153,33 +161,168 @@ class MetricsCollector:
         self.clock = clock
         self.requests: Dict[int, RequestMetrics] = {}
         self.step_stats: List[StepStats] = []
-        self.decode_steps = 0
-        self.prefill_chunks = 0
-        self.prefill_tokens = 0      # prompt tokens run through the model
-        self.evictions = 0
-        self.prefix_lookups = 0
-        self.prefix_hits = 0
-        self.prefix_cached_tokens = 0
-        self.spec_steps = 0          # verify passes
-        self.spec_drafted = 0
-        self.spec_accepted = 0
-        self.spec_emitted = 0
-        self.weight_bytes = 0.0
-        self.kv_bytes = 0.0
-        self.sparse_savings_bytes = 0.0
-        # every inter-token gap, split by whether a prefill ran in the same
-        # tick (the prefill-interference split)
+        self.registry = Registry()
+        r = self.registry
+        self._c_decode = r.counter("engine_decode_steps_total",
+                                   "non-speculative decode ticks")
+        self._c_chunks = r.counter("engine_prefill_chunks_total",
+                                   "chunked-prefill rows processed")
+        self._c_prefill_tok = r.counter("engine_prefill_tokens_total",
+                                        "prompt tokens prefilled")
+        self._c_evict = r.counter("sched_preemptions_total",
+                                  "preemption-by-recompute evictions")
+        self._c_arrive = r.counter("request_arrivals_total")
+        self._c_finish = r.counter("request_finished_total")
+        self._c_tokens = r.counter("request_generated_tokens_total",
+                                   "committed output tokens")
+        self._h_ttft = r.histogram("request_ttft_seconds",
+                                   "time to first token")
+        self._h_lat = r.histogram("request_latency_seconds",
+                                  "arrival to finish")
+        self._h_tpot = r.histogram("request_tpot_seconds",
+                                   "decode cadence after first token")
+        # the prefill-interference split: every inter-token gap, by whether
+        # a prefill ran in the tick that produced it; the raw samples back
+        # the exact percentiles of summary(), the histograms Prometheus
+        self._h_tpot_ov = r.histogram(
+            "request_tpot_prefill_overlap_seconds",
+            "inter-token gaps with a concurrent prefill in flight")
+        self._h_tpot_st = r.histogram(
+            "request_tpot_steady_seconds",
+            "inter-token gaps with no prefill in flight")
         self._tpot_overlap: List[float] = []
         self._tpot_steady: List[float] = []
-        self.pool = None             # PagedKVCache (paged engine)
-        self.prefix = None           # RadixPrefixCache (prefix_cache)
+        # prefix cache
+        self._c_plook = r.counter("prefix_lookups_total",
+                                  "admissions that consulted the index")
+        self._c_phit = r.counter("prefix_hits_total",
+                                 "... that matched >= 1 block")
+        self._c_ptok = r.counter("prefix_cached_tokens_total",
+                                 "prompt tokens served from cache")
+        # speculative decoding
+        self._c_sstep = r.counter("spec_verify_steps_total",
+                                  "draft->verify passes")
+        self._c_sdraft = r.counter("spec_drafted_tokens_total")
+        self._c_saccept = r.counter("spec_accepted_tokens_total")
+        self._c_semit = r.counter("spec_emitted_tokens_total",
+                                  "tokens committed via verify passes")
+        self._h_saccept = r.histogram(
+            "spec_request_acceptance_ratio",
+            "per-request realized draft acceptance",
+            buckets=tuple(i / 10 for i in range(11)))
+        self._h_stpv = r.histogram(
+            "spec_request_tokens_per_verify",
+            "per-request realized tokens committed per verify pass",
+            buckets=tuple(float(i) for i in range(1, 17)))
+        # the paper's Table-II off-chip traffic
+        self._c_wbytes = r.counter("traffic_weight_bytes_total")
+        self._c_kvbytes = r.counter("traffic_kv_bytes_total")
+        self._c_savings = r.counter("traffic_sparse_savings_bytes_total")
+        self._pool = None            # PagedKVCache (paged engine)
+        self._prefix = None          # RadixPrefixCache (prefix_cache)
+        self._profiler = None        # obs.ServingProfiler (obs.profile)
+        self.tracer = None           # obs.Tracer, set by the engine
         self._t0: Optional[float] = None
+
+    # --- registry-backed live gauges -------------------------------------
+    @property
+    def pool(self):
+        return self._pool
+
+    @pool.setter
+    def pool(self, pool) -> None:
+        self._pool = pool
+        if pool is not None:
+            self.registry.gauge_group("pool", pool.stats)
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @prefix.setter
+    def prefix(self, prefix) -> None:
+        self._prefix = prefix
+        if prefix is not None:
+            self.registry.gauge_group("prefix_index", prefix.stats)
+
+    @property
+    def profiler(self):
+        return self._profiler
+
+    @profiler.setter
+    def profiler(self, profiler) -> None:
+        """The roofline profiler's per-bucket attainment, as
+        ``bucket_attainment_<metric>{bucket="..."}`` labeled gauges
+        (re-pulled from the live tracer at every scrape) and as the
+        ``bucket_attainment`` summary group."""
+        self._profiler = profiler
+        if profiler is not None:
+            self.registry.labeled_gauge_group(
+                "bucket_attainment", "bucket", profiler.gauges)
+
+    # --- legacy attribute names over registry counters --------------------
+    @property
+    def decode_steps(self) -> int:
+        return self._c_decode.value
+
+    @property
+    def prefill_chunks(self) -> int:
+        return self._c_chunks.value
+
+    @property
+    def prefill_tokens(self) -> int:
+        return self._c_prefill_tok.value
+
+    @property
+    def evictions(self) -> int:
+        return self._c_evict.value
+
+    @property
+    def prefix_lookups(self) -> int:
+        return self._c_plook.value
+
+    @property
+    def prefix_hits(self) -> int:
+        return self._c_phit.value
+
+    @property
+    def prefix_cached_tokens(self) -> int:
+        return self._c_ptok.value
+
+    @property
+    def spec_steps(self) -> int:
+        return self._c_sstep.value
+
+    @property
+    def spec_drafted(self) -> int:
+        return self._c_sdraft.value
+
+    @property
+    def spec_accepted(self) -> int:
+        return self._c_saccept.value
+
+    @property
+    def spec_emitted(self) -> int:
+        return self._c_semit.value
+
+    @property
+    def weight_bytes(self) -> float:
+        return self._c_wbytes.value
+
+    @property
+    def kv_bytes(self) -> float:
+        return self._c_kvbytes.value
+
+    @property
+    def sparse_savings_bytes(self) -> float:
+        return self._c_savings.value
 
     # --- request lifecycle events ---
     def on_arrival(self, rid: int, prompt_len: int) -> None:
         at = self.clock()
         if self._t0 is None:
             self._t0 = at
+        self._c_arrive.inc()
         self.requests[rid] = RequestMetrics(rid=rid, arrival=at,
                                             prompt_len=prompt_len)
 
@@ -190,6 +333,7 @@ class MetricsCollector:
             r.first_token_at = now
         r.last_token_at = now
         r.n_generated += 1
+        self._c_tokens.inc()
 
     def on_token(self, rid: int, prefill_overlap: bool = False) -> None:
         """One committed decode token; ``prefill_overlap`` says whether a
@@ -199,25 +343,39 @@ class MetricsCollector:
         prev = r.last_token_at if r.last_token_at is not None \
             else r.first_token_at
         if prev is not None:
-            (self._tpot_overlap if prefill_overlap
-             else self._tpot_steady).append(now - prev)
+            gap = now - prev
+            if prefill_overlap:
+                self._tpot_overlap.append(gap)
+                self._h_tpot_ov.observe(gap)
+            else:
+                self._tpot_steady.append(gap)
+                self._h_tpot_st.observe(gap)
         r.last_token_at = now
         r.n_generated += 1
+        self._c_tokens.inc()
 
     def on_finish(self, rid: int) -> None:
-        self.requests[rid].finished_at = self.clock()
+        r = self.requests[rid]
+        r.finished_at = self.clock()
+        self._c_finish.inc()
+        for hist, v in ((self._h_ttft, r.ttft), (self._h_lat, r.latency),
+                        (self._h_tpot, r.tpot),
+                        (self._h_saccept, r.spec_acceptance),
+                        (self._h_stpv, r.spec_tokens_per_verify)):
+            if v is not None:
+                hist.observe(v)
 
     def on_preemption(self, rid: int) -> None:
         self.requests[rid].preemptions += 1
-        self.evictions += 1
+        self._c_evict.inc()
 
     def on_prefix_lookup(self, rid: int, cached_tokens: int) -> None:
         """One admission-time radix lookup; ``cached_tokens`` is the
         matched block-aligned prefix length (0 = miss)."""
-        self.prefix_lookups += 1
+        self._c_plook.inc()
         if cached_tokens > 0:
-            self.prefix_hits += 1
-            self.prefix_cached_tokens += cached_tokens
+            self._c_phit.inc()
+            self._c_ptok.inc(cached_tokens)
         r = self.requests.get(rid)
         if r is not None:
             r.cached_prompt_tokens = max(r.cached_prompt_tokens,
@@ -226,7 +384,7 @@ class MetricsCollector:
     # --- step events ---
     def on_decode_step(self, n_tokens: int,
                        kv_bytes: Optional[float] = None) -> None:
-        self.decode_steps += 1
+        self._c_decode.inc()
         self._traffic(traffic_step(self.cfg, self.scfg, n_tokens,
                                    kv_bytes=kv_bytes))
 
@@ -236,10 +394,10 @@ class MetricsCollector:
         """One draft->verify pass: ``emitted`` tokens committed for one
         read of the target's weight stream. ``draft_weight_bytes`` adds
         the drafter's own weight stream (0 for n-gram) to the totals."""
-        self.spec_steps += 1
-        self.spec_drafted += drafted
-        self.spec_accepted += accepted
-        self.spec_emitted += emitted
+        self._c_sstep.inc()
+        self._c_sdraft.inc(drafted)
+        self._c_saccept.inc(accepted)
+        self._c_semit.inc(emitted)
         stats = traffic_step(self.cfg, self.scfg, emitted,
                              kv_bytes=kv_bytes)
         stats.weight_bytes += draft_weight_bytes
@@ -259,18 +417,19 @@ class MetricsCollector:
 
     def _traffic(self, stats: StepStats) -> None:
         self.step_stats.append(stats)
-        self.weight_bytes += stats.weight_bytes
-        self.kv_bytes += stats.kv_bytes
-        self.sparse_savings_bytes += stats.sparse_savings_bytes
+        self._c_wbytes.inc(stats.weight_bytes)
+        self._c_kvbytes.inc(stats.kv_bytes)
+        self._c_savings.inc(stats.sparse_savings_bytes)
 
     def on_prefill_chunk(self, n_tokens: int) -> None:
-        self.prefill_chunks += 1
-        self.prefill_tokens += n_tokens
+        self._c_chunks.inc()
+        self._c_prefill_tok.inc(n_tokens)
 
     # --- summary ---
     def summary(self) -> dict:
-        """The reference's summary keys, less the tracer's (``ticks``,
-        ``phase_ms_per_tick``, ``bucket_attainment``)."""
+        """The reference's summary keys; ``ticks`` and
+        ``phase_ms_per_tick`` with tracing on, ``bucket_attainment`` with
+        profiling too."""
         done = [r for r in self.requests.values()
                 if r.finished_at is not None]
         ttfts = [r.ttft for r in done if r.ttft is not None]
@@ -289,7 +448,7 @@ class MetricsCollector:
                     "drafted": r.spec_drafted,
                     "emitted": r.spec_emitted}
             for r in done if r.spec_verifies > 0}
-        return {
+        out = {
             "n_finished": len(done),
             "generated_tokens": n_tok,
             "tokens_per_s": (n_tok / wall) if wall else None,
@@ -332,3 +491,10 @@ class MetricsCollector:
             # sharded serving is a later slice: one device, no mesh
             "mesh": {},
         }
+        if self.tracer is not None and self.tracer.enabled:
+            out["ticks"] = self.tracer.tick_summary()
+            out["phase_ms_per_tick"] = self.tracer.phase_ms_per_tick()
+            if self._profiler is not None:
+                out["bucket_attainment"] = self._profiler.report(
+                    self.tracer.tick_stats)
+        return out

@@ -24,6 +24,14 @@ a ``torch.cuda.CUDAGraph`` and replayed: one launch of the graph stands
 for the hundreds of small launches of an eager step, as one jitted
 dispatch does in the reference. On the CPU the same iteration runs
 eagerly.
+
+Under tracing (``tracer``, repro_torch.obs) every dispatch runs in a
+``device_dispatch`` span and every wait for the device in a
+``device_wait`` span, and a ``DeviceClock`` measures each step's device
+time: on a CUDA device a pair of timing events on the stream around the
+step's launches (around the replays, never inside a capture). With
+tracing off, or ``ObsConfig.fence_device`` off, no event is made and no
+wait is added.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 from repro_torch.configs.base import ServeConfig
 from repro_torch.kernels import build
 from repro_torch.models import transformer
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serve import sampling
 
 # row phases (StepBatch.phase values)
@@ -83,10 +92,12 @@ class _Layout:
 class HostCopy:
     """Device tensors on their way to the host: the copies are queued on
     the stream when this is made, and ``wait`` blocks until they landed
-    (on a CUDA device the one host wait of an async tick)."""
+    (on a CUDA device the one host wait of an async tick). ``clock`` is
+    the DeviceClock of the work that made them, under tracing."""
 
-    def __init__(self, host: List[torch.Tensor], event=None):
+    def __init__(self, host: List[torch.Tensor], event=None, clock=None):
         self._host, self._event = host, event
+        self.clock = clock
 
     def wait(self) -> List[np.ndarray]:
         if self._event is not None:
@@ -140,6 +151,13 @@ class StepBatch:
         self.n_valid[slot] = len(toks)
         self.phase[slot] = phase
 
+    def live_keys(self, block_size: int) -> int:
+        """Keys the paged-attention kernel reads for this step: each live
+        row's ``row_start + n_valid``, rounded up to whole blocks."""
+        live = self.n_valid > 0
+        ends = self.row_start[live].astype(np.int64) + self.n_valid[live]
+        return int((-(-ends // block_size) * block_size).sum())
+
 
 @dataclasses.dataclass
 class StepOutput:
@@ -165,7 +183,8 @@ class ModelRunner:
     and ``decode_burst``."""
 
     def __init__(self, model, params: dict, scfg: ServeConfig,
-                 device: torch.device, dtype: torch.dtype = torch.float32):
+                 device: torch.device, dtype: torch.dtype = torch.float32,
+                 tracer=None):
         if scfg.attn_backend not in BACKENDS:
             raise ValueError(f"unknown attn_backend "
                              f"{scfg.attn_backend!r}; known: {BACKENDS}")
@@ -178,6 +197,7 @@ class ModelRunner:
         self.params = params
         self.scfg = scfg
         self.device = device
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.buckets = sorted({1, scfg.prefill_chunk}
                               | ({scfg.spec.k_max + 1}
                                  if scfg.spec is not None else set()))
@@ -233,18 +253,18 @@ class ModelRunner:
         dst.copy_(host, non_blocking=True)
         return layout.views(dst)
 
-    def _to_host(self, *tensors: torch.Tensor) -> HostCopy:
+    def _to_host(self, *tensors: torch.Tensor, clock=None) -> HostCopy:
         """Queue copies of ``tensors`` to the host (pinned buffers, on the
         current stream) and return without waiting."""
         if self.device.type != "cuda":
-            return HostCopy([t.clone() for t in tensors])
+            return HostCopy([t.clone() for t in tensors], clock=clock)
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 for t in tensors]
         for h, t in zip(host, tensors):
             h.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return HostCopy(host, event)
+        return HostCopy(host, event, clock)
 
     def _step_layout(self, width: int) -> _Layout:
         lay = self._layouts.get(width)
@@ -259,30 +279,43 @@ class ModelRunner:
         return lay
 
     # --- the one step -------------------------------------------------------
-    def step(self, batch: StepBatch) -> StepOutput:
+    def step(self, batch: StepBatch, fence: bool = True) -> StepOutput:
         """Republish host-truth lens/tables, run the step, return the
-        per-position and the last-valid logits. (The reference's ``fence``
-        comes with the tracer, ROADMAP queue 1 item 4, and its device
-        ``tokens`` override with a caller that needs it, item 5: the
+        per-position and the last-valid logits.
+
+        Under tracing the step runs in a ``device_dispatch`` span and,
+        with ``fence`` (and ``ObsConfig.fence_device``), its device time
+        is measured and waited for in a ``device_wait`` span; the
+        untraced path never waits. (The reference's device ``tokens``
+        override comes with its first caller, ROADMAP queue 1 item 5: the
         overlap tick here chains its token in ``graph_step``.)"""
         width = batch.tokens.shape[1]
-        t = self._stage(self._step_layout(width), {
-            "lens": batch.row_start, "tables": batch.tables,
-            "n_valid": batch.n_valid, "tokens": batch.tokens,
-            "is_prefill": batch.phase == PREFILL})
-        self.cache["lens"] = t["lens"]
-        self.cache["block_tables"] = t["tables"]
-        n_valid = t["n_valid"]
-        with torch.no_grad():
-            logits = self.model.forward_step(
-                self.params, t["tokens"], self.cache, n_valid,
-                t["is_prefill"], self.scfg.block_size,
-                backend=self.scfg.attn_backend,
-                has_prefill=bool(np.any(batch.phase == PREFILL)))
-            idx = (n_valid.long() - 1).clamp(0, logits.shape[1] - 1)
-            last = logits[torch.arange(logits.shape[0],
-                                       device=self.device), idx]
+        has_prefill = bool(np.any(batch.phase == PREFILL))
+        tr = self.tracer
+        with tr.span("device_dispatch", width=width,
+                     has_prefill=has_prefill):
+            clock = tr.device_clock(self.device) if fence else None
+            t = self._stage(self._step_layout(width), {
+                "lens": batch.row_start, "tables": batch.tables,
+                "n_valid": batch.n_valid, "tokens": batch.tokens,
+                "is_prefill": batch.phase == PREFILL})
+            self.cache["lens"] = t["lens"]
+            self.cache["block_tables"] = t["tables"]
+            n_valid = t["n_valid"]
+            with torch.no_grad():
+                logits = self.model.forward_step(
+                    self.params, t["tokens"], self.cache, n_valid,
+                    t["is_prefill"], self.scfg.block_size,
+                    backend=self.scfg.attn_backend, has_prefill=has_prefill)
+                idx = (n_valid.long() - 1).clamp(0, logits.shape[1] - 1)
+                last = logits[torch.arange(logits.shape[0],
+                                           device=self.device), idx]
+            if clock is not None:
+                clock.stop()
         self.n_steps += 1
+        if clock is not None:
+            with tr.device_wait(clock):
+                pass
         return StepOutput(logits=logits, last_logits=last)
 
     # --- the async engine's decode iteration -----------------------------
@@ -357,18 +390,23 @@ class ModelRunner:
         st.graph, st.tally = graph, tally
         self.graph_captures += 1
 
-    def _iterate(self, st: _Burst, n: int) -> None:
+    def _iterate(self, st: _Burst, n: int):
         """``n`` decode iterations on ``st``: replays of its graph back to
         back on a CUDA device (each counts the launches it makes), eager
-        iterations on the CPU."""
+        iterations on the CPU. Returns the DeviceClock around them under
+        tracing (None otherwise)."""
+        clock = self.tracer.device_clock(self.device)
         if st.graph is None:
             for _ in range(n):
                 self._iteration(st)
-            return
-        for _ in range(n):
-            st.graph.replay()
-        build.add_replay(st.tally, n)
-        self.graph_replays += n
+        else:
+            for _ in range(n):
+                st.graph.replay()
+            build.add_replay(st.tally, n)
+            self.graph_replays += n
+        if clock is not None:
+            clock.stop()
+        return clock
 
     def _stage_burst(self, st: _Burst, tables: np.ndarray, tok0, lens0,
                      alive0, budget, stops, stop_len, hist0, keys, temp,
@@ -401,9 +439,9 @@ class ModelRunner:
         st = self._burst(sampled, k_max)
         self._stage_burst(st, tables, tok0, lens0, alive0, budget, stops,
                           stop_len, hist0, keys, temp, top_k, top_p)
-        self._iterate(st, k_burst)
+        clock = self._iterate(st, k_burst)
         return self._to_host(st.state["emitted"], st.state["lp"],
-                             st.state["n_emit"])
+                             st.state["n_emit"], clock=clock)
 
     def graph_step(self, batch: StepBatch, sampled: bool, keys, temp,
                    top_k, top_p, chain: Optional[np.ndarray] = None,
@@ -420,20 +458,21 @@ class ModelRunner:
         st = self._burst(sampled, 1)
         B = self.scfg.max_batch
         alive = (batch.n_valid > 0).astype(np.int32)
-        self._stage_burst(
-            st, batch.tables, batch.tokens[:, 0], batch.row_start, alive,
-            alive, np.full((B, STOP_NS, STOP_L), -1, np.int32),
-            np.zeros((B, STOP_NS), np.int32),
-            np.full((B, STOP_L), -1, np.int32), np.asarray(keys)[None],
-            temp, top_k, top_p, chain=chain)
-        if pending is not None:
-            tok = st.state["tok"]
-            tok.copy_(torch.where(st.state["chain"], pending, tok))
-        self._iterate(st, 1)
-        self.n_steps += 1
-        tok = st.state["emitted"][:, 0].clone()
-        lp = st.state["lp"][:, 0].clone()
-        return tok, lp, self._to_host(tok, lp)
+        with self.tracer.span("device_dispatch", width=1, has_prefill=False):
+            self._stage_burst(
+                st, batch.tables, batch.tokens[:, 0], batch.row_start,
+                alive, alive, np.full((B, STOP_NS, STOP_L), -1, np.int32),
+                np.zeros((B, STOP_NS), np.int32),
+                np.full((B, STOP_L), -1, np.int32), np.asarray(keys)[None],
+                temp, top_k, top_p, chain=chain)
+            if pending is not None:
+                tok = st.state["tok"]
+                tok.copy_(torch.where(st.state["chain"], pending, tok))
+            clock = self._iterate(st, 1)
+            self.n_steps += 1
+            tok = st.state["emitted"][:, 0].clone()
+            lp = st.state["lp"][:, 0].clone()
+            return tok, lp, self._to_host(tok, lp, clock=clock)
 
     # --- block maintenance --------------------------------------------------
     def apply_perm(self, perm: np.ndarray) -> None:

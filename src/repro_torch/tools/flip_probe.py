@@ -15,6 +15,16 @@ did not, it gives the gap between the k-th and the
 (k+1)-th |h| on each device and the largest |h| difference of the row.
 
     PYTHONPATH=src python -m repro_torch.tools.flip_probe [--extra-seeds N]
+    PYTHONPATH=src python -m repro_torch.tools.flip_probe --spec-sampled
+
+``--spec-sampled`` replays verify rows instead: it serves the prompts of
+``chip_smoke.py``'s phase 5 as phase 14's seeded sampled rows through the
+n-gram drafter, on both devices, matches the verify and prefill rows the
+two serves ran by (request, first position, fed tokens) and compares the
+top-k sets of every matched row at every position and layer; for each
+flip it reports where each side decided the token, the first row of that
+request only one side ran, and the first step at which the adaptive K
+of the two sides differ.
 
 Prompt sets: ``shared-stream`` are the 16 prompts ``chip_smoke.py`` drew
 when its kernel cases 3-5 and its ops phase shared the serve prompts'
@@ -35,24 +45,21 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ServeConfig
+from repro_torch.configs.base import ServeConfig, SpecConfig
 from repro_torch.core import sparsity
 from repro_torch.models import Model
 from repro_torch.serve import api
 from repro_torch.serve.engine import Engine
+from repro_torch.serve.runner import PREFILL
+from repro_torch.serve.sampling import SamplingParams
 
 N_PROMPTS, MAX_NEW = 16, 32
 
 
-def shared_stream_prompts(vocab: int, seed: int = 0) -> List[np.ndarray]:
-    """The serve prompts of the draw order in which every kernel case and
-    the ops phase of ``chip_smoke.py`` came from one seed-``seed``
-    generator: each case's draws are replayed in turn (paged attention
-    nectar S=1, 32 and llama S=1, 5, 32; the gather at 8, 256 and llama
-    rows; decode attention's kv_len, then its nectar f32, bf16 and llama
-    f32, bf16 cases; the fused FFN at M 200, 8 and llama; W8A8 at five
-    sites in two modes; the ops phase), then the prompts are drawn."""
-    rng = np.random.default_rng(seed)
+def _kernel_1_2_draws(rng: np.random.Generator) -> None:
+    """Replay the draws of ``chip_smoke.py``'s phase-3 cases of kernels 1
+    and 2 (paged attention nectar S=1, 32 and llama S=1, 5, 32; the
+    gather at 8, 256 and llama rows) on ``rng``."""
     for S, Hq, Kv, Dh, max_ctx in ((1, 4, 4, 32, 232), (32, 4, 4, 32, 232),
                                    (1, 32, 8, 64, 2048),
                                    (5, 32, 8, 64, 2048),
@@ -70,6 +77,29 @@ def shared_stream_prompts(vocab: int, seed: int = 0) -> List[np.ndarray]:
         rng.random((B, k))
         rng.standard_normal((B, k))
         rng.standard_normal((d_ff, d))
+
+
+def chip_smoke_prompts(vocab: int, seed: int = 0) -> List[np.ndarray]:
+    """The 16 prompts of ``chip_smoke.py``'s phase 5 (and of phases 6, 7,
+    10, 11, 14 and 15): drawn from the seed-``seed`` generator after its
+    phase-3 cases of kernels 1 and 2 (kernels 3-5 draw from streams of
+    their own)."""
+    rng = np.random.default_rng(seed)
+    _kernel_1_2_draws(rng)
+    return [rng.integers(0, vocab, int(n), dtype=np.int32)
+            for n in rng.integers(8, 201, N_PROMPTS)]
+
+
+def shared_stream_prompts(vocab: int, seed: int = 0) -> List[np.ndarray]:
+    """The serve prompts of the draw order in which every kernel case and
+    the ops phase of ``chip_smoke.py`` came from one seed-``seed``
+    generator: each case's draws are replayed in turn (kernels 1 and 2 as
+    ``_kernel_1_2_draws``; decode attention's kv_len, then its nectar f32,
+    bf16 and llama f32, bf16 cases; the fused FFN at M 200, 8 and llama;
+    W8A8 at five sites in two modes; the ops phase), then the prompts are
+    drawn."""
+    rng = np.random.default_rng(seed)
+    _kernel_1_2_draws(rng)
     S = 2048
     rng.integers(1, 233, 7)
     rng.integers(1, S + 1, 8)
@@ -243,16 +273,212 @@ def probe(cfg, params, prompts, scfg: ServeConfig, devices=("cuda", "cpu"),
     return compare(a, b, ta, tb, rids, k)
 
 
+# ---------------------------------------------------------------------------
+# verify rows (speculative decoding)
+
+
+class VerifyRecorder:
+    """Hooks a speculative engine. Per runner step: each row's request,
+    first position and fed tokens, and per layer the sparse FFN's hidden
+    activation at every position of the row with the units the device's
+    top-k selected there; the adaptive K each step drafted with. Per
+    committed token (rid, i): the logits behind it and, for a token a
+    verify row decided, the step, row and position that decided it."""
+
+    def __init__(self, engine: Engine):
+        self.engine = engine
+        self.rows: List[Dict[int, tuple]] = []   # step -> slot -> row
+        self.h: List[List[Tuple[torch.Tensor, List[List[set]]]]] = []
+        self.k: List[int] = []
+        self.logits: Dict[Tuple[int, int], np.ndarray] = {}
+        self.where: Dict[Tuple[int, int], Tuple[int, int, int]] = {}
+        self._verify: Optional[dict] = None
+        self._z = None
+        step = engine.runner.step
+
+        def recording_step(batch, *args, **kwargs):
+            rid_of = {e.slot: e.req.rid
+                      for e in engine.sched.active.values()}
+            self.rows.append({
+                int(s): (rid_of[int(s)], int(batch.phase[s]),
+                         int(batch.row_start[s]),
+                         tuple(int(t) for t in
+                               batch.tokens[s, :batch.n_valid[s]]))
+                for s in np.flatnonzero(batch.n_valid)})
+            self.h.append([])
+            self.k.append(engine.kctl.k)
+            out = step(batch, *args, **kwargs)
+            self._out = out
+            return out
+        engine.runner.step = recording_step
+        sample, append = engine._sample_rows, engine._append_token
+        commit = engine._commit_verify
+
+        def recording_sample(pairs, last_logits):
+            self._z = last_logits.float().cpu().numpy()
+            return sample(pairs, last_logits)
+
+        def recording_commit(rows, proposals, out, finished):
+            self._verify = {e.req.rid: [e.slot, 0] for e in rows}
+            try:
+                return commit(rows, proposals, out, finished)
+            finally:
+                self._verify = None
+
+        def recording_append(req, slot, tok, lp):
+            i = len(req.tokens_out)
+            v = self._verify.get(req.rid) if self._verify else None
+            if v is None:                      # a first token: sampled
+                self.logits[(req.rid, i)] = self._z[slot]
+            else:
+                j = v[1]
+                v[1] += 1
+                self.where[(req.rid, i)] = (len(self.rows) - 1, v[0], j)
+                self.logits[(req.rid, i)] = \
+                    self._out.logits[v[0], j].float().cpu().numpy()
+            return append(req, slot, tok, lp)
+        engine._sample_rows = recording_sample
+        engine._commit_verify = recording_commit
+        engine._append_token = recording_append
+
+    def topk_hook(self, topk):
+        def recording_topk(h, k):
+            idx, valid = topk(h, k)
+            if h.dim() == 3 and self.h:
+                i, v = idx.cpu(), valid.cpu()
+                self.h[-1].append((h.float().cpu(), [
+                    [set(i[r, j][v[r, j]].tolist())
+                     for j in range(i.shape[1])] for r in range(i.shape[0])]))
+            return idx, valid
+        return recording_topk
+
+
+def serve_verify(cfg, params, scfg: ServeConfig, prompts, device,
+                 sps=None, max_new: int = MAX_NEW
+                 ) -> Tuple[List[List[int]], List[int], VerifyRecorder]:
+    """Serve ``prompts`` (with SamplingParams ``sps``, where given) through
+    StreamingServer on ``device`` with a speculative engine, recording."""
+    engine = Engine(cfg, params, scfg, device=device)
+    rec = VerifyRecorder(engine)
+    topk = sparsity.topk_indices
+    sparsity.topk_indices = rec.topk_hook(topk)
+    try:
+        server = api.StreamingServer(engine)
+        rids = [server.submit(p, max_new=max_new,
+                              sampling=None if sps is None else sps[i])
+                for i, p in enumerate(prompts)]
+        finished = server.drain()
+    finally:
+        sparsity.topk_indices = topk
+    return [list(finished[r].tokens_out) for r in rids], rids, rec
+
+
+def compare_verify(a: VerifyRecorder, b: VerifyRecorder, tokens_a,
+                   tokens_b, rids, k: int) -> dict:
+    """Side ``b`` is the reference (the CPU). Rows of the two serves are
+    matched by (request, first position, fed tokens): every matched row's
+    top-k sets are compared at every position and layer, in the order
+    ``b`` ran them (prefill rows take the dense FFN and are skipped).
+    For each request whose tokens differ: the first
+    differing token, the largest difference of the logits that decided
+    it, where each side decided it, the first row of that request that
+    only one side ran (its drafts, or its start, differ), and the first
+    step at which the two sides' adaptive K differ."""
+    index_a = {}
+    for n, rows in enumerate(a.rows):
+        for slot, row in rows.items():
+            index_a.setdefault(row, (n, slot))
+    diffs, checked = [], 0
+    for n, rows in enumerate(b.rows):
+        for slot, row in sorted(rows.items()):
+            hit = index_a.get(row)
+            if row[1] == PREFILL or hit is None or not a.h[hit[0]] \
+                    or not b.h[n]:
+                continue
+            for layer, ((ha, sel_a), (hb, sel_b)) in enumerate(
+                    zip(a.h[hit[0]], b.h[n])):
+                for j in range(len(row[3])):
+                    checked += 1
+                    d = boundary(ha[hit[1], j], hb[slot, j],
+                                 sel_a[hit[1]][j], sel_b[slot][j], k)
+                    if d is not None:
+                        diffs.append(dict(request=rids.index(row[0]),
+                                          step_b=n, start=row[2],
+                                          position=j, layer=layer, **d))
+    k_diff = next(({"step": n, "k": [int(x), int(y)]}
+                   for n, (x, y) in enumerate(zip(a.k, b.k)) if x != y),
+                  None)
+    flips = []
+    for n, (ta, tb, rid) in enumerate(zip(tokens_a, tokens_b, rids)):
+        first = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                     None)
+        if first is None:
+            continue
+        za, zb = a.logits[(rid, first)], b.logits[(rid, first)]
+        only = None
+        for side, rec, other in (("a", a, b), ("b", b, a)):
+            keys = {row for rows in other.rows for row in rows.values()}
+            for s, rows in enumerate(rec.rows):
+                row = next((r for r in rows.values() if r[0] == rid), None)
+                if row is not None and row not in keys \
+                        and row[2] < len(rec.engine._requests[rid].prompt) \
+                        + first:
+                    if only is None or s < only["step"]:
+                        only = {"side": side, "step": s, "start": row[2],
+                                "tokens": list(row[3])}
+                    break
+        flips.append({
+            "request": n, "token": first,
+            "tokens": [int(ta[first]), int(tb[first])],
+            "margin_a": _margin(za), "margin_b": _margin(zb),
+            "max_logit_diff": float(np.abs(za - zb).max()),
+            "decided_a": a.where.get((rid, first)),
+            "decided_b": b.where.get((rid, first)),
+            "first_unmatched_row": only})
+    return {"flips": flips, "set_diffs": diffs, "checked": checked,
+            "k_diff": k_diff}
+
+
+def probe_verify(cfg, params, prompts, scfg: ServeConfig, sps=None,
+                 devices=("cuda", "cpu"), max_new: int = MAX_NEW) -> dict:
+    k = sparsity.active_fraction_to_k(cfg.d_ff, cfg.sparse_k_frac)
+    ta, rids, a = serve_verify(cfg, params, scfg, prompts, devices[0], sps,
+                               max_new)
+    tb, rids_b, b = serve_verify(cfg, params, scfg, prompts, devices[1],
+                                 sps, max_new)
+    assert rids == rids_b
+    return compare_verify(a, b, ta, tb, rids, k)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--extra-seeds", type=int, default=0,
                     help="also probe the prompt sets of seeds 1..N")
+    ap.add_argument("--spec-sampled", action="store_true",
+                    help="instead: chip_smoke.py phase 14's seeded sampled "
+                         "n-gram spec serve, verify rows replayed")
     ap.add_argument("--out", default="build/flip_probe.json")
     args = ap.parse_args(argv)
     cfg = get_config("nectar-relu-llama-1.7m")
     dev = torch.device("cuda", 0)
     params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
                              device=dev)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if args.spec_sampled:
+        prompts = chip_smoke_prompts(cfg.vocab)
+        scfg = ServeConfig(paged=True, attn_backend="flash", max_batch=8,
+                           spec=SpecConfig(drafter="ngram", k=4, k_max=8))
+        sps = [SamplingParams(temperature=0.7, seed=i)
+               for i in range(len(prompts))]
+        r = probe_verify(cfg, params, prompts, scfg, sps)
+        first = r["set_diffs"][:8]
+        print(f"spec sampled: flips {r['flips']}; adaptive K first differs "
+              f"at {r['k_diff']}; top-k set differences "
+              f"{len(r['set_diffs'])} of {r['checked']} (position, layer) "
+              f"pairs of matched rows; the first (CPU order): {first}")
+        out.write_text(json.dumps({"spec sampled": r}, indent=1))
+        return
     sets = {"shared-stream": shared_stream_prompts(cfg.vocab)}
     sets.update({f"seed-{s}": seeded_prompts(cfg.vocab, s)
                  for s in range(1, args.extra_seeds + 1)})
@@ -269,8 +495,6 @@ def main(argv=None) -> None:
                   f"differences {len(r['set_diffs'])} of {r['checked']} "
                   f"(token, layer) pairs"
                   + (f", CPU k-th gap max {max(gaps):.3g}" if gaps else ""))
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
 
 

@@ -71,3 +71,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         from_jax_params({}, cfg)
     Engine(cfg, params, ServeConfig(paged=True), device="cpu")
+
+
+def test_active_chip_defaults_to_cuda_and_raises_without_it(no_card):
+    from repro_torch.roofline import hw
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        hw.active_chip()
+    assert hw.active_chip("cpu") is hw.CPU_HOST

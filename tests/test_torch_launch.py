@@ -3,10 +3,13 @@
 ``python -m repro_torch.launch.serve --device cpu`` serves a SMOKE config
 end to end; the reference CLI's flags of later slices are refused with
 the ROADMAP item that brings them; ``--spec ngram|selfspec`` serves
-speculatively and ``--async`` through the async engine; ``metrics.summary()`` has the reference's keys, the
+speculatively and ``--async`` through the async engine; ``--obs``,
+``--trace-out``, ``--metrics-port`` and ``--profile`` add the reference
+CLI's output keys; ``metrics.summary()`` has the reference's keys, the
 speculative-decoding counters included.
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -68,9 +71,7 @@ def test_cli_main_in_process(argv):
     (["--disagg"], "item 5"), (["--disagg-prefill-batch", "2"], "item 5"),
     (["--disagg-prefill-blocks", "2"], "item 5"),
     (["--direct-max-suffix", "2"], "item 5"), (["--replicas", "2"], "item 5"),
-    (["--router-policy", "round_robin"], "item 5"), (["--obs"], "item 4"),
-    (["--trace-out", "x"], "item 4"), (["--metrics-port", "9"], "item 4"),
-    (["--profile"], "item 4"),
+    (["--router-policy", "round_robin"], "item 5"),
 ])
 def test_cli_refuses_flags_of_later_slices(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -177,3 +178,100 @@ def test_summary_has_the_reference_keys(paged):
     assert len(eng.stats) == len(jeng.stats)
     eng.reset_metrics()
     assert eng.metrics.summary()["n_finished"] == 0
+
+
+# ---------------------------------------------------------------------------
+# observability flags (--obs, --trace-out, --metrics-port, --profile)
+
+SMOKE = ["--arch", "nectar-relu-llama-smoke", "--requests", "3",
+         "--max-new", "4", "--max-batch", "2", "--paged"]
+
+
+def _reference_cli(argv, monkeypatch, capsys):
+    """The reference CLI's JSON output for ``argv`` (its metrics server
+    replaced by a stub: the output does not depend on it)."""
+    import repro.obs
+    from repro.launch import serve as ref_cli
+    monkeypatch.setattr(repro.obs, "start_metrics_server",
+                        lambda fn, port: None)
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    capsys.readouterr()
+    ref_cli.main()
+    lines = capsys.readouterr().out.splitlines()
+    return json.loads("\n".join(lines[lines.index("{"):]))
+
+
+# the two CLIs' output without the flags, shared by the flag cases
+_BASE = {}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--obs"], ["--trace-out", "TRACE"], ["--metrics-port", "PORT"],
+    ["--profile"]], ids=["obs", "trace-out", "metrics-port", "profile"])
+def test_cli_obs_flags_add_the_reference_keys(flags, tmp_path, monkeypatch,
+                                              capsys):
+    """Each flag adds to the summary the keys it adds to the reference
+    CLI's (``ticks``, ``trace_files``, ``bucket_attainment``), with the
+    same nested keys; the trace files pass tools/check_trace.py."""
+    flags = [str(tmp_path / "t") if f == "TRACE" else
+             str(_free_port()) if f == "PORT" else f for f in flags]
+    if not _BASE:
+        _BASE["ref"] = _reference_cli(SMOKE, monkeypatch, capsys)
+        _BASE["port"] = cli.main(["--device", "cpu", *SMOKE])
+    ref_base, base = _BASE["ref"], _BASE["port"]
+    ref = _reference_cli(SMOKE + flags, monkeypatch, capsys)
+    out = cli.main(["--device", "cpu", *SMOKE, *flags])
+    added = set(out) - set(base)
+    assert added == set(ref) - set(ref_base)
+    if "ticks" in added:
+        assert set(out["ticks"]) == set(ref["ticks"])
+        assert out["ticks"]["n_ticks"] == ref["ticks"]["n_ticks"]
+    if "bucket_attainment" in added:
+        got = {r["bucket"]: r for r in out["bucket_attainment"]}
+        want = {r["bucket"]: r for r in ref["bucket_attainment"]}
+        assert set(got) == set(want)
+        for b, r in got.items():
+            assert set(want[b]) <= set(r) and 0 < r["attain"] <= 1
+            assert r["ticks"] == want[b]["ticks"]
+        assert "roofline attainment vs cpu-host" in capsys.readouterr().out
+    if "trace_files" in added:
+        spec = importlib.util.spec_from_file_location(
+            "check_trace", ROOT / "tools" / "check_trace.py")
+        check_trace = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(check_trace)
+        trace, events = out["trace_files"]
+        assert check_trace.check_perfetto(trace) == []
+        assert check_trace.check_jsonl(events, expect_ordering=True) == []
+
+
+def test_cli_metrics_port_serves_while_the_requests_run(monkeypatch,
+                                                        capsys):
+    """``--metrics-port`` serves the engine's live registry on localhost
+    during the run and stops with it."""
+    import urllib.request
+    port = _free_port()
+    seen = {}
+
+    class ScrapingEngine(Engine):
+        def run(self, *args, **kwargs):
+            done = super().run(*args, **kwargs)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+                seen["body"] = r.read().decode()
+            return done
+
+    monkeypatch.setattr(cli, "Engine", ScrapingEngine)
+    cli.main(["--device", "cpu", *SMOKE, "--metrics-port", str(port)])
+    assert "request_finished_total 3" in seen["body"]
+    assert f"127.0.0.1:{port}/metrics" in capsys.readouterr().err
+    import urllib.error
+    with pytest.raises(urllib.error.URLError):
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                               timeout=2)
