@@ -104,9 +104,34 @@ Phases, each reporting on lines of its own:
                tick beside phase 15's wall per device tick); the phase-5
                prompts with tracing off and on (the wall of each); one
                scrape of the metrics endpoint on localhost.
+ 17. disagg  — disaggregated serving and the fleet (runs before phase
+               13), nectar at full width: (a) the phase-5 prompts through
+               a DisaggCoordinator (a prefill and a decode engine, the KV
+               handed over as block copies): tokens against the phase-5
+               paged serve and the coordinator's CPU run (near-tie rule);
+               each engine launches kernels 1 and 2 once per layer per
+               step (the prefill engine's steps compute the sparse branch
+               too, for rows that keep the dense one); handoffs, blocks and
+               bytes moved, the largest handoff's copy timed by
+               torch.profiler, the host's time a handoff; tokens/s
+               against the phase-15 sync serve, TTFT, TPOT and the
+               interference split; (b) int8 KV pools: every handoff's
+               imported rows bit-equal to the exported ones, scales
+               included, before the release; (c) an async decode engine
+               (K = 8): graph replays over the imported blocks, the pools
+               in place, tokens against (a); (d) two replicas serve the
+               phase-9 traffic (one arrival a router poll) with the
+               affinity and the round_robin policy: tokens against the
+               phase-9 single engine, the router's decisions per replica,
+               the pooled prefix hit rate, tokens/s and TTFT; then async
+               replicas (K = 8) polled serially and from a thread pool:
+               the same tokens, launches and decisions; (e) scale_down(1)
+               after the last arrival: the drained replica's in-flight
+               requests finish with the round-robin fleet's tokens and it
+               is reaped once idle.
  13. profile — the paged, slot, prefix, sampled, int8kv, the ngram and
-               model spec serves and the K = 8 decode-heavy async serve
-               again under torch.profiler: each kernel's device time per
+               model spec serves, the K = 8 decode-heavy async serve and
+               the phase-17 disagg serve again under torch.profiler: each kernel's device time per
                launch at the shapes the serve gives it, the profiler's
                launch counts against the counters, the serve's device
                time over the unprofiled serve's wall, and the same tokens
@@ -902,8 +927,8 @@ def profile_serve(label, make_engine, prompts, max_new, tokens, launches,
     out = {"kernel_device_ms": {}, "device_ms": None, "busy_share": None,
            "profiled_wall_s": pwall, "top_device": []}
     if averages is not None:
-        graphs = (made[0].runner.graph_replays if made[0].scfg.paged
-                  else 0)
+        graphs = getattr(getattr(made[0], "runner", None), "graph_replays",
+                         0)
         for key, n in launches.items():
             if n:
                 us, count = kernel_device(averages, key)
@@ -1449,6 +1474,394 @@ def verify_against_sequential(cfg, params, dev, n_tok, bs=16):
     return float(np.abs(verify - seq).max())
 
 
+# ---------------------------------------------------------------------------
+# phase 17: disagg and the fleet
+
+
+def engine_launches(coord):
+    """Per-engine launch counts of a disagg coordinator: each engine's step
+    adds the change of ops.LAUNCHES across it to the engine's own dict
+    (the handoff's block copies launch no port kernel). Returns
+    {"prefill": {...}, "decode": {...}}."""
+    from repro_torch.kernels import ops
+    per = {}
+    for role in ("prefill", "decode"):
+        eng = getattr(coord, role)
+        counts = per[role] = dict.fromkeys(KERNELS, 0)
+
+        def step(inner=eng.step, counts=counts):
+            before = dict(ops.LAUNCHES)
+            try:
+                return inner()
+            finally:
+                for key in KERNELS:
+                    counts[key] += ops.LAUNCHES[key] - before[key]
+        eng.step = step
+    return per
+
+
+def record_handoffs(coord, label, compare=False):
+    """Record each adopted handoff's block count and the host seconds of
+    the coordinator's handoff passes; with ``compare``, check right after
+    each copy, before the prefill engine releases its blocks, that every
+    leaf's imported rows equal the exported rows bit for bit (int8
+    payloads and scales). Returns (block counts, blocks checked, host
+    seconds per pass)."""
+    sizes, checked, passes = [], [], []
+    dec = coord.decode
+    adopt, transfer = dec.adopt_handoff, coord._transfer_ready
+
+    def adopt_handoff(packet, src_runner):
+        ok = adopt(packet, src_runner)
+        if ok:
+            sizes.append(len(packet.blocks))
+        if ok and compare:
+            dst = dec.pool.export_blocks(dec.sched.active[packet.req.rid].slot)
+            src = src_runner.cache["units"]["b0"]
+            for name, leaf in dec.runner.cache["units"]["b0"].items():
+                check(torch.equal(leaf[:, dst], src[name][:, packet.blocks]),
+                      f"{label}: request {packet.req.rid}'s imported {name} "
+                      f"rows differ from the exported ones")
+            checked.append(len(dst))
+        return ok
+
+    def transfer_ready():
+        t0 = time.perf_counter()
+        transfer()
+        passes.append(time.perf_counter() - t0)
+    dec.adopt_handoff = adopt_handoff
+    coord._transfer_ready = transfer_ready
+    return sizes, checked, passes
+
+
+def recording_coordinator(coord):
+    """recording_engine on both engines of a coordinator: the prefill
+    engine samples each request's first token, the decode engine the rest.
+    Returns (the score vectors of every tick, the margins)."""
+    pre_ticks, _, pre_margins = recording_engine(coord.prefill)
+    dec_ticks, _, dec_margins = recording_engine(coord.decode)
+    return pre_ticks + dec_ticks, {**pre_margins, **dec_margins}
+
+
+def check_engine_launches(label, cfg, coord, per, attention=True):
+    """Kernels 1 and 2 on each engine, once per layer per device tick
+    (graph replays counted), kernel 1 only where the read is flash. The
+    prefill engine launches kernel 2 too: a step with prefill rows
+    computes both down-projections from one hidden activation and keeps
+    the dense one for prefill rows (``models/ffn.py`` ``ffn_step``, as
+    the reference's jitted step does), so its sparse gather runs for rows
+    that discard it."""
+    ticks = {"prefill": coord.prefill.device_ticks,
+             "decode": coord.decode.device_ticks}
+    for role, n in ticks.items():
+        check(n > 0, f"{label}: the {role} engine ran no step")
+        for key, on in (("paged_attention", attention),
+                        ("sparse_gather_matvec", True)):
+            want = cfg.n_layers * n if on else 0
+            check(per[role][key] == want,
+                  f"{label}: the {role} engine launched {key} "
+                  f"{per[role][key]} times in {n} device ticks, expected "
+                  f"{want}")
+
+
+def fleet_serve(router, prompts, max_new, after_submit=None):
+    """The fleet's traffic: one request arrives per router poll, then the
+    fleet drains; ``after_submit(router)`` runs after the last arrival.
+    Launch counts are set to 0 just before and read just after. Returns
+    (tokens, rids, wall, fleet_summary, launches)."""
+    from repro_torch.kernels import ops
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    rids = []
+    for p in prompts:
+        rids.append(router.submit(p, max_new=max_new))
+        router.poll()
+    if after_submit is not None:
+        after_submit(router)
+    done = router.drain_all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([list(done[r].tokens_out) for r in rids], rids, wall,
+            router.fleet_summary(), dict(ops.LAUNCHES))
+
+
+def fleet_record(label, cfg, router, tokens, max_new, wall, summary,
+                 launches):
+    """Check and print one fleet serve: valid tokens, kernels 1 and 2 once
+    per layer per device tick of every replica; prints tokens/s, TTFT, the
+    pooled prefix hit rate and the router's decisions per replica and
+    reason. Returns its record."""
+    reps = list(router.fleet.live()) + list(router.fleet.stopped.values())
+    ticks = sum(rep.engine.device_ticks for rep in reps)
+    for key in ("paged_attention", "sparse_gather_matvec"):
+        check(launches[key] == cfg.n_layers * ticks > 0,
+              f"{label}: {key} launched {launches[key]} times in {ticks} "
+              f"device ticks of the replicas")
+    check_tokens(label, tokens, cfg, max_new, [])
+    decisions = {}
+    for d in router.decisions:
+        key = f"{d.replica}:{d.reason}"
+        decisions[key] = decisions.get(key, 0) + 1
+    rec = {"wall_s": wall, "tokens_per_s": summary["tokens_per_s"],
+           "ttft_p50_ms": summary["ttft_p50_ms"],
+           "ttft_p99_ms": summary["ttft_p99_ms"],
+           "tpot_p50_ms": summary["tpot_p50_ms"],
+           "prefix_lookups": summary["prefix_lookups"],
+           "prefix_hits": summary["prefix_hits"],
+           "prefix_hit_rate": summary["prefix_hit_rate"],
+           "decisions": decisions, "router": summary["router"],
+           "device_ticks": ticks, "launches": launches,
+           "graph_replays": sum(rep.engine.runner.graph_replays
+                                for rep in reps)}
+    print(f"{label}: {len(tokens)} requests, {summary['generated_tokens']} "
+          f"tokens in {wall:.3f} s ({summary['tokens_per_s']:.1f} tok/s), "
+          f"TTFT p50 {summary['ttft_p50_ms']:.2f} ms p99 "
+          f"{summary['ttft_p99_ms']:.2f} ms, TPOT p50 "
+          f"{summary['tpot_p50_ms']:.3f} ms; prefix hits "
+          f"{summary['prefix_hits']}/{summary['prefix_lookups']} "
+          f"({summary['prefix_hit_rate']:.4f}); decisions (replica:reason) "
+          f"{decisions}; {ticks} device ticks, {rec['graph_replays']} graph "
+          f"replays, launches {launches}")
+    return rec
+
+
+def disagg_phase(cfg, params, scfg, q8_scfg, dev, prompts, max_new,
+                 paged, q8_tokens, sync_summary, prefix_prompts, prefix):
+    """Phase 17. ``paged``: phase 5's (tokens, margins, rids); ``prefix``:
+    phase 9's cache-on serve's (tokens, margins, rids). Returns (its
+    details, the launches of its serves, the disagg serve's
+    (tokens, launches, wall) for phase 13)."""
+    from repro_torch.configs.base import AsyncConfig
+    from repro_torch.serve.disagg import DisaggCoordinator
+    from repro_torch.serve.router import build_fleet
+    out, launches = {}, dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for key in KERNELS:
+            launches[key] += counts[key]
+
+    # (a) the phase-5 prompts through a DisaggCoordinator
+    coord = DisaggCoordinator(cfg, params, scfg, device=dev)
+    # the bytes a token's KV takes in the pools, every leaf of every layer
+    per_tok = sum(leaf[:, :1].nbytes for leaf in
+                  coord.decode.runner.cache["units"]["b0"].values()) \
+        / scfg.block_size
+    per = engine_launches(coord)
+    sizes, _, passes = record_handoffs(coord, "disagg")
+    ticks, margins = recording_coordinator(coord)
+    toks, rids, wall, summary, lnch = serve(coord, prompts, max_new)
+    add(lnch)
+    check_tokens("disagg", toks, cfg, max_new, ticks)
+    check_engine_launches("disagg", cfg, coord, per)
+    check(summary["n_handoffs"] == len(prompts) == len(sizes)
+          and summary["handoff_blocks"] == sum(sizes)
+          and summary["evictions"] == 0,
+          f"disagg: {summary['n_handoffs']} handoffs of "
+          f"{summary['handoff_blocks']} blocks, {summary['evictions']} "
+          f"evictions, for {len(prompts)} requests")
+    paged_flips = compare_cpu("disagg vs paged", toks, *paged)
+    cpu = DisaggCoordinator(cfg, params, scfg, device="cpu")
+    _, cpu_margins = recording_coordinator(cpu)
+    cpu_toks, cpu_rids, _, cpu_summary, _ = serve(cpu, prompts, max_new)
+    cpu_flips = compare_cpu("disagg-cpu", toks, cpu_toks, cpu_margins,
+                            cpu_rids)
+    check((cpu_summary["n_handoffs"], cpu_summary["handoff_blocks"])
+          == (summary["n_handoffs"], summary["handoff_blocks"]),
+          "disagg-cpu: the CPU run's handoffs differ from the card's")
+    moved = summary["handoff_blocks"] * scfg.block_size * per_tok
+    # the handoff copy's device time at the serve's largest handoff, into
+    # the idle pools after the serve
+    n = max(sizes)
+    ids = list(range(n))
+
+    def copy():
+        coord.decode.runner.import_blocks_from(coord.prefill.runner, ids,
+                                               ids)
+    copy_bytes = n * scfg.block_size * per_tok
+    handoff = {"n_handoffs": summary["n_handoffs"],
+               "handoff_blocks": summary["handoff_blocks"],
+               "bytes_moved": moved, "largest_blocks": n,
+               "largest_bytes": copy_bytes,
+               "copy_device_ms": library_device_ms(copy),
+               "copy_ms": time_ms(copy),
+               "copy_bound_ms": bound(2 * copy_bytes, 0)[0],
+               "host_ms_per_handoff": 1e3 * sum(passes)
+               / summary["n_handoffs"]}
+    ratio = summary["tokens_per_s"] / sync_summary["tokens_per_s"]
+    split = {k: summary[k] for k in (
+        "tpot_p50_prefill_overlap_ms", "tpot_p99_prefill_overlap_ms",
+        "tpot_p50_steady_ms", "tpot_p99_steady_ms", "tpot_overlap_samples",
+        "tpot_steady_samples")}
+    print_serve("disagg", len(prompts), summary, wall,
+                f"{coord.prefill.runner.n_steps} prefill + "
+                f"{coord.decode.runner.n_steps} decode", lnch)
+    print(f"disagg: launches by engine {per}; {handoff['n_handoffs']} "
+          f"handoffs of {handoff['handoff_blocks']} blocks, "
+          f"{moved:.0f} bytes moved ({per_tok:.0f} B a token); the largest "
+          f"({n} blocks, {copy_bytes:.0f} B) copies in "
+          f"{handoff['copy_device_ms']} device ms "
+          f"({handoff['copy_ms']:.5f} ms by events, bound "
+          f"{handoff['copy_bound_ms']:.6f} ms); host "
+          f"{handoff['host_ms_per_handoff']:.4f} ms a handoff in the "
+          f"coordinator's handoff passes")
+    print(f"disagg: {ratio:.3f}x the phase-15 sync paged serve's tokens/s; "
+          f"interference split {split} (the single engine's: "
+          + str({k: sync_summary[k] for k in split}) + ")")
+    print(f"disagg: against the paged serve "
+          f"{len(prompts) - len(paged_flips)}/{len(prompts)} requests "
+          f"token-identical, near-tie flips {paged_flips}; against its CPU "
+          f"run {len(prompts) - len(cpu_flips)}/{len(prompts)}, near-tie "
+          f"flips {cpu_flips}")
+    out["disagg"] = dict(summary, wall_s=wall, launches=lnch,
+                         engine_launches=per, handoff=handoff,
+                         tokens_per_s_ratio=ratio, paged_flips=paged_flips,
+                         cpu_flips=cpu_flips)
+    out["disagg"].pop("prefill_engine", None)
+
+    # (b) int8 KV pools: imported rows bit-equal to the exported rows
+    q8 = DisaggCoordinator(cfg, params, q8_scfg, device=dev)
+    per8 = engine_launches(q8)
+    sizes8, checked8, _ = record_handoffs(q8, "disagg int8kv", compare=True)
+    _, margins8 = recording_coordinator(q8)
+    toks8, rids8, wall8, summary8, lnch8 = serve(q8, prompts, max_new)
+    add(lnch8)
+    check(checked8 == sizes8 and len(sizes8) == len(prompts),
+          f"disagg int8kv: {len(checked8)} of {len(sizes8)} handoffs "
+          f"compared")
+    check_engine_launches("disagg int8kv", cfg, q8, per8, attention=False)
+    q8_flips = compare_cpu("disagg int8kv vs int8kv", q8_tokens, toks8,
+                           margins8, rids8)
+    print(f"disagg int8kv: {len(checked8)} handoffs of {sum(checked8)} "
+          f"blocks, every leaf (int8 k, v and their f32 scales) bit-equal "
+          f"after the copy; against the phase-11 int8kv serve "
+          f"{len(prompts) - len(q8_flips)}/{len(prompts)} requests "
+          f"token-identical, near-tie flips {q8_flips}; launches by engine "
+          f"{per8}")
+    out["int8kv"] = {"handoffs": len(checked8), "blocks": sum(checked8),
+                     "wall_s": wall8, "launches": lnch8,
+                     "engine_launches": per8, "flips": q8_flips}
+
+    # (c) an async decode engine (K = 8): replays read the imported blocks
+    asc = dataclasses.replace(scfg, async_cfg=AsyncConfig(
+        enabled=True, max_device_ticks=8))
+    ac = DisaggCoordinator(cfg, params, asc, device=dev)
+    pools = ac.decode.runner.cache["units"]["b0"]
+    ptrs = {k: v.data_ptr() for k, v in pools.items()}
+    per_a = engine_launches(ac)
+    toks_a, _, wall_a, summary_a, lnch_a = serve(ac, prompts, max_new)
+    add(lnch_a)
+    check_tokens("disagg async", toks_a, cfg, max_new, [])
+    check_engine_launches("disagg async", cfg, ac, per_a)
+    replays = ac.decode.runner.graph_replays
+    check(replays > 0 and {k: v.data_ptr() for k, v in pools.items()}
+          == ptrs, f"disagg async: {replays} graph replays; the decode "
+          f"pools must stay where the graphs captured them")
+    async_flips = compare_cpu("disagg async vs disagg", toks_a, toks,
+                              margins, rids)
+    print_serve("disagg async K8", len(prompts), summary_a, wall_a,
+                ac.decode.device_ticks, lnch_a)
+    print(f"disagg async K8: decode engine {ac.decode.async_stats()}, "
+          f"{replays} graph replays over the imported blocks (pools in "
+          f"place); against the sync disagg serve "
+          f"{len(prompts) - len(async_flips)}/{len(prompts)} requests "
+          f"token-identical, near-tie flips {async_flips}; "
+          f"{summary_a['tokens_per_s'] / summary['tokens_per_s']:.3f}x its "
+          f"tokens/s")
+    out["async"] = dict(summary_a, wall_s=wall_a, launches=lnch_a,
+                        engine_launches=per_a, flips=async_flips,
+                        graph_replays=replays,
+                        decode_async=ac.decode.async_stats())
+    out["async"].pop("prefill_engine", None)
+
+    # (d) two replicas, the phase-9 traffic: affinity, then round robin
+    psc = dataclasses.replace(scfg, prefix_cache=True)
+    out["fleet"] = {}
+    fleet_tokens = {}
+    fleet_margins = {}
+    for policy in ("affinity", "round_robin"):
+        router = build_fleet(cfg, params, psc, n_replicas=2, policy=policy,
+                             device=dev)
+        for rep in router.fleet.live():
+            fleet_margins.setdefault(policy, {}).update(
+                recording_engine(rep.engine)[2])
+        ftoks, frids, fwall, fsum, flnch = fleet_serve(
+            router, prefix_prompts, max_new)
+        add(flnch)
+        rec = fleet_record(f"fleet {policy}", cfg, router, ftoks, max_new,
+                           fwall, fsum, flnch)
+        flips = compare_cpu(f"fleet {policy} vs prefix", ftoks, *prefix)
+        print(f"fleet {policy}: against the phase-9 single engine "
+              f"{len(ftoks) - len(flips)}/{len(ftoks)} requests "
+              f"token-identical, near-tie flips {flips}")
+        rec["flips"] = flips
+        out["fleet"][policy] = rec
+        fleet_tokens[policy] = (ftoks, frids)
+    # async replicas (K = 8), polled serially and from a thread pool
+    apsc = dataclasses.replace(psc, async_cfg=AsyncConfig(
+        enabled=True, max_device_ticks=8))
+    par = {}
+    for parallel in (False, True):
+        label = f"fleet async K8 {'parallel' if parallel else 'serial'}"
+        router = build_fleet(cfg, params, apsc, n_replicas=2,
+                             policy="affinity", parallel=parallel,
+                             device=dev)
+        ftoks, _, fwall, fsum, flnch = fleet_serve(router, prefix_prompts,
+                                                   max_new)
+        add(flnch)
+        rec = fleet_record(label, cfg, router, ftoks, max_new, fwall, fsum,
+                           flnch)
+        check(rec["graph_replays"] > 0, f"{label}: no graph replay")
+        par[parallel] = (ftoks, flnch, [(d.rid, d.replica, d.reason)
+                                        for d in router.decisions])
+        out["fleet"][label] = rec
+    check(par[True] == par[False],
+          "fleet: parallel polling changed the async replicas' tokens, "
+          "launches or decisions")
+    aff_toks, aff_rids = fleet_tokens["affinity"]
+    async_fleet_flips = compare_cpu("fleet async vs affinity", par[False][0],
+                                    aff_toks, fleet_margins["affinity"],
+                                    aff_rids)
+    print(f"fleet async K8: parallel polling gave the serial run's tokens, "
+          f"launches and decisions; against the sync affinity fleet "
+          f"{len(aff_toks) - len(async_fleet_flips)}/{len(aff_toks)} "
+          f"requests token-identical, near-tie flips {async_fleet_flips}")
+    out["fleet"]["async_flips"] = async_fleet_flips
+
+    # (e) scale-down: the round-robin traffic again, replica 1 drained
+    # after the last arrival and reaped once idle
+    router = build_fleet(cfg, params, psc, n_replicas=2,
+                         policy="round_robin", device=dev)
+    seen = {}
+
+    def scale_down(r):
+        seen["victims"] = r.fleet.scale_down(1)
+        seen["in_flight"] = r.fleet.get(1).queue_depth
+        seen["placed"] = [rid for rid, rep in r._placement.items()
+                          if rep == 1]
+    stoks, srids, swall, ssum, slnch = fleet_serve(router, prefix_prompts,
+                                                   max_new, scale_down)
+    add(slnch)
+    rr_toks, rr_rids = fleet_tokens["round_robin"]
+    check(seen["victims"] == [1] and seen["in_flight"] > 0
+          and sorted(router.fleet.replicas) == [0]
+          and sorted(router.fleet.stopped) == [1],
+          f"scale-down: victims {seen['victims']}, {seen['in_flight']} in "
+          f"flight, live {sorted(router.fleet.replicas)}, stopped "
+          f"{sorted(router.fleet.stopped)}")
+    check(stoks == rr_toks and srids == rr_rids,
+          "scale-down: the drained replica's requests changed tokens")
+    print(f"scale-down: replica 1 drained with {seen['in_flight']} requests "
+          f"in flight ({len(seen['placed'])} placed there), reaped once "
+          f"idle; every request's tokens equal the round-robin fleet's; "
+          f"{ssum['n_finished']} finished, {ssum['n_replicas']} collectors")
+    out["scale_down"] = {"victims": seen["victims"],
+                         "in_flight": seen["in_flight"],
+                         "placed": len(seen["placed"]), "wall_s": swall,
+                         "launches": slnch}
+    return out, launches, (toks, lnch, wall)
+
+
 def main():
     details = {}
     clock = [time.perf_counter()]
@@ -1743,8 +2156,8 @@ def main():
                         and batch.tokens.shape[1] > 1)
         return step(batch)
     pre.runner.step = recording_step
-    pre_ticks, _, _ = recording_engine(pre)
-    pre_tokens, _, pre_wall, pre_summary, pre_launches = serve(
+    pre_ticks, _, pre_margins_card = recording_engine(pre)
+    pre_tokens, pre_rids, pre_wall, pre_summary, pre_launches = serve(
         pre, prefix_prompts, max_new)
     pre_steps = pre.runner.n_steps
     print_serve("prefix", len(prefix_prompts), pre_summary, pre_wall,
@@ -2134,7 +2547,15 @@ def main():
         details["async"]["heavy"]["K8"]["wall_per_device_tick_ms"])
     lap(clock, "16) observability")
 
+    # ---- 17) disagg and the fleet (runs before phase 13) ------------------------
+    details["disagg"], disagg_launches, disagg_run = disagg_phase(
+        cfg, params, scfg, q8_scfg, dev, prompts, max_new,
+        (gpu_tokens, gpu_margins, gpu_rids), q8_tokens, again_summary,
+        prefix_prompts, (pre_tokens, pre_margins_card, pre_rids))
+    lap(clock, "17) disagg and fleet")
+
     # ---- 13) the serves again, under torch.profiler ---------------------------
+    from repro_torch.serve.disagg import DisaggCoordinator
     profiles = {}
     for label, sc, pr_prompts, pr_sps, toks, lnch, w, pr_new in (
             ("paged", scfg, prompts, None, gpu_tokens, launches, wall,
@@ -2150,10 +2571,13 @@ def main():
                 (f"spec {d}", spec_runs[d][0], prompts, None,
                  *spec_runs[d][1:], max_new) for d in ("ngram", "model")) \
             + (("async K8 heavy", heavy_runs["K8"][0], heavy, None,
-                *heavy_runs["K8"][1:], heavy_new),):
+                *heavy_runs["K8"][1:], heavy_new),
+               ("disagg", None, prompts, None, *disagg_run, max_new)):
         pr = profile_serve(f"profile {label}",
                            lambda sc=sc: Engine(cfg, params, sc, device=dev,
-                                                draft_params=dparams),
+                                                draft_params=dparams)
+                           if sc is not None else
+                           DisaggCoordinator(cfg, params, scfg, device=dev),
                            pr_prompts, pr_new, toks, lnch, w, pr_sps)
         profiles[label] = pr
         per = ", ".join(f"{k} {v:.5f}"
@@ -2198,13 +2622,15 @@ def main():
         + pre_launches["paged_attention"]
         + spec_launches["paged_attention"]
         + async_launches["paged_attention"]
-        + obs_launches["paged_attention"],
+        + obs_launches["paged_attention"]
+        + disagg_launches["paged_attention"],
         "sparse_gather_matvec": launches["sparse_gather_matvec"]
         + slot_launches["sparse_gather_matvec"]
         + pre_launches["sparse_gather_matvec"]
         + spec_launches["sparse_gather_matvec"]
         + async_launches["sparse_gather_matvec"]
-        + obs_launches["sparse_gather_matvec"],
+        + obs_launches["sparse_gather_matvec"]
+        + disagg_launches["sparse_gather_matvec"],
         "decode_attention": slot_launches["decode_attention"]
         + spec_launches["decode_attention"],
         "relu_ffn": slot_launches["relu_ffn"],

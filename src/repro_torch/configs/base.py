@@ -212,3 +212,50 @@ class ServeConfig:
     @property
     def pool_blocks(self) -> int:
         return self.n_kv_blocks or self.max_batch * self.blocks_per_seq
+
+
+@dataclasses.dataclass(frozen=True)
+class DisaggConfig:
+    """Disaggregated prefill/decode serving (serve.disagg).
+
+    Prefill is compute-bound and decode weight-bandwidth-bound (the
+    paper's near-core vs near-memory split), so the DisaggCoordinator
+    runs each phase on its own Engine and hands finished prefills over as
+    a paged-KV block copy. These knobs size the PREFILL engine against
+    the decode engine's ServeConfig, which keeps the user's values:
+
+    ``prefill_batch`` / ``prefill_blocks``: the prefill engine's
+    max_batch and KV pool size (0 = the decode ServeConfig's). A request
+    holds a prefill slot only until its handoff, so a small batch and a
+    pool of a few prompts usually suffice.
+
+    ``direct_max_suffix``: the multi-turn fast path. When the DECODE
+    engine's radix index already covers a prompt up to its last
+    ``<= direct_max_suffix`` tokens, the request goes straight to the
+    decode engine instead of through a prefill and a handoff. 0 turns it
+    off."""
+
+    prefill_batch: int = 0          # prefill engine max_batch (0=inherit)
+    prefill_blocks: int = 0         # prefill engine KV pool (0=inherit)
+    direct_max_suffix: int = 0      # decode-direct if cached suffix <= this
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Multi-replica serving fleet (serve.fleet + serve.router).
+
+    One ServeConfig builds every replica (a homogeneous fleet); this adds
+    the fleet's knobs: the replica count, the routing policy, the
+    router's own bounded overflow queue (requests wait there when every
+    replica's admission is full and are shed with FleetSaturated past the
+    bound) and session stickiness. Needs ``ServeConfig.paged``: routing
+    reads the paged scheduler's queue depth and the radix prefix index."""
+
+    replicas: int = 1
+    router_policy: str = "affinity"   # affinity | round_robin | least_loaded
+    max_router_queue: int = 512       # bounded front-door overflow queue
+    session_affinity: bool = True     # same session id -> same replica
+    parallel_poll: bool = False       # tick replicas from a thread pool
+    #                                   (serialized polling is the default:
+    #                                   replicas on one card share its
+    #                                   stream and the host's one thread)

@@ -11,6 +11,9 @@ launches its kernel (``count_launch``), and nowhere else. A launch made
 while a CUDA graph is captured does not run then: it counts in the
 capture's tally (``capturing``), and runs, and counts, each time the graph
 is replayed (``add_replay``). So the counters equal what ran on the card.
+Threads (a fleet router polling its replicas from a thread pool) count
+apart: a capture's tally takes only the launches of the thread that
+captures, and captures take turns (``CAPTURE_LOCK``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Iterator, List
 
@@ -36,13 +40,26 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0, "sparse_gather_matvec": 0,
                             "decode_attention": 0, "relu_ffn": 0,
                             "nmce_matmul": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_CAPTURES: List[Dict[str, int]] = []     # the tallies of open captures
+_COUNT_LOCK = threading.Lock()
+CAPTURE_LOCK = threading.Lock()          # held by every graph capture
+
+
+class _Captures(threading.local):
+    """This thread's open captures' tallies."""
+
+    def __init__(self):
+        self.open: List[Dict[str, int]] = []
+
+
+_CAPTURES = _Captures()
 
 
 def count_launch(name: str) -> None:
     """Count one launch of kernel ``name``: in LAUNCHES, or in the tally
-    of the CUDA graph being captured."""
-    (_CAPTURES[-1] if _CAPTURES else LAUNCHES)[name] += 1
+    of the CUDA graph this thread is capturing."""
+    open_ = _CAPTURES.open
+    with _COUNT_LOCK:
+        (open_[-1] if open_ else LAUNCHES)[name] += 1
 
 
 @contextlib.contextmanager
@@ -50,18 +67,19 @@ def capturing() -> Iterator[Dict[str, int]]:
     """Around a CUDA graph capture: yields the tally of the launches the
     graph holds, which LAUNCHES does not count."""
     tally = dict.fromkeys(LAUNCHES, 0)
-    _CAPTURES.append(tally)
+    _CAPTURES.open.append(tally)
     try:
         yield tally
     finally:
-        _CAPTURES.pop()
+        _CAPTURES.open.pop()
 
 
 def add_replay(tally: Dict[str, int], replays: int) -> None:
     """Count the launches of ``replays`` replays of a graph whose capture
     tallied ``tally``."""
-    for name, n in tally.items():
-        LAUNCHES[name] += n * replays
+    with _COUNT_LOCK:
+        for name, n in tally.items():
+            LAUNCHES[name] += n * replays
 
 
 def _nvcc() -> str:

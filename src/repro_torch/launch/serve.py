@@ -8,6 +8,8 @@ random weights from a seeded generator.
         [--spec ngram|selfspec --spec-k 4] [--attn-backend flash] \\
         [--async --async-k 8 --async-sync-every 0] \\
         [--obs] [--trace-out PREFIX] [--metrics-port PORT] [--profile] \\
+        [--disagg [--disagg-prefill-batch N] [--disagg-prefill-blocks N] \\
+         [--direct-max-suffix N]] [--replicas N --router-policy affinity] \\
         [--temperature 0.7 --seed 0] [--device cpu]
 
 It runs on the CUDA device unless ``--device cpu`` is given, and prints a
@@ -16,10 +18,18 @@ JSON summary (with ``--async``, the engine's ``async_stats()`` under
 per-bucket ``bucket_attainment`` rows, whose table is printed first).
 ``--trace-out PREFIX`` writes PREFIX.trace.json (Perfetto) and
 PREFIX.events.jsonl; ``--metrics-port`` serves the Prometheus text on
-localhost while the requests run. The reference CLI's flags of features
-this port does not have yet (checkpoints, sharded serving, disagg and
-fleet serving) are accepted by name and refused with the ROADMAP item
-that brings them.
+localhost while the requests run.
+
+``--disagg`` serves through a DisaggCoordinator (a prefill engine and a
+decode engine with the KV block handoff; the summary adds
+``n_handoffs``, ``n_decode_direct`` and the interference split's p99s).
+``--replicas N`` (N > 1) serves through a fleet of N replicas behind the
+router (``--router-policy``), each replica a disagg pool under
+``--disagg``; the requests come in sessions of two, and the summary is
+the fleet's (``--metrics-port`` then serves the router's registry). The
+reference CLI's flags of features this port does not have yet
+(checkpoints, sharded serving) are accepted by name and refused with the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -34,13 +44,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import (AsyncConfig, ObsConfig, ServeConfig,
-                                      SpecConfig)
+from repro_torch.configs.base import (AsyncConfig, DisaggConfig, ObsConfig,
+                                      ServeConfig, SpecConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
 from repro_torch.obs import (attainment_table, start_metrics_server,
                              write_jsonl, write_perfetto)
+from repro_torch.serve.disagg import DisaggCoordinator
 from repro_torch.serve.engine import Engine
+from repro_torch.serve.router import POLICIES, build_fleet
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import Request
 
@@ -52,17 +64,6 @@ LATER = (
      "item 9 (multi-device, sharded serving)"),
     (("--shard-kv-seq",), {"action": "store_true"},
      "item 9 (multi-device, sharded serving)"),
-    (("--disagg",), {"action": "store_true"}, "item 5 (disagg and fleet)"),
-    (("--disagg-prefill-batch",), {"type": int, "default": 0},
-     "item 5 (disagg and fleet)"),
-    (("--disagg-prefill-blocks",), {"type": int, "default": 0},
-     "item 5 (disagg and fleet)"),
-    (("--direct-max-suffix",), {"type": int, "default": 0},
-     "item 5 (disagg and fleet)"),
-    (("--replicas",), {"type": int, "default": 1},
-     "item 5 (disagg and fleet)"),
-    (("--router-policy",), {"default": "affinity"},
-     "item 5 (disagg and fleet)"),
 )
 
 
@@ -118,6 +119,27 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", action="store_true",
                     help="roofline attainment per width bucket (implies "
                          "--obs and --paged); prints the table")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through a fleet of N engine replicas "
+                         "behind the prefix-affinity router (implies "
+                         "--paged and the prefix cache)")
+    ap.add_argument("--router-policy", default="affinity", choices=POLICIES,
+                    help="fleet placement: scored radix-prefix affinity, "
+                         "round robin, or queue depth only")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serving: a prefill engine and a "
+                         "decode engine with the paged-KV block handoff "
+                         "(implies --paged; with --replicas N every "
+                         "replica is a disagg pool)")
+    ap.add_argument("--disagg-prefill-batch", type=int, default=0,
+                    help="the prefill engine's max_batch (0 = --max-batch)")
+    ap.add_argument("--disagg-prefill-blocks", type=int, default=0,
+                    help="the prefill engine's KV pool blocks (0 = as the "
+                         "decode engine's)")
+    ap.add_argument("--direct-max-suffix", type=int, default=0,
+                    help="with --disagg: prompts whose uncached tail is <= N "
+                         "tokens go straight to the decode engine (implies "
+                         "the prefix cache; 0 = off)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 samples")
     ap.add_argument("--top-k", type=int, default=0)
@@ -146,8 +168,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     cfg = get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(0)
     params = Model(cfg).init(gen, device=device)
+    fleet = args.replicas > 1
     paged = args.paged or args.prefix_cache or args.kv_quant \
-        or args.spec is not None or args.async_ or args.profile
+        or args.spec is not None or args.async_ or args.profile \
+        or args.disagg or fleet
     # --spec-k is the user's cap: adaptive K may shrink below it, never
     # exceed it
     spec = None if args.spec is None else SpecConfig(
@@ -159,23 +183,31 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     or args.profile, profile=args.profile)
     scfg = ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
                        sparse_decode=not args.dense, paged=paged,
-                       prefix_cache=args.prefix_cache,
+                       prefix_cache=args.prefix_cache or fleet or (
+                           args.disagg and args.direct_max_suffix > 0),
                        kv_quant=args.kv_quant, spec=spec,
                        block_size=args.block_size,
                        prefill_chunk=args.prefill_chunk, policy=args.policy,
                        attn_backend=args.attn_backend, async_cfg=async_cfg,
                        obs=obs)
-    eng = Engine(cfg, params, scfg, device=device)
-    server = None
-    if args.metrics_port:
-        server = start_metrics_server(lambda: eng.metrics.registry,
-                                      args.metrics_port)
-        print(f"[serve] metrics on 127.0.0.1:{args.metrics_port}/metrics",
-              file=sys.stderr)
+    dcfg = None if not args.disagg else DisaggConfig(
+        prefill_batch=args.disagg_prefill_batch,
+        prefill_blocks=args.disagg_prefill_blocks,
+        direct_max_suffix=args.direct_max_suffix)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p,
                         repetition_penalty=args.repetition_penalty,
                         seed=args.seed)
+    if fleet:
+        return _serve_fleet(args, cfg, params, scfg, dcfg, sp, device)
+    if dcfg is not None:
+        eng = DisaggCoordinator(cfg, params, scfg, dcfg=dcfg, device=device)
+    else:
+        eng = Engine(cfg, params, scfg, device=device)
+    server = None
+    if args.metrics_port:
+        server = _metrics_server(lambda: eng.metrics.registry,
+                                 args.metrics_port)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i,
                     prompt=rng.integers(0, cfg.vocab,
@@ -194,8 +226,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
             server.server_close()
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.tokens_out) for r in done.values())
-    savings = sum(s.sparse_savings_bytes for s in eng.stats)
-    total_w = sum(s.weight_bytes + s.sparse_savings_bytes for s in eng.stats)
+    stats = eng.prefill.stats + eng.decode.stats if dcfg is not None \
+        else eng.stats
+    savings = sum(s.sparse_savings_bytes for s in stats)
+    total_w = sum(s.weight_bytes + s.sparse_savings_bytes for s in stats)
     out = {"device": str(device) if device.type == "cpu"
            else torch.cuda.get_device_name(device),
            "requests": len(done), "tokens": n_tok,
@@ -210,25 +244,83 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     "prefix_cached_tokens": s["prefix_cached_tokens"],
                     "kv_pool_capacity_bytes":
                         s["kv_pool"]["capacity_bytes"]})
+        if dcfg is not None:
+            out.update({
+                "n_handoffs": s["n_handoffs"],
+                "n_decode_direct": s["n_decode_direct"],
+                "tpot_p99_steady_ms": s["tpot_p99_steady_ms"],
+                "tpot_p99_prefill_overlap_ms":
+                    s["tpot_p99_prefill_overlap_ms"]})
         if spec is not None:
             out.update({
                 "spec_steps": s["spec_steps"],
                 "spec_acceptance_rate": s["spec_acceptance_rate"],
                 "spec_tokens_per_verify": s["spec_tokens_per_verify"]})
-    if args.async_:
+    if args.async_ and dcfg is None:
         out["async"] = eng.async_stats()
     if eng.tracer.enabled:
         out["ticks"] = eng.tracer.tick_summary()
     if args.profile:
-        rows = eng.profiler.report(eng.tracer.tick_stats)
+        prof = eng.decode.profiler if dcfg is not None else eng.profiler
+        rows = prof.report(eng.tracer.tick_stats)
         out["bucket_attainment"] = rows
         print(attainment_table(rows))
     if args.trace_out:
         trace = write_perfetto(eng.tracer, args.trace_out + ".trace.json",
                                registry=eng.metrics.registry,
-                               profiler=eng.profiler)
+                               profiler=getattr(eng, "profiler", None))
         events = write_jsonl(eng.tracer, args.trace_out + ".events.jsonl")
         out["trace_files"] = [trace, events]
+    print(json.dumps(out, indent=1))
+    return out
+
+
+def _metrics_server(registry_fn, port: int):
+    server = start_metrics_server(registry_fn, port)
+    print(f"[serve] metrics on 127.0.0.1:{port}/metrics", file=sys.stderr)
+    return server
+
+
+def _serve_fleet(args, cfg, params, scfg, dcfg, sp, device) -> dict:
+    """``--replicas N``: N replicas (disagg pools under ``--disagg``)
+    behind the router; request i joins session ``demo-{i % (n // 2)}``.
+    Prints and returns the fleet's summary."""
+    router = build_fleet(cfg, params, scfg, n_replicas=args.replicas,
+                         policy=args.router_policy, disagg=dcfg,
+                         device=device)
+    server = None
+    if args.metrics_port:
+        server = _metrics_server(lambda: router.registry, args.metrics_port)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    try:
+        for i in range(args.requests):
+            router.submit(rng.integers(0, cfg.vocab,
+                                       size=4 + int(rng.integers(0, 8)),
+                                       dtype=np.int32),
+                          max_new=args.max_new, sampling=sp,
+                          session=f"demo-{i % max(args.requests // 2, 1)}")
+        done = router.drain_all()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.tokens_out) for r in done.values())
+    s = router.fleet_summary()
+    out = {"device": str(device) if device.type == "cpu"
+           else torch.cuda.get_device_name(device),
+           "requests": len(done), "tokens": n_tok,
+           "tokens_per_s": n_tok / dt,
+           "n_replicas": s["n_replicas"],
+           "prefix_hit_rate": s["prefix_hit_rate"],
+           "ttft_p99_ms": s["ttft_p99_ms"],
+           "fleet_queue_depth": s["fleet_queue_depth"],
+           "router": s["router"],
+           "per_replica_dispatched": {
+               i: h["dispatched"] for i, h in s["replicas"].items()}}
     print(json.dumps(out, indent=1))
     return out
 

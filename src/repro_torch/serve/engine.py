@@ -32,13 +32,20 @@ preempted, replay_done, spec_*, cow, finish) land on its timeline;
 ``ObsConfig.profile`` (paged mode) adds the roofline profiler. The
 default tracer is the shared no-op ``NULL_TRACER``.
 
-Sharded serving and disagg handoff are later slices of the port: asking
-for them raises ``NotImplementedError`` (or ``ValueError`` where the
-reference's slot mode refuses them too).
+The paged engine also carries the disagg handoff seam (serve.disagg):
+``submit_prefill`` admits a request for prefill only, which parks at
+``State.HANDOFF`` once its first token is committed; ``export_handoff``,
+``adopt_handoff`` (on the decode engine) and ``release_handoff`` move it,
+its KV blocks copied in place by ``ModelRunner.import_blocks_from``.
+
+Sharded serving is a later slice of the port: asking for it raises
+``NotImplementedError`` (or ``ValueError`` where the reference's slot
+mode refuses it too).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -57,6 +64,23 @@ from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.runner import (DECODE, PREFILL, STOP_L, STOP_NS,
                                       VERIFY, ModelRunner, StepOutput)
 from repro_torch.serve.scheduler import Request, SchedEntry, Scheduler, State
+
+
+@dataclasses.dataclass
+class HandoffPacket:
+    """What a decode engine needs to adopt a prefilled request
+    (serve.disagg). ``blocks`` are the SOURCE pool's physical block ids
+    covering [0, ctx_len): valid while the source entry stays parked at
+    State.HANDOFF (its slot is pinned, so defrag cannot move them).
+    ``draw_ctr`` carries the request's sample-draw counter, so seeded
+    sampling goes on where the prefill engine left off; ``metrics`` is the
+    live RequestMetrics record, moved (not copied), so TTFT measured at
+    prefill and TPOT measured at decode land on one request row."""
+    req: Request
+    ctx_len: int
+    blocks: List[int]
+    draw_ctr: int
+    metrics: object = None
 
 
 def _to(tree: dict, device: torch.device) -> dict:
@@ -137,9 +161,11 @@ class Engine:
         # per-slot token-id presence for the repetition penalty
         self._presence = np.zeros((scfg.max_batch, cfg.vocab), bool)
         self._draw_ctr: Dict[int, int] = {}    # rid -> sample-draw counter
-        # the disagg coordinator (ROADMAP queue 1, item 5) sets this each
-        # tick, so that the decode engine's interference split sees its
-        # paired prefill engine's work; async ticks read it
+        # disagg seam (serve.disagg): rids submitted for prefill only park
+        # at State.HANDOFF instead of decoding here. The coordinator sets
+        # external_prefill_overlap each tick, so that the decode engine's
+        # interference split sees its paired prefill engine's work.
+        self._handoff_rids: set = set()
         self.external_prefill_overlap = False
         self._tick_overlap = False
         # async tick pipeline: double-buffered overlap ticks and
@@ -506,7 +532,11 @@ class Engine:
                             if e.req.rid in self.sched.active]
             run_rows = [e for e in self.sched.decode_entries()
                         if e.req.rid not in deferred]
-            self._tick_overlap = bool(prefill_plan)
+            # interference class of this tick's committed tokens: prefill
+            # rows in this batch, or (disagg) prefill in flight on the
+            # paired engine
+            self._tick_overlap = bool(prefill_plan) \
+                or self.external_prefill_overlap
 
         # ---- 2) drafting (spec only) ----------------------------------
         # rows replaying after eviction re-feed committed tokens through
@@ -638,6 +668,15 @@ class Engine:
                     self._commit_emitted(e, int(tok_np[e.slot]),
                                          lp_np[e.slot], finished,
                                          first=True)
+                # disagg: a prefill-only request parks at HANDOFF once its
+                # context is final (first token committed, or its replay
+                # caught up) instead of decoding here. Requests that
+                # finished on their first token (stop or max) and spec
+                # entries mid-resync keep their normal lifecycle.
+                if e.req.rid in self._handoff_rids \
+                        and e.req.rid in self.sched.active \
+                        and not e.resync:
+                    self._park_handoff(e)
             if spec is None:
                 self._commit_decode(run_rows, tok_np, lp_np, finished)
             else:
@@ -867,11 +906,12 @@ class Engine:
     def _async_decode_rows(self) -> Optional[List[SchedEntry]]:
         """The decode rows an async tick may run, or None when this tick
         needs the synchronous path. Conservative by design: anything that
-        samples from host state (the repetition penalty) or mutates
+        samples from host state (the repetition penalty), mutates
         scheduling state (admission, prefill, eviction, speculation's
-        drafting and resync) falls back to sync — identity first, overlap
-        second. Profiling keeps every tick sync: its buckets are the
-        runner's eager steps."""
+        drafting and resync) or exports state mid-stream (a disagg
+        handoff) falls back to sync — identity first, overlap second.
+        Profiling keeps every tick sync: its buckets are the runner's
+        eager steps."""
         if self.spec is not None or self.cfg.n_codebooks \
                 or self.profiler is not None:
             return None
@@ -883,7 +923,8 @@ class Engine:
         for e in rows:
             sp = self._sp(e.req)
             if sp.repetition_penalty != 1.0 or e.resync \
-                    or not e.req.tokens_out:
+                    or not e.req.tokens_out \
+                    or e.req.rid in self._handoff_rids:
                 return None
         return rows
 
@@ -1151,6 +1192,136 @@ class Engine:
                       + self._async_stats["loop_device_ticks"])
         return dict(self._async_stats, device_ticks=total,
                     overlap_frac=overlapped / total if total else 0.0)
+
+    # ------------------------------------------------------------------
+    # disaggregated prefill/decode handoff seam (serve.disagg)
+    #
+    # Lifecycle, driven by the DisaggCoordinator:
+    #   prefill engine:  submit_prefill -> [chunked prefill ticks] ->
+    #                    park at State.HANDOFF (slot pinned, blocks held)
+    #   coordinator:     export_handoff -> decode.adopt_handoff ->
+    #                    release_handoff
+    # A parked entry stays preemptable: eviction resets it to WAITING,
+    # export_handoff returns None, and the replayed prefill parks it again;
+    # the coordinator retries on a later tick.
+
+    def submit_prefill(self, req: Request) -> bool:
+        """Admit ``req`` for PREFILL ONLY: it runs chunked prefill here,
+        emits its first token, then parks at State.HANDOFF for a decode
+        engine to adopt (paged mode only)."""
+        if not self.scfg.paged:
+            raise ValueError("disagg handoff requires the paged engine")
+        if self.spec is not None:
+            raise ValueError(
+                "disagg prefill engines must not speculate: drafting and "
+                "verify are decode work (they run on the adopter)")
+        self._handoff_rids.add(req.rid)
+        if not self.add_request(req):
+            self._handoff_rids.discard(req.rid)
+            return False
+        return True
+
+    def _park_handoff(self, e: SchedEntry) -> None:
+        e.state = State.HANDOFF
+        # pin: the exported block ids must stay put until the importer has
+        # copied them; defrag treats pinned slots' blocks as immovable
+        self.pool.pin(e.slot)
+        self.tracer.event(e.req.rid, "handoff_ready", ctx_len=e.ctx_len,
+                          n_blocks=len(self.pool.owned.get(e.slot, ())))
+
+    def handoff_ready(self) -> List[int]:
+        """rids parked at State.HANDOFF, ready for export_handoff."""
+        return sorted(rid for rid, e in self.sched.active.items()
+                      if e.state is State.HANDOFF)
+
+    def export_handoff(self, rid: int) -> Optional[HandoffPacket]:
+        """Snapshot a parked request for adoption. None when ``rid`` is not
+        (or no longer: preempted mid-handoff) parked; the entry parks
+        again after its replay, retry then."""
+        self.flush_async()    # the exported draw_ctr/ctx must be committed
+        e = self.sched.active.get(rid)
+        if e is None or e.state is not State.HANDOFF:
+            return None
+        return HandoffPacket(req=e.req, ctx_len=e.ctx_len,
+                             blocks=self.pool.export_blocks(e.slot),
+                             draw_ctr=self._draw_ctr.get(rid, 0),
+                             metrics=self.metrics.requests.get(rid))
+
+    def release_handoff(self, rid: int) -> None:
+        """Drop a parked request after a decode engine adopted it: free
+        the slot and its block references (the prompt's full blocks stay
+        in THIS engine's prefix index, indexed at prefill completion, so
+        same-prefix arrivals still skip their cached chunks). The Request
+        lives on, owned by the adopter: neither ``req.done`` nor the
+        finish-side metrics are touched here."""
+        e = self.sched.active.get(rid)
+        if e is None or e.state is not State.HANDOFF:
+            raise RuntimeError(f"release_handoff({rid}): not parked")
+        self.pool.unpin(e.slot)
+        self.pool.free_slot(e.slot)
+        self.sched.slots.release(rid)
+        del self.sched.active[rid]
+        e.state = State.DONE
+        e.slot = None
+        self._requests.pop(rid, None)
+        self.metrics.requests.pop(rid, None)   # the record moved with it
+        self._draw_ctr.pop(rid, None)
+        self._handoff_rids.discard(rid)
+        self.tracer.event(rid, "handoff_release")
+
+    def adopt_handoff(self, packet: HandoffPacket, src_runner) -> bool:
+        """Adopt a prefilled request from another engine: allocate fresh
+        private blocks here, copy the source blocks' KV into them
+        (``ModelRunner.import_blocks_from``: bit for bit, int8 scales
+        included) and register the request as a RUNNING decode row whose
+        next step feeds tokens_out[-1] at position ctx_len, the state a
+        single engine is in after the prefill completes. All-or-nothing:
+        False (state unchanged) when no slot or not enough blocks are
+        free; the source stays parked, retry after capacity frees."""
+        req = packet.req
+        rid = req.rid
+        self.flush_async()    # the adopter's pool state must be committed
+        if rid in self.sched.active or not self.sched.slots.free:
+            return False
+        slot = self.sched.slots.alloc(rid)
+        dst = self.pool.import_blocks(slot, packet.ctx_len)
+        if dst is None:
+            self.pool.free_slot(slot)
+            self.sched.slots.release(rid)
+            return False
+        self.runner.import_blocks_from(src_runner, packet.blocks, dst)
+        e = SchedEntry(req=req, seq=self.sched._seq, state=State.RUNNING,
+                       slot=slot, pos=packet.ctx_len,
+                       ctx_len=packet.ctx_len)
+        self.sched._seq += 1
+        self.sched.active[rid] = e
+        self._requests[rid] = req
+        self._draw_ctr[rid] = packet.draw_ctr
+        self._seed_presence(slot, req)
+        m = packet.metrics
+        if m is None:
+            # the source collector no longer tracks it (reset or
+            # forgotten): make a record so the finish-side accounting lands
+            self.metrics.on_arrival(rid,
+                                    len(np.asarray(req.prompt).reshape(-1)))
+            if req.tokens_out:
+                self.metrics.on_first_token(rid)
+                self.metrics.requests[rid].n_generated = len(req.tokens_out)
+        else:
+            self.metrics.requests[rid] = m
+        # move the matched-prefix ownership: index the handed-off context
+        # in THIS engine's radix tree, so decode-side multi-turn traffic and
+        # same-prefix adoptions reuse the imported blocks. Indexed full
+        # blocks below ctx_len are never written again (writes land past
+        # the frontier; copy-on-write guards the partial tail).
+        prompt = np.asarray(req.prompt).reshape(-1)
+        gen = np.asarray(req.tokens_out[:-1] if req.tokens_out else [],
+                         prompt.dtype)
+        self.sched.index_prefix(e, np.concatenate([prompt, gen]),
+                                packet.ctx_len)
+        self.tracer.event(rid, "handoff_adopt", slot=slot,
+                          n_blocks=len(dst), ctx_len=packet.ctx_len)
+        return True
 
     # ------------------------------------------------------------------
     # legacy fixed-slot mode

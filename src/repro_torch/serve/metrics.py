@@ -13,6 +13,9 @@ metadata all read the same registry. With tracing on, ``summary()`` adds
 the tracer's ``ticks`` and ``phase_ms_per_tick`` and, with profiling, the
 per-bucket ``bucket_attainment``.
 
+``fleet_summary`` aggregates several collectors (fleet replicas, or a
+disagg pool's merged view) into one fleet view.
+
 Empty windows report ``None`` (explicit null), never a fake 0."""
 
 from __future__ import annotations
@@ -223,6 +226,13 @@ class MetricsCollector:
         self._profiler = None        # obs.ServingProfiler (obs.profile)
         self.tracer = None           # obs.Tracer, set by the engine
         self._t0: Optional[float] = None
+
+    @property
+    def window_start(self) -> Optional[float]:
+        """First arrival of the measurement window (None before any). The
+        fleet's aggregate needs the earliest start across collectors for
+        one shared wall clock: per-replica walls do not add."""
+        return self._t0
 
     # --- registry-backed live gauges -------------------------------------
     @property
@@ -498,3 +508,75 @@ class MetricsCollector:
                 out["bucket_attainment"] = self._profiler.report(
                     self.tracer.tick_stats)
         return out
+
+
+# ---------------------------------------------------------------------------
+# fleet aggregation (serve.router / serve.fleet)
+
+
+def fleet_summary(collectors: Dict[int, "MetricsCollector"],
+                  replica_info: Optional[Dict[int, dict]] = None,
+                  fleet_queue_depth: int = 0) -> dict:
+    """Aggregate N replicas' collectors into one fleet view.
+
+    Percentiles come from the POOLED per-request samples (the p50 of
+    per-replica p50s is not the fleet's p50), throughput from all tokens
+    over the UNION wall-clock window (earliest arrival anywhere to the
+    last finish anywhere: replica walls overlap, so summing per-replica
+    tokens_per_s would count time twice), the hit rate from the summed
+    lookup and hit counters. ``per_replica`` keeps each replica's own
+    summary() beside the aggregate; ``replica_info`` (id -> health dict,
+    from ``Fleet.health()``) rides along when given."""
+    per_replica: Dict[int, dict] = {}
+    done: List[RequestMetrics] = []
+    t0 = None
+    t_end = None
+    lookups = hits = cached_tokens = 0
+    prefill_chunks = decode_steps = evictions = 0
+    for rep_id in sorted(collectors):
+        col = collectors[rep_id]
+        per_replica[rep_id] = col.summary()
+        done.extend(r for r in col.requests.values()
+                    if r.finished_at is not None)
+        if col.window_start is not None:
+            t0 = col.window_start if t0 is None \
+                else min(t0, col.window_start)
+        lookups += col.prefix_lookups
+        hits += col.prefix_hits
+        cached_tokens += col.prefix_cached_tokens
+        prefill_chunks += col.prefill_chunks
+        decode_steps += col.decode_steps
+        evictions += col.evictions
+    if done:
+        t_end = max(r.finished_at for r in done)
+    wall = (t_end - t0) if (t0 is not None and t_end is not None) else None
+    n_tok = sum(r.n_generated for r in done)
+    ttfts = [r.ttft for r in done if r.ttft is not None]
+    tpots = [r.tpot for r in done if r.tpot is not None]
+    ttft_hit = [r.ttft for r in done
+                if r.ttft is not None and r.cached_prompt_tokens > 0]
+    ttft_miss = [r.ttft for r in done
+                 if r.ttft is not None and r.cached_prompt_tokens == 0]
+    out = {
+        "n_replicas": len(collectors),
+        "n_finished": len(done),
+        "generated_tokens": n_tok,
+        "tokens_per_s": (n_tok / wall) if wall else None,
+        "ttft_p50_ms": _ms(percentile(ttfts, 50)),
+        "ttft_p99_ms": _ms(percentile(ttfts, 99)),
+        "tpot_p50_ms": _ms(percentile(tpots, 50)),
+        "prefix_lookups": lookups,
+        "prefix_hits": hits,
+        "prefix_hit_rate": hits / max(lookups, 1),
+        "prefix_cached_tokens": cached_tokens,
+        "ttft_hit_p50_ms": _ms(percentile(ttft_hit, 50)),
+        "ttft_miss_p50_ms": _ms(percentile(ttft_miss, 50)),
+        "prefill_chunks": prefill_chunks,
+        "decode_steps": decode_steps,
+        "evictions": evictions,
+        "fleet_queue_depth": fleet_queue_depth,
+        "per_replica": per_replica,
+    }
+    if replica_info is not None:
+        out["replicas"] = replica_info
+    return out

@@ -14,8 +14,8 @@ correctness. ``defrag`` compacts the live blocks; the byte gauges feed
 
 Block index ``n_blocks`` is the sentinel the device path understands:
 writes through it drop, reads through it see nothing. ``truncate`` is
-the speculative rollback; the disagg handoff (``export_blocks``,
-``import_blocks``) comes with the slice that uses it.
+the speculative rollback; ``export_blocks`` and ``import_blocks`` carry
+the disagg handoff between two pools.
 """
 
 from __future__ import annotations
@@ -255,6 +255,28 @@ class PagedKVCache:
             if pair is not None:
                 pairs.append(pair)
         return pairs
+
+    # --- handoff (disaggregated prefill/decode: serve.disagg) -------------
+    def export_blocks(self, slot: int) -> List[int]:
+        """Snapshot ``slot``'s physical block ids for a cross-pool handoff.
+        A pure read: refcounts, tables and the free list are untouched;
+        pair it with ``pin(slot)`` so defrag cannot move the blocks before
+        the importer has copied them."""
+        return list(self.owned.get(slot, ()))
+
+    def import_blocks(self, slot: int, n_tokens: int) -> Optional[List[int]]:
+        """Receive a handoff: allocate fresh private (ref=1) blocks in THIS
+        pool covering [0, n_tokens) for ``slot`` and return their physical
+        ids in logical order, for ``ModelRunner.import_blocks_from`` to
+        fill. All-or-nothing: None (state unchanged, no ``owned`` entry
+        left behind) when the pool cannot cover it. The source pool's
+        blocks are never referenced across pools: sharing (copy-on-write,
+        the prefix index) stays within one pool."""
+        if not self.allocate(slot, n_tokens):
+            if not self.owned.get(slot):       # drop allocate's empty
+                self.owned.pop(slot, None)     # setdefault residue
+            return None
+        return list(self.owned[slot])
 
     # --- pinning (a verify step in flight) ---------------------------------
     def pin(self, slot: int) -> None:

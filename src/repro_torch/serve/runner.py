@@ -9,7 +9,8 @@ step for the same tick.
 The runner owns the device cache; the engine republishes the host-truth
 ``lens`` and block tables before every step. ``copy_blocks`` (copy-on-write)
 and ``apply_perm`` (defrag) mirror the host pool's block moves on every
-layer's pool leaves, int8 scales included.
+layer's pool leaves, int8 scales included, and ``import_blocks_from``
+copies a disagg handoff's blocks in from another runner's pools.
 
 Host arrays reach the device through pinned host buffers, packed into one
 buffer and moved by one ``non_blocking`` copy a call (``_stage``): the
@@ -377,16 +378,22 @@ class ModelRunner:
         iteration runs first on a side stream, with every row dead (the
         zeroed state: nothing but the trash blocks is written), so that the
         first cuBLAS call, the kernels' build and load and their first
-        launch happen outside the capture. A failed capture raises."""
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._iteration(st)
-        cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with build.capturing() as tally, torch.cuda.graph(graph):
-            self._iteration(st)
+        launch happen outside the capture. A failed capture raises.
+        Captures take turns (``build.CAPTURE_LOCK``) and check only this
+        thread's calls (``capture_error_mode="thread_local"``): another
+        thread may go on launching on the device's default stream
+        meanwhile (a fleet router polling its replicas in parallel)."""
+        with build.CAPTURE_LOCK:
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self._iteration(st)
+            cur.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with build.capturing() as tally, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
+                self._iteration(st)
         st.graph, st.tally = graph, tally
         self.graph_captures += 1
 
@@ -499,3 +506,42 @@ class ModelRunner:
             {"src": [a for a, _ in pairs], "dst": [b for _, b in pairs]})
         for leaf in self.cache["units"]["b0"].values():
             leaf[:, idx["dst"]] = leaf[:, idx["src"]]
+
+    def import_blocks_from(self, src: "ModelRunner", src_ids: Sequence[int],
+                           dst_ids: Sequence[int]) -> None:
+        """Disagg KV handoff (serve.disagg): copy storage rows ``src_ids``
+        of ``src``'s block pools into rows ``dst_ids`` of this runner's,
+        every leaf of every layer (int8 scales included, so quantized KV
+        arrives bit for bit), in place and on the current stream. In place
+        matters: an async engine's captured decode graph holds this pool's
+        addresses, so a rebound pool would be a stale read at the next
+        replay. Both ids lie in the pools proper, never in the trash
+        blocks behind them. Both runners must be on one device (peer
+        copies between cards come with multi-device serving)."""
+        mine, theirs = self.cache["units"]["b0"], src.cache["units"]["b0"]
+        at = [next(iter(pool.values())).device for pool in (theirs, mine)]
+        if at[0] != at[1]:
+            raise ValueError(f"import_blocks_from: source pool on {at[0]}, "
+                             f"this pool on {at[1]}; both engines must "
+                             f"share one device")
+        if len(src_ids) != len(dst_ids):
+            raise ValueError(f"import_blocks_from: {len(src_ids)} source "
+                             f"blocks for {len(dst_ids)} destinations")
+        if not len(src_ids):
+            return
+        if mine.keys() != theirs.keys() or any(
+                mine[k].shape[0] != theirs[k].shape[0]
+                or mine[k].shape[2:] != theirs[k].shape[2:] for k in mine):
+            raise ValueError("import_blocks_from: the two block pools hold "
+                             "different leaves or block shapes")
+        for ids, pool in ((src_ids, theirs), (dst_ids, mine)):
+            n_blocks = next(iter(pool.values())).shape[1]
+            if min(ids) < 0 or max(ids) >= n_blocks:
+                raise ValueError(f"import_blocks_from: block ids {list(ids)}"
+                                 f" outside the pool of {n_blocks} blocks")
+        n = len(src_ids)
+        idx = self._stage(
+            _Layout((("src", torch.int64, (n,)), ("dst", torch.int64, (n,)))),
+            {"src": list(src_ids), "dst": list(dst_ids)})
+        for name, leaf in mine.items():
+            leaf[:, idx["dst"]] = theirs[name][:, idx["src"]].to(leaf.dtype)

@@ -2,8 +2,7 @@
 decode, FIFO/priority ordering, preemption-by-eviction, prefix reuse.
 
 The port's copy of the reference's scheduler: pure host policy over slots
-and the block pool, without the disagg branch that a later slice brings.
-Preemption is vLLM-style recompute: the victim's blocks are freed and its
+and the block pool. Preemption is vLLM-style recompute: the victim's blocks are freed and its
 prompt plus already generated tokens replay through chunked prefill when
 capacity returns (under speculation the prompt only: the generated tokens
 re-feed through verify steps, ``SchedEntry.resync``).
@@ -14,6 +13,12 @@ block-aligned prefix, maps those physical blocks into the new slot
 (refcount++), and chunked prefill covers only the uncached suffix —
 including on replay after eviction, where the victim's own prompt blocks
 are usually still indexed and re-prefill collapses to a table remap.
+
+A disagg prefill engine parks a request at ``State.HANDOFF`` once its
+prompt KV is final: a parked entry is neither a prefill nor a decode row
+(``prefill_entries``, ``decode_entries``, ``decode_only`` skip it), but
+it holds its slot and blocks, stays preemptable (``pick_victim``) and,
+evicted, replays its prefill and parks again.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ class State(enum.Enum):
     WAITING = "waiting"
     PREFILL = "prefill"
     RUNNING = "running"
+    HANDOFF = "handoff"         # prefill done, parked for disagg export
     DONE = "done"
 
 

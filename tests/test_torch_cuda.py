@@ -699,3 +699,123 @@ def test_profiled_serve_judged_against_the_h100_entry(cuda):
     for r in rows:
         assert r["chip"] == "h100-sxm" and 0 < r["attain"] <= 1
         assert r["n_keys"] < 8 * eng.scfg.blocks_per_seq * 16
+
+
+# ---------------------------------------------------------------------------
+# the disagg handoff and the fleet's parallel polling on the card
+
+
+def _nectar_params(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("nectar-relu-llama-1.7m")
+    return cfg, Model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                                device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["f32", "int8"])
+def test_import_blocks_from_in_place_and_bit_equal(cuda, kv_quant):
+    """A handoff between two engines on the card copies every leaf (int8
+    payloads and scales included) bit for bit into the decode pool's
+    existing storage (the same data_ptr before and after), leaves every
+    other block of the pool untouched, and the adopted row decodes."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import Request
+    cfg, params = _nectar_params(cuda)
+    sc = ServeConfig(paged=True, max_batch=2, max_seq=256, block_size=16,
+                     kv_quant=kv_quant,
+                     attn_backend="naive" if kv_quant else "flash")
+    pre, dec = (Engine(cfg, params, sc, device=cuda) for _ in range(2))
+    rng = np.random.default_rng(3)
+    req = Request(rid=0, prompt=rng.integers(0, cfg.vocab, 200,
+                                             dtype=np.int32), max_new=4)
+    assert pre.submit_prefill(req)
+    for _ in range(20):
+        if pre.handoff_ready():
+            break
+        pre.step()
+    packet = pre.export_handoff(0)
+    assert packet is not None and len(packet.blocks) == 13
+    leaves = dec.runner.cache["units"]["b0"]
+    ptrs = {k: v.data_ptr() for k, v in leaves.items()}
+    before = {k: v.clone() for k, v in leaves.items()}
+    assert dec.adopt_handoff(packet, pre.runner)
+    dst = dec.pool.export_blocks(dec.sched.active[0].slot)
+    torch.cuda.synchronize()
+    assert {k: v.data_ptr() for k, v in leaves.items()} == ptrs
+    src = pre.runner.cache["units"]["b0"]
+    others = [b for b in range(dec.pool.n_blocks) if b not in dst]
+    for name, leaf in leaves.items():
+        assert torch.equal(leaf[:, dst], src[name][:, packet.blocks])
+        assert torch.equal(leaf[:, others], before[name][:, others])
+    pre.release_handoff(0)
+    for _ in range(20):
+        if req.done:
+            break
+        dec.step()
+    assert len(req.tokens_out) == 4
+
+
+@pytest.mark.cuda
+def test_import_blocks_from_refuses_a_cross_device_pair(cuda):
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve.engine import Engine
+    cfg, params = _nectar_params(cuda)
+    sc = ServeConfig(paged=True, max_batch=2, max_seq=64, block_size=16)
+    on_card = Engine(cfg, params, sc, device=cuda)
+    on_cpu = Engine(cfg, params, sc, device="cpu")
+    with pytest.raises(ValueError, match="one device"):
+        on_card.runner.import_blocks_from(on_cpu.runner, [0], [0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 8])
+def test_parallel_polling_of_async_replicas(cuda, K):
+    """Two async replicas (graphs captured at build) polled from a thread
+    pool: no capture error, and the tokens, decisions and graph-aware
+    launch counts of serial polling; an engine built (its graphs
+    captured) while another thread serves captures without raising."""
+    import threading
+    from repro_torch.configs.base import AsyncConfig, ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve.router import build_fleet
+    cfg, params = _nectar_params(cuda)
+    sc = ServeConfig(paged=True, attn_backend="flash", max_batch=4,
+                     max_seq=256, prefix_cache=True,
+                     async_cfg=AsyncConfig(enabled=True, max_device_ticks=K))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, int(n), dtype=np.int32)
+               for n in rng.integers(8, 60, 8)]
+    out = []
+    for parallel in (False, True):
+        router = build_fleet(cfg, params, sc, n_replicas=2,
+                             policy="round_robin", parallel=parallel,
+                             device=cuda)
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        rids = [router.submit(p, max_new=24) for p in prompts]
+        router.drain_all()
+        torch.cuda.synchronize()
+        out.append(([list(router.result(r).tokens_out) for r in rids],
+                    [(d.rid, d.replica, d.reason) for d in router.decisions],
+                    dict(ops.LAUNCHES)))
+    assert out[1] == out[0]
+    # a capture on the main thread while a worker thread serves
+    from repro_torch.serve.engine import Engine
+    errors = []
+
+    def serve():
+        try:
+            for p in prompts[:4]:
+                router.submit(p, max_new=16)
+            router.drain_all()
+        except Exception as exc:          # reported below
+            errors.append(exc)
+    worker = threading.Thread(target=serve)
+    worker.start()
+    spare = Engine(cfg, params, sc, device=cuda)
+    worker.join(timeout=300)
+    assert not worker.is_alive() and not errors
+    assert spare.runner.graph_captures == 2

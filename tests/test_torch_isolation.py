@@ -41,6 +41,20 @@ def test_port_imports_no_jax_and_no_reference_package(path):
     assert _forbidden_imports(path.read_text()) == []
 
 
+# the modules of the disagg and fleet slice, named so that a move or a
+# rename fails here instead of dropping out of PORT_FILES' scan
+SLICE_FILES = ("serve/disagg/__init__.py", "serve/disagg/coordinator.py",
+               "serve/fleet.py", "serve/router.py", "dist/__init__.py",
+               "dist/elastic.py")
+
+
+@pytest.mark.parametrize("name", SLICE_FILES)
+def test_disagg_and_fleet_modules_import_no_jax(name):
+    path = ROOT / "src" / "repro_torch" / name
+    assert path in PORT_FILES
+    assert _forbidden_imports(path.read_text()) == []
+
+
 def test_import_scan_matches_module_names_exactly():
     src = ("import repro_torch.kernels\nfrom repro_torch import device\n"
            "import jax.numpy as jnp\nfrom repro.models import Model\n"
@@ -71,6 +85,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         from_jax_params({}, cfg)
     Engine(cfg, params, ServeConfig(paged=True), device="cpu")
+
+
+def test_disagg_and_fleet_entry_points_raise_without_a_card(no_card):
+    from repro_torch.serve.disagg import DisaggCoordinator
+    from repro_torch.serve.fleet import Fleet
+    from repro_torch.serve.router import build_fleet
+    cfg = get_config("nectar-relu-llama-1.7m")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    scfg = ServeConfig(paged=True, max_batch=2, max_seq=32, block_size=8)
+    for make in (lambda: DisaggCoordinator(cfg, params, scfg),
+                 lambda: Fleet(cfg, params, scfg, n_replicas=1),
+                 lambda: build_fleet(cfg, params, scfg, n_replicas=1)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+    assert DisaggCoordinator(cfg, params, scfg, device="cpu").prefill \
+        .device.type == "cpu"
+    assert build_fleet(cfg, params, scfg, n_replicas=1, device="cpu") \
+        .fleet.live()[0].engine.device.type == "cpu"
 
 
 def test_active_chip_defaults_to_cuda_and_raises_without_it(no_card):

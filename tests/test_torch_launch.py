@@ -5,7 +5,8 @@ end to end; the reference CLI's flags of later slices are refused with
 the ROADMAP item that brings them; ``--spec ngram|selfspec`` serves
 speculatively and ``--async`` through the async engine; ``--obs``,
 ``--trace-out``, ``--metrics-port`` and ``--profile`` add the reference
-CLI's output keys; ``metrics.summary()`` has the reference's keys, the
+CLI's output keys, and so do ``--disagg*``, ``--direct-max-suffix``,
+``--replicas`` and ``--router-policy``; ``metrics.summary()`` has the reference's keys, the
 speculative-decoding counters included.
 """
 
@@ -68,10 +69,6 @@ def test_cli_main_in_process(argv):
 @pytest.mark.parametrize("flags,item", [
     (["--ckpt-dir", "/nonexistent"], "item 9"), (["--mesh", "2"], "item 9"),
     (["--shard-kv-seq"], "item 9"),
-    (["--disagg"], "item 5"), (["--disagg-prefill-batch", "2"], "item 5"),
-    (["--disagg-prefill-blocks", "2"], "item 5"),
-    (["--direct-max-suffix", "2"], "item 5"), (["--replicas", "2"], "item 5"),
-    (["--router-policy", "round_robin"], "item 5"),
 ])
 def test_cli_refuses_flags_of_later_slices(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -275,3 +272,46 @@ def test_cli_metrics_port_serves_while_the_requests_run(monkeypatch,
     with pytest.raises(urllib.error.URLError):
         urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
                                timeout=2)
+
+
+# ---------------------------------------------------------------------------
+# disagg and fleet flags (--disagg*, --direct-max-suffix, --replicas,
+# --router-policy)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--disagg"],
+    ["--disagg", "--disagg-prefill-batch", "1",
+     "--disagg-prefill-blocks", "24"],
+    ["--disagg", "--direct-max-suffix", "4"],
+    ["--replicas", "2"],
+    ["--replicas", "2", "--router-policy", "round_robin"],
+    ["--replicas", "2", "--router-policy", "least_loaded", "--disagg"]],
+    ids=["disagg", "disagg-prefill-sizes", "direct-max-suffix", "replicas",
+         "round-robin", "fleet-of-disagg-pools"])
+def test_cli_serves_disagg_and_fleet(flags, monkeypatch, capsys):
+    """The six flags are served with the reference CLI's meaning: a disagg
+    serve adds the reference's keys (``n_handoffs``, ``n_decode_direct``,
+    the interference split's p99s) with its counts; a fleet serve prints
+    the reference's fleet summary keys (the port says ``tokens_per_s``
+    where the reference says ``tok_per_s_cpu``, and adds ``device``) with
+    its router counters and per-replica dispatch counts."""
+    if not _BASE:
+        _BASE["ref"] = _reference_cli(SMOKE, monkeypatch, capsys)
+        _BASE["port"] = cli.main(["--device", "cpu", *SMOKE])
+    ref = _reference_cli(SMOKE + flags, monkeypatch, capsys)
+    out = cli.main(["--device", "cpu", *SMOKE, *flags])
+    assert out["requests"] == ref["requests"] == 3
+    assert out["tokens"] == ref["tokens"] == 12
+    if "--replicas" in flags:
+        assert set(out) - {"device", "tokens_per_s"} \
+            == set(ref) - {"tok_per_s_cpu"}
+        assert out["router"] == ref["router"]
+        assert {str(k): v for k, v in out["per_replica_dispatched"].items()} \
+            == ref["per_replica_dispatched"]
+        assert out["n_replicas"] == 2
+        return
+    assert set(out) - set(_BASE["port"]) == set(ref) - set(_BASE["ref"])
+    assert (out["n_handoffs"], out["n_decode_direct"]) \
+        == (ref["n_handoffs"], ref["n_decode_direct"])
+    assert out["n_handoffs"] + out["n_decode_direct"] == 3
