@@ -129,6 +129,35 @@ Phases, each reporting on lines of its own:
                after the last arrival: the drained replica's in-flight
                requests finish with the round-robin fleet's tokens and it
                is reaped once idle.
+ 18. recurrent — the recurrent families through the slot engine (runs
+               after phase 12): (a) kernel 5 at zamba2-2.7b's decode
+               shape (B 4, Hq = Kv = 32, Dh 80, S 512, f32, kv_len
+               1-192) against its plain version is a phase-3 row, with
+               its columns, and Dh 80 joins kernel 5's edge sweep there;
+               (b) zamba2-smoke and xlstm-smoke, f32, 16 prompts of
+               8-128 tokens on the slot engine, card against CPU (kernel
+               5 once per shared-attention invocation a decode step,
+               xlstm no kernel); (c) zamba2-2.7b at full width and depth
+               in bf16 (seeded weights made on the card), 4 prompts of
+               32-128 tokens, 16 new tokens each, teacher-forced on the
+               CPU through the card's tokens and held to ROADMAP §3's
+               bf16 rule at every generated token (logits within the bf16
+               error measured on the CPU of the CPU's and of the f32
+               forward of the same weights, a token apart from the CPU's
+               choice only where the CPU margin is within it), with two
+               control faults of the recurrent state (rounded to bf16;
+               a lost write, which must fail the bound), kernel 5
+               nine times a decode step at Dh 80; tokens/s and TPOT from
+               a plain serve, which runs again under torch.profiler
+               (busy share, kernel 5's device ms a call); (d) xlstm-125m
+               in bf16 the same way; (e) llama3.2-1b-smoke in
+               bf16 through the paged flash engine (kernel 1 with a bf16
+               model's q) on the phase-5 prompts (token ids mod its
+               vocab), teacher-forced, bf16 rule; (f) a recurrent draft
+               model (zamba2-smoke with nectar's vocab, seeded) drafting one
+               request at a time for the paged nectar engine: tokens
+               against phase 5's paged serve and the CPU, kernel 5 once a
+               draft step.
  13. profile — the paged, slot, prefix, sampled, int8kv, the ngram and
                model spec serves, the K = 8 decode-heavy async serve and
                the phase-17 disagg serve again under torch.profiler: each kernel's device time per
@@ -685,7 +714,8 @@ def gather_edges(dev, rng):
 
 def decode_edges(dev, rng):
     """Kernel 5 at the edges of its split design, for G in {1, 4, 8} at Dh
-    32, 64 and 128 and G in {1, 2, 4} at Dh 16, f32 and bf16 K/V, S = 333
+    32, 64, 80 and 128 and G in {1, 2, 4} at Dh 16, f32 and bf16 K/V,
+    S = 333
     (no multiple of a chunk):
     kv_len 0 (a mean over all S), 1, 31/32/33, S-1, S, S+5 (an idle slot)
     and contexts one key either side of the last chunk of a round over the
@@ -695,7 +725,7 @@ def decode_edges(dev, rng):
     n, worst, S, Kv = 0, 0.0, 333, 2
     n_sm = build.sm_count(dev.index)
     shapes = [(G, Dh) for G in (1, 4, 8) for Dh in (32, 64, 128)] \
-        + [(G, 16) for G in (1, 2, 4)]
+        + [(G, 16) for G in (1, 2, 4)] + [(G, 80) for G in (1, 4, 8)]
     for dtype in (torch.float32, torch.bfloat16):
         for G, Dh in shapes:
             plan = decode_attn.decode_plan(12, S, Kv * G, Kv, Dh,
@@ -831,12 +861,13 @@ def perturbed_scores(logits, presence, temp, top_k, top_p, rep, keys):
     return torch.where(t(temp)[:, None] > 0, noisy, pen).cpu().numpy()
 
 
-def recording_engine(engine):
+def recording_engine(engine, scores=None):
     """Record the score vector behind every committed token (the logits,
     or the perturbed score of a sampled row) and its top-2 margin,
-    {(rid, index): margin}. Every batched sample goes through
-    ``engine.sampler``; the slot engine samples a request's first token
-    from its prefill logits on the host."""
+    {(rid, index): margin}; with ``scores`` also each token's score
+    vector there, {(rid, index): f32[V]}. Every batched sample goes
+    through ``engine.sampler``; the slot engine samples a request's first
+    token from its prefill logits on the host."""
     ticks, prefills, margins = [], [], {}
     sampler, append = engine.sampler, engine._append_token
     paged = engine.scfg.paged
@@ -850,6 +881,8 @@ def recording_engine(engine):
             z = ticks[-1][slot]
         else:
             z = prefills[-1]
+        if scores is not None:
+            scores[(req.rid, len(req.tokens_out))] = z
         z = np.sort(z)
         margins[(req.rid, len(req.tokens_out))] = float(z[-1] - z[-2])
         return append(req, slot, tok, lp)
@@ -867,19 +900,33 @@ def recording_engine(engine):
     return ticks, prefills, margins
 
 
-def serve(engine, prompts, max_new, sps=None):
+def serve(engine, prompts, max_new, sps=None, forced=None):
     """Submit every prompt (with its SamplingParams, when given) through
     StreamingServer and drain it, with the launch counts set to 0 just
-    before and read just after."""
+    before and read just after. With ``forced`` (a token list per prompt)
+    the engine commits forced's tokens in place of the ones it samples:
+    every step reads the forced stream (teacher forcing)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import api
     server = api.StreamingServer(engine)
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
+    stream = {}
+    if forced is not None:
+        # the slot engine commits a request's first token in submit
+        append = engine._append_token
+
+        def forced_append(req, slot, tok, lp):
+            return append(req, slot, stream[req.rid][len(req.tokens_out)],
+                          lp)
+        engine._append_token = forced_append
     t0 = time.perf_counter()
-    rids = [server.submit(p, max_new=max_new,
-                          sampling=None if sps is None else sps[i])
-            for i, p in enumerate(prompts)]
+    rids = []
+    for i, p in enumerate(prompts):
+        rid = engine.new_rid()
+        stream[rid] = None if forced is None else forced[i]
+        rids.append(server.submit(p, max_new=max_new, rid=rid,
+                                  sampling=None if sps is None else sps[i]))
     finished = server.drain()
     if engine.device.type == "cuda":
         torch.cuda.synchronize()
@@ -925,7 +972,8 @@ def profile_serve(label, make_engine, prompts, max_new, tokens, launches,
     check(plaunches == launches, f"{label}: the profiled serve launched "
           f"{plaunches}, the first {launches}")
     out = {"kernel_device_ms": {}, "device_ms": None, "busy_share": None,
-           "profiled_wall_s": pwall, "top_device": []}
+           "profiled_wall_s": pwall, "top_device": [],
+           "n_device_events": None}
     if averages is not None:
         graphs = getattr(getattr(made[0], "runner", None), "graph_replays",
                          0)
@@ -942,6 +990,7 @@ def profile_serve(label, make_engine, prompts, max_new, tokens, launches,
         out["device_ms"] = sum(e.self_device_time_total
                                for e in on_device) / 1e3
         out["busy_share"] = out["device_ms"] / (wall * 1e3)
+        out["n_device_events"] = sum(e.count for e in on_device)
         out["top_device"] = [[e.key[:60], e.count,
                               e.self_device_time_total / 1e3]
                              for e in on_device[:TOP_DEVICE]]
@@ -968,18 +1017,20 @@ def check_tokens(label, tokens, cfg, max_new, logits):
           f"{label}: non-finite logits")
 
 
-def compare_cpu(label, gpu_tokens, cpu_tokens, margins, rids):
+def compare_cpu(label, gpu_tokens, cpu_tokens, margins, rids,
+                tie=NEAR_TIE):
     """Card tokens vs CPU tokens per request; a difference is allowed only
-    at a near-tie of the CPU run. Returns the flips."""
+    where the CPU run's top-2 margin is at most ``tie``. Returns the
+    flips."""
     flips = []
     for i, (a, b) in enumerate(zip(gpu_tokens, cpu_tokens)):
         if a == b:
             continue
         step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
         margin = margins[(rids[i], step)]
-        check(margin <= NEAR_TIE,
+        check(margin <= tie,
               f"{label}: request {i} diverges at token {step} with a CPU "
-              f"top-2 margin {margin} > {NEAR_TIE}")
+              f"top-2 margin {margin} > {tie}")
         flips.append({"request": i, "step": step, "margin": margin})
     return flips
 
@@ -1862,6 +1913,435 @@ def disagg_phase(cfg, params, scfg, q8_scfg, dev, prompts, max_new,
     return out, launches, (toks, lnch, wall)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18: the recurrent families through the slot engine
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def tree_leaves(tree):
+    return [x for v in tree.values()
+            for x in (tree_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def bf16_error(cfg, params, prompts):
+    """The bf16 error of ``cfg`` measured on the CPU: the largest |logit -
+    f32 logit| of the port's bf16 forward against the f32 forward of the
+    same bf16-rounded weights (``params``, on the CPU), over every
+    position of ``prompts``."""
+    from repro_torch.models import transformer
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    f32_params = tree_map(lambda t: t.float(), params)
+    worst = 0.0
+    with torch.no_grad():
+        for p in prompts:
+            tok = torch.tensor(p[None])
+            logits = [transformer.project_logits(
+                          pr, c, transformer.forward(pr, c, tok)[0])
+                      for pr, c in ((params, cfg), (f32_params, f32_cfg))]
+            worst = max(worst, float((logits[0] - logits[1]).abs().max()))
+    return worst
+
+
+def timed_prefills(engine):
+    """The slot engine's prefills, each timed to its end on the card (ms
+    per prefill)."""
+    acc = []
+    prefill = engine.model.prefill
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(*args)
+        torch.cuda.synchronize()
+        acc.append(1e3 * (time.perf_counter() - t0))
+        return out
+    engine.model.prefill = timed
+    return acc
+
+
+def faulty_state(engine, fault):
+    """A control fault in the slot engine's decode step, on every
+    recurrent block's state: "bf16" rounds the f32 state to bf16 after
+    each step (the reference keeps it in f32 in a bf16 config); "stale"
+    keeps the first decode step from advancing it (a lost write)."""
+    from repro_torch.models import transformer
+    step = engine.model.decode_step
+    kinds = engine.cfg.pattern_unit()
+    calls = [0]
+
+    def state(cache):
+        return [leaf for j, kind in enumerate(kinds)
+                if kind not in transformer.ATTN_KINDS
+                for leaf in cache["units"][f"b{j}"].values()]
+
+    def faulty_step(params, tok, cache):
+        before = [t.clone() for t in state(cache)]
+        logits, cache = step(params, tok, cache)
+        for new, old in zip(state(cache), before):
+            if fault == "stale" and calls[0] == 0:
+                new.copy_(old)
+            elif fault == "bf16" and new.dtype == torch.float32:
+                new.copy_(new.bfloat16().float())
+        calls[0] += 1
+        return logits, cache
+    engine.model.decode_step = faulty_step
+
+
+def forced_scores(engine, prompts, max_new, tokens):
+    """Serve ``prompts`` on ``engine`` teacher-forced through ``tokens``:
+    {(request, index): the score vector behind token index}, the CPU-side
+    top-2 margins keyed the same way, and the serve's seconds."""
+    scores = {}
+    _, _, margins = recording_engine(engine, scores)
+    t0 = time.perf_counter()
+    got, rids, _, _, _ = serve(engine, prompts, max_new, forced=tokens)
+    secs = time.perf_counter() - t0
+    check(got == tokens, "a teacher-forced serve did not commit the "
+          "forced tokens")
+    index = {rid: i for i, rid in enumerate(rids)}
+    return ({(index[r], j): z for (r, j), z in scores.items()},
+            {(index[r], j): m for (r, j), m in margins.items()}, secs)
+
+
+def max_diff(a, b):
+    """The largest |a - b| over two {key: score vector} of the same keys."""
+    check(a.keys() == b.keys(), "two teacher-forced serves scored "
+          "different tokens")
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+def card_vs_cpu(label, cfg, params, sc, dev, prompts, max_new, bf16,
+                plain=False, control=False):
+    """Serve ``prompts`` greedily on the card, then teacher-force the CPU
+    (the same weights, moved) through the card's tokens, so that every
+    token's logits read the same inputs on both sides. f32 models: the
+    card's logits of every token within LOGIT_ATOL of the CPU's, and a
+    token apart from the CPU's choice only where the CPU top-2 margin is
+    at most NEAR_TIE. bf16 models, ROADMAP §3's rule: the bf16 error
+    ``err`` is measured on the CPU, as the largest |bf16 - f32| logit of
+    the CPU's serve against an f32 serve of the same bf16-rounded weights
+    teacher-forced the same way and of ``bf16_error`` over every prompt
+    position; the card's logits must lie within ``err`` of the CPU's and
+    of the f32 serve's, and a token may differ from the CPU's choice only
+    where the CPU margin is within ``err``. ``plain``: serve once more on
+    the card with no recording, for the times (the first serve syncs
+    around each prefill and copies each tick's logits to the host).
+    ``control``: also teacher-force a card serve for each control fault
+    of ``faulty_state`` and report how far its logits lie from the
+    CPU's; a lost state write must lie beyond the bound. Returns the
+    record, with the card's tokens, rids, launches, wall and engine."""
+    from repro_torch.serve.engine import Engine
+
+    def make(c, device, p):
+        return Engine(c, p, sc, device=device)
+    eng = make(cfg, dev, params)
+    scores = {}
+    ticks, prefills, _ = recording_engine(eng, scores)
+    prefill_ms = [] if sc.paged else timed_prefills(eng)
+    tokens, rids, wall, summary, launches = serve(eng, prompts, max_new)
+    check_tokens(label, tokens, cfg, max_new, ticks + prefills)
+    index = {rid: i for i, rid in enumerate(rids)}
+    card = {(index[r], j): z for (r, j), z in scores.items()}
+    timing = {"instrumented_wall_s": wall,
+              "instrumented_tpot_p50_ms": summary["tpot_p50_ms"]}
+    if plain:
+        again = make(cfg, dev, params)
+        p_tokens, _, wall, summary, p_launches = serve(again, prompts,
+                                                       max_new)
+        check(p_tokens == tokens and p_launches == launches,
+              f"{label}: the plain serve's tokens or launches differ from "
+              f"the first's")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu, cpu_margins, cpu_s = forced_scores(make(cfg, "cpu", cpu_params),
+                                            prompts, max_new, tokens)
+    logit_err = max_diff(card, cpu)
+    err, tie, bound_, f32_err, err_s = None, NEAR_TIE, LOGIT_ATOL, None, 0.0
+    if bf16:
+        t0 = time.perf_counter()
+        f32_cfg = dataclasses.replace(cfg, dtype="float32")
+        f32, _, _ = forced_scores(
+            make(f32_cfg, "cpu", tree_map(lambda t: t.float(), cpu_params)),
+            prompts, max_new, tokens)
+        err_tokens = max_diff(cpu, f32)
+        err_prompts = bf16_error(cfg, cpu_params, prompts)
+        err_s = time.perf_counter() - t0
+        err = tie = bound_ = max(err_tokens, err_prompts)
+        f32_err = max_diff(card, f32)
+        check(f32_err <= err,
+              f"{label}: card logits differ by {f32_err} from the f32 "
+              f"forward of the same weights (bound {err})")
+        timing.update(bf16_error_tokens=err_tokens,
+                      bf16_error_prompts=err_prompts, f32_err=f32_err)
+    check(logit_err <= bound_,
+          f"{label}: card logits differ by {logit_err} from the CPU's "
+          f"(bound {bound_})")
+    flips = []
+    for (i, j), z in sorted(cpu.items()):
+        if int(np.argmax(z)) != tokens[i][j]:
+            margin = cpu_margins[(i, j)]
+            check(margin <= tie,
+                  f"{label}: request {i} token {j} is {tokens[i][j]} on "
+                  f"the card, {int(np.argmax(z))} on the CPU, whose top-2 "
+                  f"margin {margin} > {tie}")
+            flips.append({"request": i, "step": j, "margin": margin})
+    all_margins = np.array(list(cpu_margins.values()))
+    median_margin = float(np.median(all_margins))
+    within_tie = int((all_margins <= tie).sum())
+    ctrl_err = {}
+    for fault in ("bf16", "stale") if control else ():
+        ctrl_eng = make(cfg, dev, params)
+        faulty_state(ctrl_eng, fault)
+        ctrl, _, _ = forced_scores(ctrl_eng, prompts, max_new, tokens)
+        ctrl_err[fault] = max_diff(ctrl, cpu)
+    check(ctrl_err.get("stale", np.inf) > bound_,
+          f"{label}: a lost state write moves the logits by only "
+          f"{ctrl_err.get('stale')}, within the bound {bound_}")
+    steps = eng.runner.n_steps if sc.paged else eng.metrics.decode_steps
+    print_serve(label + (" (plain serve)" if plain else ""), len(prompts),
+                summary, wall, steps, launches)
+    if plain:
+        print(f"{label}: the recording serve took "
+              f"{timing['instrumented_wall_s']:.3f} s, TPOT p50 "
+              f"{timing['instrumented_tpot_p50_ms']:.3f} ms")
+    print(f"{label}: teacher-forced, {len(cpu)} tokens' logits compared "
+          f"({len(prompts)} prefills, {len(cpu) - len(prompts)} decode "
+          f"steps); card against CPU max_abs_err {logit_err:.4g}"
+          + (f", against the f32 forward {f32_err:.4g}, bound {bound_:.4g}"
+             f" = the bf16 error on the CPU (CPU bf16 against f32: "
+             f"{timing['bf16_error_tokens']:.4g} over the served tokens, "
+             f"{timing['bf16_error_prompts']:.4g} over every prompt "
+             f"position; {err_s:.1f} s)" if bf16
+             else f" (bound {bound_:.4g})")
+          + f"; {len(cpu) - len(flips)}/{len(cpu)} tokens the CPU's choice,"
+          f" flips (CPU margin <= {tie:.4g}): {flips}; CPU top-2 margin "
+          f"median {median_margin:.4g}, {within_tie}/{len(cpu)} within the "
+          f"tie"
+          + "".join(f"; control fault {f} state against CPU {e:.4g}, "
+                    + ("beyond" if e > bound_ else "within") + " the bound"
+                    for f, e in ctrl_err.items())
+          + f"; CPU serve {cpu_s:.1f} s")
+    return {"tokens": tokens, "rids": rids, "launches": launches,
+            "wall_s": wall, "summary": summary, "steps": steps,
+            "engine": eng,
+            "record": dict(summary, wall_s=wall, steps=steps,
+                           launches=launches, logit_err=logit_err,
+                           bound=bound_, bf16_error=err, flips=flips,
+                           n_compared=len(cpu),
+                           median_margin=median_margin,
+                           within_tie=within_tie, control_err=ctrl_err,
+                           cpu_serve_s=cpu_s, prefill_ms=prefill_ms,
+                           **timing)}
+
+
+def check_launches(label, launches, want):
+    """Every kernel's launches as ``want`` says (0 where it names none)."""
+    for key in KERNELS:
+        check(launches[key] == want.get(key, 0),
+              f"{label}: {key} launched {launches[key]} times, expected "
+              f"{want.get(key, 0)}")
+
+
+def recurrent_phase(dev, cfg, params, scfg, prompts, max_new, paged_run,
+                    big=("zamba2-2.7b", "xlstm-125m")):
+    """Phase 18 ((a), kernel 5 at zamba2-2.7b's decode shape, is a phase-3
+    row): (b) zamba2-smoke and xlstm-smoke, f32,
+    on the slot engine, card against CPU teacher-forced; (c) zamba2-2.7b
+    at full width and depth in bf16, 4 requests, card against CPU
+    teacher-forced under the bf16 rule with the state control faults,
+    then a plain serve for the times and once more under torch.profiler;
+    (d) xlstm-125m in bf16 the same way, unprofiled; (e)
+    llama3.2-1b-smoke in bf16 through the paged flash engine (kernel 1
+    with a bf16 model's q); (f) the sequential drafter: a
+    recurrent draft model (zamba2-smoke with nectar's vocab) drafting for
+    the paged nectar engine, against phase 5's paged serve and the CPU.
+    ``paged_run`` is phase 5's (tokens, margins, rids). Returns (details,
+    the serves' launches summed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ServeConfig, SpecConfig
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.spec.drafter import ModelDrafter
+    details, total = {}, dict.fromkeys(KERNELS, 0)
+    rrng = np.random.default_rng(SEED + 12)
+    zcfg = get_config(big[0])
+
+    def add(launches):
+        for key in KERNELS:
+            total[key] += launches[key]
+
+    def seeded(c, seed):
+        return Model(c).init(torch.Generator(device=dev).manual_seed(seed),
+                             device=dev)
+
+    def smoke_prompts(c, n, lo, hi):
+        return [rrng.integers(0, c.vocab, int(m), dtype=np.int32)
+                for m in rrng.integers(lo, hi + 1, n)]
+
+    # (b) the SMOKEs, f32, slot engine
+    slot_sc = ServeConfig(paged=False, max_batch=8, max_seq=256)
+    for name in ("zamba2-smoke", "xlstm-smoke"):
+        c = get_config(name)
+        r = card_vs_cpu(f"recurrent {name}", c, seeded(c, SEED + 12),
+                        slot_sc, dev, smoke_prompts(c, 16, 8, 128), 16,
+                        bf16=False)
+        n_attn = c.pattern_unit().count("shared_attn") * c.n_units
+        check(r["steps"] > 0, f"recurrent {name}: no decode step ran")
+        check_launches(f"recurrent {name}", r["launches"],
+                       {"decode_attention": n_attn * r["steps"]})
+        details[name] = r["record"]
+        add(r["launches"])
+
+    # (c) zamba2-2.7b, full width and depth, bf16: 4 requests of 32-128
+    # prompt tokens, 16 new tokens each
+    big_sc = ServeConfig(paged=False, max_batch=4, max_seq=512)
+    t0 = time.perf_counter()
+    zparams = seeded(zcfg, SEED + 13)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(zparams))
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(zparams))
+    # a decode step reads every weight but the embedding table's rows
+    step_bound_ms = (w_bytes - zparams["embed"].numel()
+                     * zparams["embed"].element_size()) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"recurrent {zcfg.name}: {zcfg.n_layers} layers "
+          f"({zcfg.pattern_unit()} x {zcfg.n_units}), {n_params} parameters "
+          f"(the analytic param_count() {zcfg.param_count()} leaves out the "
+          f"shared block's FFN), {w_bytes} bytes of weights, made on the "
+          f"card in {time.perf_counter() - t0:.1f} s")
+    zprompts = smoke_prompts(zcfg, 4, 32, 128)
+    r = card_vs_cpu(f"recurrent {zcfg.name}", zcfg, zparams, big_sc, dev,
+                    zprompts, 16, bf16=True, plain=True, control=True)
+    n_attn = zcfg.pattern_unit().count("shared_attn") * zcfg.n_units
+    check(n_attn == 9 and r["steps"] > 0,
+          f"recurrent {zcfg.name}: {n_attn} shared attention invocations a "
+          f"step, {r['steps']} decode steps")
+    check_launches(f"recurrent {zcfg.name}", r["launches"],
+                   {"decode_attention": n_attn * r["steps"]})
+    add(r["launches"])
+    prof = profile_serve(f"profile {zcfg.name}",
+                         lambda: Engine(zcfg, zparams, big_sc, device=dev),
+                         zprompts, 16, r["tokens"], r["launches"],
+                         r["wall_s"])
+    s = r["summary"]
+    k5 = prof["kernel_device_ms"].get("decode_attention")
+    busy = ("not measured" if prof["busy_share"] is None
+            else f"{100 * prof['busy_share']:.2f}%")
+    print(f"recurrent {zcfg.name}: plain serve {s['tokens_per_s']:.2f} "
+          f"tok/s; prefill ms (each synced) "
+          f"{['%.1f' % x for x in r['record']['prefill_ms']]}; TPOT p50 "
+          f"{s['tpot_p50_ms']:.2f} ms (bound of a decode step: "
+          f"{step_bound_ms:.3f} ms for the bf16 weights it reads at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s), busy share {busy} of the "
+          f"plain serve's wall, "
+          f"{prof['n_device_events']} CUDA kernels and copies in the serve's "
+          f"{r['steps']} decode steps and 4 prefills; kernel 5 at Dh 80: "
+          + ("not measured" if k5 is None else f"{k5:.5f}")
+          + f" device ms a call, {n_attn} launches a decode step; "
+          f"most device time: "
+          + "; ".join(f"{n} x{c} {t:.3f}" for n, c, t in prof["top_device"]))
+    details[zcfg.name] = dict(r["record"], profile=prof, n_params=n_params,
+                              weight_bytes=w_bytes,
+                              step_bound_ms=step_bound_ms)
+    del zparams, r
+    torch.cuda.empty_cache()
+
+    # (d) xlstm-125m, bf16, the same rule
+    xcfg = get_config(big[1])
+    r = card_vs_cpu(f"recurrent {xcfg.name}", xcfg, seeded(xcfg, SEED + 14),
+                    big_sc, dev, smoke_prompts(xcfg, 4, 32, 128), 16,
+                    bf16=True, plain=True, control=True)
+    check_launches(f"recurrent {xcfg.name}", r["launches"], {})
+    s = r["summary"]
+    print(f"recurrent {xcfg.name}: plain serve {s['tokens_per_s']:.2f} "
+          f"tok/s, TPOT p50 {s['tpot_p50_ms']:.2f} ms; prefill ms (each "
+          f"synced) {['%.1f' % x for x in r['record']['prefill_ms']]}")
+    details[xcfg.name] = r["record"]
+    add(r["launches"])
+
+    # (e) a bf16 model through the paged flash engine: kernel 1 with a
+    # bf16 model's q, widened at the call (fault 2(c))
+    lcfg = dataclasses.replace(get_config("llama3.2-1b-smoke"),
+                               dtype="bfloat16")
+    lparams = seeded(lcfg, SEED + 15)
+    check(lparams["embed"].dtype == torch.bfloat16,
+          "bf16 paged: the weights are not bf16")
+    r = card_vs_cpu("recurrent bf16 paged flash llama3.2-1b-smoke", lcfg,
+                    lparams, scfg, dev, [p % lcfg.vocab for p in prompts],
+                    max_new, bf16=True)
+    check_launches("recurrent bf16 paged flash", r["launches"],
+                   {"paged_attention": lcfg.n_layers * r["steps"]})
+    check(r["steps"] > 0, "bf16 paged: no step ran")
+    details["bf16_paged_flash"] = r["record"]
+    add(r["launches"])
+
+    # (f) the sequential drafter: zamba2-smoke with nectar's vocab drafts
+    # for the paged nectar engine
+    dcfg = dataclasses.replace(get_config("zamba2-smoke"), vocab=cfg.vocab)
+    dparams = seeded(dcfg, SEED + 16)
+    sc = dataclasses.replace(scfg, spec=SpecConfig(drafter="model", k=4,
+                                                   k_max=8))
+
+    def spec_engine(device, p):
+        return Engine(cfg, p, sc, device=device, drafter=ModelDrafter(
+            dcfg, tree_map(lambda t: t.to(device), dparams), sc.max_seq,
+            max_batch=sc.max_batch, device=device))
+    eng = spec_engine(dev, params)
+    ticks, _, _ = recording_spec_engine(eng)
+    tokens, rids, wall, summary, launches = serve(eng, prompts, max_new)
+    check_tokens("recurrent drafter", tokens, cfg, max_new, ticks)
+    cpu = spec_engine("cpu", tree_map(lambda t: t.cpu(), params))
+    cpu_ticks, cpu_margins, _ = recording_spec_engine(cpu)
+    t0 = time.perf_counter()
+    cpu_tokens, cpu_rids, _, _, _ = serve(cpu, prompts, max_new)
+    cpu_s = time.perf_counter() - t0
+    # the target's logits at the first verify step only, as phase 6 does:
+    # a top-k swap of the sparse FFN at a near-tie moves later logits by
+    # more than LOGIT_ATOL without a fault (see ``flip_probe``)
+    logit_err = float(np.abs(ticks[0] - cpu_ticks[0]).max())
+    check(logit_err <= LOGIT_ATOL,
+          f"recurrent drafter: first-step logits differ by {logit_err} "
+          f"from the CPU's")
+    flips = compare_cpu("recurrent drafter-cpu", tokens, cpu_tokens,
+                        cpu_margins, cpu_rids)
+    steps = eng.runner.n_steps
+    print_serve("recurrent drafter", len(prompts), summary, wall, steps,
+                launches)
+    print(f"recurrent drafter: card against CPU first-step logits "
+          f"max_abs_err {logit_err:.4g}; {len(prompts) - len(flips)}/"
+          f"{len(prompts)} requests token-identical, near-tie flips "
+          f"{flips}; CPU serve {cpu_s:.1f} s")
+    r = {"tokens": tokens, "launches": launches, "steps": steps,
+         "summary": summary, "engine": eng,
+         "record": dict(summary, wall_s=wall, steps=steps,
+                        launches=launches, logit_err=logit_err,
+                        flips=flips, cpu_serve_s=cpu_s)}
+    eng = r["engine"]
+    dsteps = eng.drafter.steps
+    check(not eng.drafter._batched and dsteps > 0,
+          f"recurrent drafter: {dsteps} sequential draft steps")
+    check_launches("recurrent drafter", r["launches"], {
+        "paged_attention": cfg.n_layers * r["steps"],
+        "sparse_gather_matvec": cfg.n_layers * r["steps"],
+        "decode_attention": dcfg.n_units * dsteps})
+    paged_flips = compare_cpu("recurrent drafter vs paged", r["tokens"],
+                              *paged_run)
+    print(f"recurrent drafter: {r['summary']['spec_steps']} verify steps, "
+          f"acceptance {r['summary']['spec_acceptance_rate']:.4f}, {dsteps} "
+          f"sequential draft steps (kernel 5 once each); against the "
+          f"phase-5 paged serve {len(prompts) - len(paged_flips)}/"
+          f"{len(prompts)} requests token-identical, near-tie flips "
+          f"{paged_flips}")
+    details["drafter"] = dict(r["record"], draft_steps=dsteps,
+                              paged_flips=paged_flips)
+    add(r["launches"])
+    return details, total
+
+
 def main():
     details = {}
     clock = [time.perf_counter()]
@@ -1969,6 +2449,16 @@ def main():
         run_decode(dev, nrng, f"llama3.2-1b-smoke Dh16 {dt}", B=8, S=S,
                    Hq=4, Kv=2, Dh=16, kv_len=serve_len, dtype=dtype)
         for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+    # phase 18 (a): zamba2-2.7b's shared attention through the slot engine
+    # (B 4, Hq = Kv = 32, Dh 80, S 512, f32 K/V, kv_len 1-192), from a
+    # stream of its own
+    zrng = np.random.default_rng(SEED + 11)
+    zcfg = get_config("zamba2-2.7b")
+    rows["decode_attention"] += [
+        run_decode(dev, zrng, f"{zcfg.name} shared attention Dh80 f32",
+                   B=4, S=512, Hq=zcfg.n_heads, Kv=zcfg.n_kv_heads,
+                   Dh=zcfg.d_head, kv_len=list(zrng.integers(1, 193, 4)),
+                   dtype=torch.float32)]
     # the shapes speculative decoding gives kernels 1, 2 and 5 (phase 14),
     # from a stream of their own: nectar verify rows at k_max 4 and 8; the
     # draft model's step with rows parked at lens = max_seq; the gathers of
@@ -2316,6 +2806,12 @@ def main():
 
     lap(clock, "12) llama3.2-1b-smoke")
 
+    # ---- 18) the recurrent families (runs after phase 12) --------------------
+    details["recurrent"], recurrent_launches = recurrent_phase(
+        dev, cfg, params, scfg, prompts, max_new,
+        (gpu_tokens, gpu_margins, gpu_rids))
+    lap(clock, "18) recurrent families")
+
     # ---- 14) speculative decoding (runs before phase 13, which profiles
     # two of its serves) ---------------------------------------------------------
     from repro_torch.configs.base import SpecConfig
@@ -2611,10 +3107,11 @@ def main():
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     # each kernel's launches on the paths that run it (paged attention:
-    # the paged, prefix, greedy spec, async and obs serves; the gather:
-    # those and the slot serve; decode attention: the slot serve and the model and
-    # self-spec drafters; nmce_matmul: the ops phase), and its row at the
-    # shape the main path gives it
+    # the paged, prefix, greedy spec, async, obs, disagg and phase-18 bf16
+    # and drafter serves; the gather: those and the slot serve; decode
+    # attention: the slot serve, the model and self-spec drafters and the
+    # phase-18 zamba2 serves and recurrent drafter; nmce_matmul: the ops
+    # phase), and its row at the shape the main path gives it
     spec_launches = {key: sum(run[2][key] for run in spec_runs.values())
                      for key in KERNELS}
     path_launches = {
@@ -2623,16 +3120,19 @@ def main():
         + spec_launches["paged_attention"]
         + async_launches["paged_attention"]
         + obs_launches["paged_attention"]
-        + disagg_launches["paged_attention"],
+        + disagg_launches["paged_attention"]
+        + recurrent_launches["paged_attention"],
         "sparse_gather_matvec": launches["sparse_gather_matvec"]
         + slot_launches["sparse_gather_matvec"]
         + pre_launches["sparse_gather_matvec"]
         + spec_launches["sparse_gather_matvec"]
         + async_launches["sparse_gather_matvec"]
         + obs_launches["sparse_gather_matvec"]
-        + disagg_launches["sparse_gather_matvec"],
+        + disagg_launches["sparse_gather_matvec"]
+        + recurrent_launches["sparse_gather_matvec"],
         "decode_attention": slot_launches["decode_attention"]
-        + spec_launches["decode_attention"],
+        + spec_launches["decode_attention"]
+        + recurrent_launches["decode_attention"],
         "relu_ffn": slot_launches["relu_ffn"],
         "nmce_matmul": ops_launches["nmce_matmul"]}
     main_case = {"paged_attention": rows["paged_attention"][0],

@@ -94,6 +94,42 @@ class ModelConfig:
         pat = self.pattern_unit()
         return tuple(pat[i % len(pat)] for i in range(self.n_layers))
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + norms), the
+        reference's formula: the shared attention block counts once."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        n_q = self.n_heads * self.d_head
+        n_kv = self.n_kv_heads * self.d_head
+        emb = v * d * (1 + self.n_codebooks if self.n_codebooks else 1)
+        head = 0 if self.tie_embeddings else v * d * (self.n_codebooks or 1)
+        total = emb + head + d  # final norm
+        for blk in self.layer_kinds():
+            if blk in ("attn", "shared_attn"):
+                total += n_q * d + 2 * n_kv * d + n_q * d + d  # qkvo + norm
+                if blk == "attn":
+                    total += self._ffn_params() + d
+            elif blk == "mamba2":
+                di = self.ssm_expand * d
+                heads = self.ssm_heads or di // 64
+                total += d * (2 * di + 2 * self.ssm_state + heads)  # in_proj
+                total += di * self.ssm_conv + di * d + 2 * heads + di + d
+            elif blk in ("mlstm", "slstm"):
+                di = 2 * d
+                total += d * 2 * di + di * d + 4 * di * 2 + d  # projs + gates
+            elif blk == "moe":
+                total += n_q * d + 2 * n_kv * d + n_q * d + d
+                total += d * self.n_experts  # router
+                e_f = (2 if self.glu else 1) * d * f + f * d
+                total += self.n_experts * e_f + self.n_shared_experts * e_f + d
+        n_shared = sum(1 for b in self.layer_kinds() if b == "shared_attn")
+        if n_shared > 1:
+            total -= (n_shared - 1) * (n_q * d + 2 * n_kv * d + n_q * d + d)
+        return int(total)
+
+    def _ffn_params(self) -> int:
+        return (2 if self.glu else 1) * self.d_model * self.d_ff \
+            + self.d_ff * self.d_model
+
 
 @dataclasses.dataclass(frozen=True)
 class SpecConfig:

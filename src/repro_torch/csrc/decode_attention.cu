@@ -15,8 +15,8 @@
 //
 // What the design does about it:
 //  * The visible positions [0, n) of a row, n = min(kv_len, S), are cut
-//    into chunks of KC keys (32 at Dh 16 and 32, 16 at Dh 64, 8 at Dh
-//    128). The chunks of one (row b, KV head) are dealt out round-robin
+//    into chunks of KC keys (32 at Dh 16 and 32, 16 at Dh 64 and 80, 8 at
+//    Dh 128). The chunks of one (row b, KV head) are dealt out round-robin
 //    over n_split CTAs (chunk c goes to CTA c % n_split) and, inside a CTA,
 //    over its 4 warps, so a short context and a long one both spread over
 //    every split. The host picks n_split from S, B*Kv and the SM count
@@ -35,8 +35,11 @@
 //    its key against all the CTA's heads from shared queries, and the
 //    heads' max/sum reductions interleave. In P·V each lane owns 4 output
 //    dims of one key group for every head: no shuffle per FMA.
-//  * Head dims 16, 32, 64 and 128 (every d_head a config of the repo
-//    uses); the host entry refuses any other.
+//  * Head dims 16, 32, 64, 80 and 128 (every d_head a config of the repo
+//    uses); the host entry refuses any other. At Dh 80 two lanes share a
+//    key (a 16-byte copy and the score's float4 steps both divide 80),
+//    and in P·V the 20 groups of 4 dims take lanes 0-19 over all the
+//    chunk's keys while lanes 20-31 idle: correct, not yet fast.
 //  * kv_len <= 0 masks every position, which in the reference turns every
 //    score into the same -1e30 and the softmax into a mean over all S
 //    positions; the kernel reproduces that by scoring all S keys as 0.
@@ -127,6 +130,10 @@ struct Geo {
   static constexpr int NG = DH / 4;              // 4-value groups of a row
   static constexpr int KQ = 32 / NG;             // key groups in P·V
   static constexpr int KPG = KC / KQ;            // keys per key group
+  static_assert(KQ == 1 || NG * KQ == 32,
+                "P·V key groups must tile the warp (NG a power of two)");
+  static_assert(KC % KQ == 0 && (DH / VE) % LPK == 0,
+                "chunks and copies must divide evenly");
   static constexpr int STAGE = KC * (KS + DH) * (int)sizeof(T);   // bytes
 };
 
@@ -153,7 +160,7 @@ decode_attention_kernel(const float* __restrict__ q,
                         int Kv, int n_split, float scale) {
   using G_ = Geo<DH, T>;
   constexpr int LPK = G_::LPK, KC = G_::KC, VE = G_::VE, KS = G_::KS;
-  constexpr int NG = G_::NG, KPG = G_::KPG;
+  constexpr int NG = G_::NG, KQ = G_::KQ, KPG = G_::KPG;
   constexpr int CPR = DH / VE;                   // 16-byte copies per row
   const int G = Hq / Kv;
   const int n_gt = (G + RM - 1) / RM;
@@ -264,12 +271,14 @@ decode_attention_kernel(const float* __restrict__ q,
     __syncwarp();
 #pragma unroll
     for (int r = 0; r < RM; ++r) scale4(corr[r], acc[r]);
+    if (kq < KQ) {                              // lanes past NG*KQ idle
 #pragma unroll
-    for (int u = 0; u < KPG; ++u) {
-      const int t = kq * KPG + u;
-      const float4 vv = load4(v_st + t * DH + 4 * dg);
+      for (int u = 0; u < KPG; ++u) {
+        const int t = kq * KPG + u;
+        const float4 vv = load4(v_st + t * DH + 4 * dg);
 #pragma unroll
-      for (int r = 0; r < RM; ++r) fma4(p_s[r * KC + t], vv, acc[r]);
+        for (int r = 0; r < RM; ++r) fma4(p_s[r * KC + t], vv, acc[r]);
+      }
     }
     __syncwarp();                               // stage and p_s consumed
     const int cn = c + 2 * cstep;
@@ -283,7 +292,7 @@ decode_attention_kernel(const float* __restrict__ q,
   for (int r = 0; r < RM; ++r) {
     lsum[r] = warp_sum(lsum[r]);
 #pragma unroll
-    for (int o = NG; o < 32; o <<= 1) {
+    for (int o = NG; o < NG * KQ; o <<= 1) {
       acc[r].x += __shfl_xor_sync(0xffffffffu, acc[r].x, o);
       acc[r].y += __shfl_xor_sync(0xffffffffu, acc[r].y, o);
       acc[r].z += __shfl_xor_sync(0xffffffffu, acc[r].z, o);
@@ -435,6 +444,8 @@ int dispatch(const Args& a, int Dh, void* stream) {
       return (int)launch<32, T>(a, st);
     case 64:
       return (int)launch<64, T>(a, st);
+    case 80:
+      return (int)launch<80, T>(a, st);
     case 128:
       return (int)launch<128, T>(a, st);
     default:
@@ -445,7 +456,7 @@ int dispatch(const Args& a, int Dh, void* stream) {
 }  // namespace
 
 // q f32[B,Hq,Dh]; k, v [B,S,Kv,Dh] in f32 (_f32) or bf16 (_bf16), 16-byte
-// aligned, Dh 16, 32, 64 or 128; kv_len i32[B]; out f32[B,Hq,Dh]; with
+// aligned, Dh 16, 32, 64, 80 or 128; kv_len i32[B]; out f32[B,Hq,Dh]; with
 // n_split > 1 the scratch part_o f32[n_split,B,Hq,Dh] and part_ml
 // f32[n_split,B,Hq,2] (unused, and may be null, when n_split == 1). All
 // contiguous, on the current device. Launches the main kernel and, when

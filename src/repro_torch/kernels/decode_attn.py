@@ -21,9 +21,13 @@ import torch
 from repro_torch.kernels import build
 
 _SMEM_LIMIT = 232_448        # bytes of shared memory one block may use
-_HEAD_DIMS = (16, 32, 64, 128)   # every d_head a config of the repo uses
+# the head sizes each kernel is built for: every paged config's d_head,
+# and for kernel 5 also zamba2-2.7b's 80 (its shared attention decodes
+# through the slot engine)
+_PAGED_HEAD_DIMS = (16, 32, 64, 128)
+_DECODE_HEAD_DIMS = (16, 32, 64, 80, 128)
 # decode_attention.cu: 4 warps a CTA, each with its own two-stage ring of
-# chunks of 32 / max(1, Dh / 32) keys; a CTA takes 1, 4, 8 or 16 query
+# chunks of 32 / max(1, Dh // 32) keys (16 at Dh 80); a CTA takes 1, 4, 8 or 16 query
 # heads of one KV head (more heads take more CTAs)
 _DECODE_WARPS = 4
 _DECODE_ROWS = (1, 4, 8, 16)
@@ -106,9 +110,9 @@ def _check(q, k_pool, v_pool, tables, lens):
             f"paged_attention: shapes q{tuple(q.shape)} "
             f"pools{tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
             f"tables{tuple(tables.shape)} lens{tuple(lens.shape)}")
-    if Dh not in _HEAD_DIMS:
-        raise ValueError(f"paged_attention: needs d_head in {_HEAD_DIMS}, "
-                         f"got d_head={Dh}")
+    if Dh not in _PAGED_HEAD_DIMS:
+        raise ValueError(f"paged_attention: needs d_head in "
+                         f"{_PAGED_HEAD_DIMS}, got d_head={Dh}")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_attention: the pools need a 16-byte aligned "
                          "base (16-byte cp.async copies)")
@@ -218,9 +222,9 @@ def _decode_check(q, k, v, kv_len):
         raise ValueError(
             f"decode_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
             f"v{tuple(v.shape)} kv_len{tuple(kv_len.shape)}")
-    if Dh not in _HEAD_DIMS:
-        raise ValueError(f"decode_attention: needs d_head in {_HEAD_DIMS}, "
-                         f"got {Dh}")
+    if Dh not in _DECODE_HEAD_DIMS:
+        raise ValueError(f"decode_attention: needs d_head in "
+                         f"{_DECODE_HEAD_DIMS}, got {Dh}")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention: k and v need a 16-byte aligned "
                          "base (16-byte cp.async copies)")
@@ -234,7 +238,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     split across CTAs) on the current stream, no synchronise.
 
     q f32[B, Hq, Dh]; k, v [B, S, Kv, Dh] in f32 or bf16; kv_len i32[B]
-    (positions [0, min(kv_len, S)) are visible). Returns f32[B, Hq, Dh]."""
+    (positions [0, min(kv_len, S)) are visible); Dh 16, 32, 64, 80 or 128.
+    Returns f32[B, Hq, Dh]."""
     _decode_check(q, k, v, kv_len)
     B, Hq, Dh = q.shape
     S, Kv = k.shape[1], k.shape[2]

@@ -12,6 +12,9 @@ random weights from a seeded generator.
          [--direct-max-suffix N]] [--replicas N --router-policy affinity] \\
         [--temperature 0.7 --seed 0] [--device cpu]
 
+``--model`` is another name for ``--arch``. The recurrent families
+(``--model zamba2-smoke``, ``--model xlstm-smoke``) serve through the slot
+engine; a paged flag is refused for them with the reference's error.
 It runs on the CUDA device unless ``--device cpu`` is given, and prints a
 JSON summary (with ``--async``, the engine's ``async_stats()`` under
 "async"; with tracing, the tracer's ``ticks``; with ``--profile``, the
@@ -69,7 +72,11 @@ LATER = (
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="nectar-relu-llama-1.7m")
+    ap.add_argument("--arch", "--model", dest="arch",
+                    default="nectar-relu-llama-1.7m",
+                    help="a registry config; the recurrent families "
+                         "(zamba2-*, xlstm-*) serve through the slot "
+                         "engine and refuse the paged flags")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)

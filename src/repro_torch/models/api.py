@@ -29,6 +29,16 @@ class Model:
         return transformer.init_cache(self.cfg, batch, max_len, dtype=dtype,
                                       device=device)
 
+    def check_prompt_len(self, S: int) -> None:
+        """Raise ValueError for a prompt length the prefill refuses."""
+        transformer.check_prompt_len(self.cfg, S)
+
+    def merge_slot(self, cache: dict, tmp: dict, slot: int,
+                   prompt_len: int) -> None:
+        """Write a batch-1 prefill cache into row ``slot`` of a slot cache,
+        in place (see transformer.merge_slot)."""
+        transformer.merge_slot(self.cfg, cache, tmp, slot, prompt_len)
+
     def prefill(self, params: dict, tokens: torch.Tensor, cache: dict):
         """Process a prompt tokens i32[B, S], fill the cache, return the
         logits f32[B, 1, V] of the last position and the updated cache

@@ -218,8 +218,10 @@ def attn_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     _store_paged(cache, "k", dst, k)
     _store_paged(cache, "v", dst, v)
     if backend == "flash":
-        o = ops.paged_attention(q.contiguous(), cache["k"], cache["v"],
-                                tables, lens)
+        # the kernel reads an f32 q (the pools are f32 for every model):
+        # a bf16 model's q widens exactly, as for the decode kernel
+        o = ops.paged_attention(q.float().contiguous(), cache["k"],
+                                cache["v"], tables, lens)
     else:
         o = ref.gathered_attention(q, _read_paged(cache, "k", tables),
                                    _read_paged(cache, "v", tables), lens)

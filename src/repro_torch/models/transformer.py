@@ -1,11 +1,17 @@
-"""The decoder stack: slot-cache prefill and decode, and the paged serving
-step.
+"""The decoder stack: slot-cache prefill and decode over blocks of every
+kind the port serves, and the paged serving step.
 
-Parameters keep the reference's stacked layout: every per-layer leaf of
-``params["units"]["b0"]`` carries a leading [n_units] axis, as
-``repro.models.transformer.init_params`` builds it. The reference's
+Parameters keep the reference's stacked layout: a config's
+``pattern_unit()`` (nectar: one attention block; zamba2: five Mamba2
+blocks and one invocation of the shared attention block; xLSTM: mLSTM
+blocks and an sLSTM block) is the loop body, and every per-block leaf of
+``params["units"][f"b{j}"]`` carries a leading [n_units] axis, as
+``repro.models.transformer.init_params`` builds it. The shared block
+lives at ``params["shared"]``, outside the units, and is not stacked;
+each of its invocations keeps a KV cache of its own. The reference's
 ``lax.scan`` over units becomes a Python loop over views of those stacks.
-This slice serves attention-only stacks with RoPE, as the nectar family is.
+The paged serving step serves attention stacks only, as the reference's
+does.
 """
 
 from __future__ import annotations
@@ -16,22 +22,60 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, ffn, layers, rope
+from repro_torch.models import attention, ffn, layers, rope, ssm, xlstm
+
+ATTN_KINDS = ("attn", "shared_attn")
+# every kind whose state is a KV cache alone: the kinds a paged cache
+# serves and a drafter can park
+KV_KINDS = ATTN_KINDS + ("moe",)
+RECURRENT_KINDS = ("mamba2", "mlstm", "slstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config outside this slice of the port."""
+    """Raise for a config outside the port's slices."""
     missing = [name for name, off in (
-        ("attention-only pattern", cfg.pattern_unit() == ("attn",)),
-        ("rope positions", cfg.pos_emb == "rope" and not cfg.mrope),
+        ("attention, mamba2, mlstm and slstm blocks only",
+         set(cfg.pattern_unit()) <= set(ATTN_KINDS + RECURRENT_KINDS)),
+        ("rope positions or none", cfg.pos_emb in ("rope", "none")
+         and not cfg.mrope),
         ("single token stream", not cfg.n_codebooks),
         ("no frontend", cfg.frontend == "none"),
         ("no qk_norm", not cfg.qk_norm),
         ("no qkv_bias", not cfg.qkv_bias)) if not off]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention stacks only; "
-            f"this config needs {missing}")
+            f"{cfg.name}: the port serves attention stacks and the "
+            f"recurrent families; this config needs {missing}")
+
+
+def check_prompt_len(cfg: ModelConfig, S: int) -> None:
+    """Raise ValueError for a prompt length the reference's prefill
+    refuses: its chunked Mamba2 scan and its blockwise mLSTM need S at
+    most one chunk or a multiple of it."""
+    unit = cfg.pattern_unit()
+    if "mamba2" in unit:
+        ssm.check_prompt_len(S)
+    if "mlstm" in unit:
+        xlstm.check_prompt_len(S)
+
+
+def merge_slot(cfg: ModelConfig, cache: dict, tmp: dict, slot: int,
+               prompt_len: int) -> None:
+    """Write a batch-1 prefill cache ``tmp`` (sized to the prompt) into
+    row ``slot`` of every leaf of the slot cache ([U, B, ...]), in place,
+    as the reference's merge sets it. An attention block's K/V fill the
+    row's first ``prompt_len`` positions and the rest is zeroed, so the
+    row ends as the reference's splice of a fresh max_seq-long cache
+    leaves it; a recurrent block's state is the whole row."""
+    for j, kind in enumerate(cfg.pattern_unit()):
+        mine, theirs = cache["units"][f"b{j}"], tmp["units"][f"b{j}"]
+        for name, leaf in mine.items():
+            if kind in ATTN_KINDS:
+                leaf[:, slot, :prompt_len] = theirs[name][:, 0]
+                leaf[:, slot, prompt_len:] = 0
+            else:
+                leaf[:, slot] = theirs[name][:, 0]
+    cache["lens"][slot] = prompt_len
 
 
 def _stack(trees: List[dict]) -> dict:
@@ -47,23 +91,53 @@ def _index(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def init_block(generator: torch.Generator, cfg: ModelConfig,
+def _write(cache: dict, new: dict) -> None:
+    """Copy a recurrent block's new state into its views of the cache."""
+    for name, leaf in new.items():
+        cache[name].copy_(leaf)
+
+
+def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
                dtype: torch.dtype, device: torch.device) -> dict:
-    ones = torch.ones(cfg.d_model, dtype=dtype, device=device)
-    return {"norm1": ones,
-            "attn": attention.init_attn(generator, cfg, dtype, device),
-            "norm2": ones.clone(),
-            "ffn": ffn.init_ffn(generator, cfg, dtype, device)}
+    if kind in ATTN_KINDS:
+        ones = torch.ones(cfg.d_model, dtype=dtype, device=device)
+        return {"norm1": ones,
+                "attn": attention.init_attn(generator, cfg, dtype, device),
+                "norm2": ones.clone(),
+                "ffn": ffn.init_ffn(generator, cfg, dtype, device)}
+    if kind == "mamba2":
+        return {"norm": torch.ones(cfg.d_model, dtype=dtype, device=device),
+                "mamba": ssm.init_mamba2(generator, cfg, dtype, device)}
+    if kind == "mlstm":
+        return xlstm.init_mlstm_block(generator, cfg, dtype, device)
+    if kind == "slstm":
+        return xlstm.init_slstm_block(generator, cfg, dtype, device)
+    raise ValueError(kind)
+
+
+def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                     dtype: torch.dtype, device: torch.device) -> dict:
+    if kind in ATTN_KINDS:
+        return attention.init_kv_cache(cfg, batch, max_len, dtype, device)
+    if kind == "mamba2":
+        return ssm.init_mamba2_cache(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_cache(cfg, batch, dtype, device)
+    if kind == "slstm":
+        return xlstm.init_slstm_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: Optional[Union[str, torch.device]] = None
                 ) -> Dict[str, object]:
     """Random weights from ``generator`` (the reference's init law, not its
-    bits), made on ``device`` (default CUDA)."""
+    bits), made on ``device`` (default CUDA). Each block position of the
+    unit draws its n_units copies in turn, then the shared block."""
     device = resolve_device(device)
     check_supported(cfg)
     dtype = getattr(torch, cfg.dtype)
+    unit = cfg.pattern_unit()
     params: Dict[str, object] = {"embed": layers.embed_init(
         generator, cfg.vocab, cfg.d_model, dtype, device)}
     if not cfg.tie_embeddings:
@@ -71,23 +145,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             generator, (cfg.d_model, cfg.vocab), dtype, device)
     params["final_norm"] = torch.ones(cfg.d_model, dtype=dtype,
                                       device=device)
-    params["units"] = {"b0": _stack([init_block(generator, cfg, dtype, device)
-                                     for _ in range(cfg.n_units)])}
+    params["units"] = {
+        f"b{j}": _stack([init_block(generator, kind, cfg, dtype, device)
+                         for _ in range(cfg.n_units)])
+        for j, kind in enumerate(unit) if kind != "shared_attn"}
+    if "shared_attn" in unit:
+        params["shared"] = init_block(generator, "shared_attn", cfg, dtype,
+                                      device)
     return params
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32,
                device: Optional[Union[str, torch.device]] = None) -> dict:
-    """Contiguous decode cache of the slot engine: one [batch, max_len, Kv,
-    Dh] K/V pair per layer, stacked over units, plus per-row context
-    lengths (slots advance independently)."""
+    """The slot engine's cache: per block position j, its state stacked
+    over units under ``units[f"b{j}"]`` (a contiguous [batch, max_len,
+    Kv, Dh] K/V pair for an attention block, every ``shared_attn``
+    invocation its own; O(1) recurrent state for the others), plus
+    per-row context lengths (slots advance independently)."""
     device = resolve_device(device)
     check_supported(cfg)
-    kv = _stack([attention.init_kv_cache(cfg, batch, max_len, dtype, device)
-                 for _ in range(cfg.n_units)])
+    units = {f"b{j}": _stack([init_block_cache(kind, cfg, batch, max_len,
+                                               dtype, device)
+                              for _ in range(cfg.n_units)])
+             for j, kind in enumerate(cfg.pattern_unit())}
     return {"lens": torch.zeros(batch, dtype=torch.int32, device=device),
-            "units": {"b0": kv}}
+            "units": units}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
@@ -99,7 +182,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
     """Paged decode cache: one block pool per layer, stacked over units,
     plus per-slot block tables (sentinel-filled; serve.paged_kv assigns
     blocks). ``int8_kv`` stores int8 K/V with f32 per-(token, head)
-    scales (``attention.init_paged_kv_cache``).
+    scales (``attention.init_paged_kv_cache``). Requires an
+    attention-only pattern, as the reference's does: recurrent blocks keep
+    O(1) state and are served through the slot engine instead.
 
     Each pool leaf [n_units, n_blocks, ...] is a view of a slab with trash
     blocks behind the pool, which no table names: the writes of sentinel
@@ -111,6 +196,16 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
     raises."""
     device = resolve_device(device)
     check_supported(cfg)
+    unit = cfg.pattern_unit()
+    bad = [k for k in unit if k not in KV_KINDS]
+    if bad:
+        raise ValueError(
+            f"{cfg.name}: paged KV needs an attention-only pattern "
+            f"(found {bad}); serve this family with ServeConfig(paged=False)")
+    if unit != ("attn",):
+        raise NotImplementedError(
+            f"{cfg.name}: the port's paged step serves one attention block "
+            f"a unit, this pattern is {unit}")
     if max_width is None:
         max_width = max_blocks_per_seq * block_size
     n_trash = -(-batch * max_width // block_size)
@@ -130,50 +225,102 @@ def _embed_inputs(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    if cfg.pos_emb != "rope":
+        # the identity rotation
+        shape = tuple(positions.shape) + (cfg.d_head // 2,)
+        return (torch.ones(shape, dtype=torch.float32,
+                           device=positions.device),
+                torch.zeros(shape, dtype=torch.float32,
+                            device=positions.device))
     return rope.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
 
 
-def block_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
-                  cache: Optional[dict]) -> torch.Tensor:
-    """One attention block over a whole prompt: causal attention (writing
-    the cache at [0, S) when given), then the dense FFN."""
-    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + attention.attn_forward(p["attn"], cfg, h, ctx["cos"],
-                                   ctx["sin"], cache=cache)
-    h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + ffn.ffn_forward(p["ffn"], cfg, h)
+def block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  ctx: dict, cache: Optional[dict]) -> torch.Tensor:
+    """One block over a whole prompt at positions [0, S). An attention
+    block runs causal attention (writing the cache at [0, S) when given)
+    and the dense FFN; a recurrent block runs its parallel form and, with
+    a cache, leaves its final state there."""
+    if kind == "shared_attn":
+        p = ctx["shared_params"]
+    if kind in ATTN_KINDS:
+        h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+        x = x + attention.attn_forward(p["attn"], cfg, h, ctx["cos"],
+                                       ctx["sin"], cache=cache)
+        h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
+        return x + ffn.ffn_forward(p["ffn"], cfg, h)
+    if kind == "mamba2":
+        h = layers.rms_norm(x, p["norm"], cfg.norm_eps)
+        y, new = ssm.mamba2_forward(p["mamba"], cfg, h, cache=cache)
+        x = x + y
+    elif kind == "mlstm":
+        x, new = xlstm.mlstm_block_forward(p, cfg, x, cache=cache)
+    elif kind == "slstm":
+        x, new = xlstm.slstm_block_forward(p, cfg, x, cache=cache)
+    else:
+        raise ValueError(kind)
+    if cache is not None:
+        _write(cache, new)
+    return x
 
 
-def block_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
-                 cache: dict) -> torch.Tensor:
-    """One attention block for one token per row: decode attention over
-    the slot cache, then the decode FFN (sparse gather under
-    relu_sparse)."""
-    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + attention.attn_decode(p["attn"], cfg, h, ctx["cos"], ctx["sin"],
-                                  cache, ctx["lens"])
-    h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + ffn.ffn_decode(p["ffn"], cfg, h)
+def block_decode(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 ctx: dict, cache: dict) -> torch.Tensor:
+    """One block for one token per row. An attention block runs decode
+    attention over the slot cache (the decode-attention kernel) and the
+    decode FFN (sparse gather under relu_sparse); a recurrent block runs
+    its one-step recurrence. The cache is written in place."""
+    if kind == "shared_attn":
+        p = ctx["shared_params"]
+    if kind in ATTN_KINDS:
+        h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+        x = x + attention.attn_decode(p["attn"], cfg, h, ctx["cos"],
+                                      ctx["sin"], cache, ctx["lens"])
+        h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
+        return x + ffn.ffn_decode(p["ffn"], cfg, h)
+    if kind == "mamba2":
+        h = layers.rms_norm(x, p["norm"], cfg.norm_eps)
+        y, new = ssm.mamba2_decode(p["mamba"], cfg, h, cache)
+        x = x + y
+    elif kind == "mlstm":
+        x, new = xlstm.mlstm_block_decode(p, cfg, x, cache)
+    elif kind == "slstm":
+        x, new = xlstm.slstm_block_decode(p, cfg, x, cache)
+    else:
+        raise ValueError(kind)
+    _write(cache, new)
+    return x
+
+
+def _unit_blocks(params: dict, cfg: ModelConfig, cache: Optional[dict],
+                 i: int):
+    """(kind, params, cache) of each block of unit ``i``: views of the
+    stacks (the shared block's params come through ctx)."""
+    for j, kind in enumerate(cfg.pattern_unit()):
+        p = None if kind == "shared_attn" \
+            else _index(params["units"][f"b{j}"], i)
+        c = None if cache is None else _index(cache["units"][f"b{j}"], i)
+        yield kind, p, c
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Optional[dict] = None):
     """Full-sequence forward (prefill) of tokens i32[B, S] at positions
-    [0, S). With ``cache`` each layer's K/V land at [0, S) of it in place
-    and the returned cache has lens = S. Returns (hidden [B, S, d],
-    cache or None); the reference also returns an MoE aux loss, which an
-    attention-only stack does not have."""
-    x = _embed_inputs(params, tokens)
+    [0, S). With ``cache`` each attention block's K/V land at [0, S) of it
+    and each recurrent block's final state in it, in place, and the
+    returned cache has lens = S. Returns (hidden [B, S, d], cache or
+    None); the reference also returns an MoE aux loss, which none of
+    these blocks has."""
     B, S = tokens.shape
+    check_prompt_len(cfg, S)
+    x = _embed_inputs(params, tokens)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None, :].expand(B, S)
     cos, sin = _rope_tables(cfg, positions)
-    ctx = {"cos": cos, "sin": sin}
-    units = params["units"]["b0"]
+    ctx = {"cos": cos, "sin": sin, "shared_params": params.get("shared")}
     for i in range(cfg.n_units):
-        x = block_forward(_index(units, i), cfg, x, ctx,
-                          None if cache is None
-                          else _index(cache["units"]["b0"], i))
+        for kind, p, c in _unit_blocks(params, cfg, cache, i):
+            x = block_forward(kind, p, cfg, x, ctx, c)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cache is None:
         return x, None
@@ -184,16 +331,16 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: dict):
     """One-token decode of every row: tokens i32[B, 1] at positions
-    cache["lens"]. The cache's K/V are written in place. Returns (logits
+    cache["lens"]. The cache is written in place. Returns (logits
     f32[B, 1, V], the cache with lens + 1)."""
     x = _embed_inputs(params, tokens)
     lens = cache["lens"]
     cos, sin = _rope_tables(cfg, lens[:, None])
-    ctx = {"cos": cos, "sin": sin, "lens": lens}
-    units = params["units"]["b0"]
+    ctx = {"cos": cos, "sin": sin, "lens": lens,
+           "shared_params": params.get("shared")}
     for i in range(cfg.n_units):
-        x = block_decode(_index(units, i), cfg, x, ctx,
-                         _index(cache["units"]["b0"], i))
+        for kind, p, c in _unit_blocks(params, cfg, cache, i):
+            x = block_decode(kind, p, cfg, x, ctx, c)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (project_logits(params, cfg, x),
             {"lens": lens + 1, "units": cache["units"]})
@@ -214,11 +361,25 @@ def block_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
                             has_prefill=ctx["has_prefill"])
 
 
+# elements of a bf16 vocab matrix widened to f32 at a time
+_LOGIT_SLICE = 1 << 22
+
+
 def project_logits(params: dict, cfg: ModelConfig,
                    x: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return (x @ params["embed"].t()).float()
-    return (x @ params["head"]).float()
+    """x [B, S, d] -> f32 logits [B, S, V]. An f32 model multiplies as it
+    is. A bf16 model keeps its operands' values and sums in f32, as the
+    reference's ``preferred_element_type=jnp.float32`` does: the vocab
+    matrix is widened to f32 one slice of columns at a time (exact), so
+    the logits are never rounded to bf16 and no f32 copy of the matrix
+    outlives the call."""
+    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    if w.dtype == torch.float32:
+        return x @ w
+    xf = x.float()
+    step = max(1, _LOGIT_SLICE // w.shape[0])
+    return torch.cat([xf @ w[:, c:c + step].float()
+                      for c in range(0, w.shape[1], step)], dim=-1)
 
 
 def forward_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1344,6 +1344,9 @@ class Engine:
         self.tracer.event(req.rid, "finish", n_tokens=len(req.tokens_out))
 
     def _add_request_slots(self, req: Request) -> bool:
+        # a prompt length the prefill refuses raises before any state
+        # changes
+        self.model.check_prompt_len(len(np.asarray(req.prompt).reshape(-1)))
         slot = self.alloc.alloc(req.rid)
         if slot is None:
             return False
@@ -1360,7 +1363,7 @@ class Engine:
             logits, tmp = self.model.prefill(
                 self.params, torch.tensor(prompt[None], device=self.device),
                 tmp)
-        self._merge_slot(tmp, slot, len(prompt))
+        self.model.merge_slot(self.cache, tmp, slot, len(prompt))
         self._seed_presence(slot, req)
         # the first token is drawn on the host, from a per-request numpy
         # generator (the reference's slot engine does the same)
@@ -1381,15 +1384,6 @@ class Engine:
             self._finish_slot(req)             # path makes after prefill
             self._done_at_admit.append(req.rid)
         return True
-
-    def _merge_slot(self, tmp: dict, slot: int, prompt_len: int) -> None:
-        """Write tmp's single row into row ``slot`` of the live cache, in
-        place. Positions past the prompt are zeroed, so the row ends as the
-        reference's splice of a fresh max_seq-long cache leaves it."""
-        for name, leaf in self.cache["units"]["b0"].items():
-            leaf[:, slot, :prompt_len] = tmp["units"]["b0"][name][:, 0]
-            leaf[:, slot, prompt_len:] = 0
-        self.cache["lens"][slot] = prompt_len
 
     def _step_slots(self) -> List[int]:
         """One batched decode step across all slots (idle slots decode a

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import Model
+from repro_torch.models import Model, transformer
 from repro_torch.serve.metrics import weight_traffic
 from repro_torch.serve.sampling import categorical_np, softmax
 
@@ -107,25 +107,25 @@ class ModelDrafter:
     together. Every propose re-syncs each row to its committed stream by
     longest common prefix, so accepted drafts cost nothing to replay.
 
+    A recurrent draft model (zamba2, xLSTM) cannot park a row: its state
+    would advance for idle rows and cannot rewind through lens. It drafts
+    one request at a time instead (``_propose_seq``), as the reference's
+    does, through a batch-1 cache per request.
+
     Each draft step is ``transformer.decode_step``: the decode-attention
-    kernel (``ops.decode_attention``) and, under relu_sparse, the gather
-    kernel (``ops.sparse_gather_matvec``). ``steps`` counts BATCHED
-    decode steps: the draft weight stream is read once per step however
-    many rows ride it."""
+    kernel (``ops.decode_attention``) for attention blocks and, under
+    relu_sparse, the gather kernel (``ops.sparse_gather_matvec``).
+    ``steps`` counts decode steps, batched or not: the draft weight
+    stream is read once per step however many rows ride it."""
 
     def __init__(self, cfg: ModelConfig, params: dict, max_seq: int,
                  temperature: float = 0.0, seed: int = 0,
                  max_batch: int = 8,
                  device: Optional[Union[str, torch.device]] = None):
-        # parking relies on the dropped KV write; a recurrent block's
-        # state would advance for idle rows, and the reference drafts
-        # such models one request at a time instead
-        if not all(b in ("attn", "shared_attn", "moe")
-                   for b in cfg.pattern_unit()):
-            raise NotImplementedError(
-                f"{cfg.name}: a recurrent draft model needs the sequential "
-                f"per-request drafting path, which comes with the recurrent "
-                f"families (ROADMAP queue 1, item 6)")
+        # batched (parked-row) drafting needs attention blocks: parking
+        # relies on the dropped KV write
+        self._batched = all(b in transformer.KV_KINDS
+                            for b in cfg.pattern_unit())
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = params
@@ -140,7 +140,8 @@ class ModelDrafter:
         self._free: List[int] = list(range(max_batch))
         self._fed: Dict[int, List[int]] = {}
         self._rngs: Dict[int, np.random.Generator] = {}
-        self.steps = 0               # BATCHED decode steps spent drafting
+        self._seq_caches: Dict[int, dict] = {}   # rid -> batch-1 cache
+        self.steps = 0               # decode steps spent drafting
 
     def _make_decode(self):
         """One drafter decode step: (params, tokens, cache) -> (logits,
@@ -209,6 +210,50 @@ class ModelDrafter:
         qdists.append(q.astype(np.float32))
         return categorical_np(self._rng_for(rid), q)
 
+    def _propose_seq(self, rid: int, ctx_l: List[int], k: int):
+        """Per-request sequential drafting for recurrent draft models: a
+        batch-1 cache, one decode step per token. Recurrent state cannot
+        rewind through lens, so a context that parts from the fed stream
+        re-feeds the whole context through a fresh cache."""
+        fed = self._fed.setdefault(rid, [])
+        cp = 0
+        for a, b in zip(fed, ctx_l):
+            if a != b:
+                break
+            cp += 1
+        cp = min(cp, len(ctx_l) - 1)  # always feed >= 1 for logits
+        if rid not in self._seq_caches or cp < len(fed):
+            self._seq_caches[rid] = self.model.init_cache(
+                1, self.max_seq, device=self.device)
+            fed.clear()
+            cp = 0
+
+        def feed(tok: int) -> np.ndarray:
+            with torch.no_grad():
+                logits, self._seq_caches[rid] = self._decode(
+                    self.params, torch.tensor([[tok]], dtype=torch.int32,
+                                              device=self.device),
+                    self._seq_caches[rid])
+            self.steps += 1
+            return logits[0, 0].float().cpu().numpy()
+
+        logits = None
+        for t in ctx_l[cp:]:
+            logits = feed(t)
+            fed.append(t)
+        toks: List[int] = []
+        qdists: List[np.ndarray] = []
+        for j in range(k):
+            d = self._sample_draft(rid, logits, qdists)
+            toks.append(d)
+            if j + 1 < k and len(fed) + 1 < self.max_seq:
+                logits = feed(d)
+                fed.append(d)
+            elif j + 1 < k:
+                break                 # drafter cache full: stop early
+        qd = np.stack(qdists) if qdists else None
+        return np.asarray(toks, np.int32), qd
+
     def propose_batch(self, items):
         """Draft every requested row through shared batched decode steps:
         the catch-up (re-feeding committed tokens after a rollback) and
@@ -220,6 +265,9 @@ class ModelDrafter:
         for i, (rid, ctx, k) in enumerate(items):
             ctx_l = [int(t) for t in np.asarray(ctx).tolist()]
             if k <= 0 or len(ctx_l) + 1 >= self.max_seq:
+                continue
+            if not self._batched:
+                results[i] = self._propose_seq(rid, ctx_l, k)
                 continue
             slot = self._slot(rid, protect)
             fed = self._fed[rid]
@@ -289,5 +337,6 @@ class ModelDrafter:
         slot = self._caches.pop(rid, None)
         if slot is not None:
             self._free.append(slot)
+        self._seq_caches.pop(rid, None)
         self._fed.pop(rid, None)
         self._rngs.pop(rid, None)

@@ -21,36 +21,50 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 
 
-def _shapes(tree: dict, prefix: str = "") -> Dict[str, Tuple[int, ...]]:
-    out: Dict[str, Tuple[int, ...]] = {}
+def _leaves(tree: dict, prefix: str = "") -> Dict[str, object]:
+    out: Dict[str, object] = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out.update(_shapes(v, f"{prefix}{k}/"))
+            out.update(_leaves(v, f"{prefix}{k}/"))
         else:
-            out[f"{prefix}{k}"] = tuple(v.shape)
+            out[f"{prefix}{k}"] = v
     return out
 
 
-def _convert(tree: dict, dtype: torch.dtype, device: torch.device) -> dict:
-    return {k: _convert(v, dtype, device) if isinstance(v, dict)
-            else torch.tensor(np.asarray(v), dtype=dtype, device=device)
+def _layout(tree: dict) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """key -> (shape, dtype name) of every leaf; numpy's ``bfloat16``
+    (ml_dtypes) and torch's have the same name."""
+    return {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+            for k, v in _leaves(tree).items()}
+
+
+def _convert(tree: dict, like: dict, device: torch.device) -> dict:
+    """Each leaf as a tensor of the dtype of its place in ``like``,
+    through float32: numpy has no bfloat16 of its own, and widening bf16
+    to f32 and narrowing it back is exact."""
+    return {k: _convert(v, like[k], device) if isinstance(v, dict)
+            else torch.from_numpy(np.array(v, dtype=np.float32)).to(
+                device=device, dtype=like[k].dtype)
             for k, v in tree.items()}
 
 
 def from_jax_params(np_tree: dict, cfg: ModelConfig,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> dict:
-    """Convert the reference's parameter tree (numpy leaves) key for key.
-    Raises when its keys or shapes differ from the port's layout."""
+    """Convert the reference's parameter tree (numpy leaves) key for key,
+    every leaf in its own dtype: a bf16 config keeps f32 leaves where the
+    reference keeps them (Mamba2's ``A_log``, ``dt_bias`` and ``D``, the
+    xLSTM gate biases). Raises when its keys, shapes or dtypes differ
+    from the port's layout."""
     device = resolve_device(device)
-    want = _shapes(transformer.init_params(cfg, torch.Generator(),
-                                           device="meta"))
-    got = _shapes(np_tree)
+    like = transformer.init_params(cfg, torch.Generator(), device="meta")
+    want, got = _layout(like), _layout(np_tree)
     if got != want:
         diff = sorted(set(got.items()) ^ set(want.items()))
         raise ValueError(f"{cfg.name}: parameter tree does not match the "
-                         f"port's layout; differing (key, shape): {diff}")
-    return _convert(np_tree, getattr(torch, cfg.dtype), device)
+                         f"port's layout; differing (key, (shape, dtype)): "
+                         f"{diff}")
+    return _convert(np_tree, like, device)
 
 
 def from_jax_predictors(np_pred, cfg: ModelConfig,

@@ -209,7 +209,10 @@ def test_sparse_gather_kernel_split_edges(cuda, B, k, d_ff, d):
     (8, 2, 128, 77, torch.float32),
     (4, 4, 16, 96, torch.float32),        # the reference's Dh-16 sweeps
     (8, 1, 16, 64, torch.float32),
-    (4, 2, 16, 2048, torch.bfloat16)])
+    (4, 2, 16, 2048, torch.bfloat16),
+    (32, 32, 80, 512, torch.float32),     # zamba2-2.7b's shared attention
+    (32, 32, 80, 300, torch.bfloat16),
+    (4, 4, 80, 96, torch.float32)])
 def test_decode_attention_kernel_matches_plain(cuda, Hq, Kv, Dh, S, dtype):
     """kv_len 1..S, past S (an idle slot: all S visible) and 0 (every
     position masked: a mean over all S)."""
@@ -232,7 +235,7 @@ def test_decode_attention_kernel_matches_plain(cuda, Hq, Kv, Dh, S, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G", [1, 4, 8, 20])
-@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 80, 128])
 def test_decode_attention_kernel_split_edges(cuda, dtype, G, Dh):
     """The edges of the split design (``decode_plan``): kv_len 0, 1,
     31-33, S-1, S, S+5, and one key either side of the last chunk of a
@@ -479,6 +482,70 @@ def test_verify_row_matches_sequential_decode_on_the_card(cuda):
     c = fresh()
     seq = np.stack([step(c, [t], P + i)[0] for i, t in enumerate(toks)])
     np.testing.assert_allclose(verify, seq, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_other_head_dims(cuda):
+    """A head dim outside {16, 32, 64, 80, 128} raises before any launch
+    (80 is kernel 5's alone: kernel 1 keeps its list)."""
+    q = torch.zeros((2, 4, 48), device=cuda)
+    k = torch.zeros((2, 8, 4, 48), device=cuda)
+    with pytest.raises(ValueError, match="d_head"):
+        decode_attn.decode_attention(q, k, k, torch.ones(2, dtype=torch.int32,
+                                                         device=cuda))
+    rng = np.random.default_rng(0)
+    args = _paged_edge_inputs(rng, cuda, 1, 4, 2, 80, 16, 4, [3, 0])
+    with pytest.raises(ValueError, match="d_head"):
+        decode_attn.paged_attention(*args)
+
+
+@pytest.mark.cuda
+def test_paged_flash_step_with_a_bf16_model(cuda, monkeypatch):
+    """A bf16 model's paged step through kernel 1: its bf16 q is widened
+    to f32 at the call (the pools are f32 for every model), the kernel
+    launches once per layer, and every launch's output equals the plain
+    version's on the same inputs (TOL)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("llama3.2-1b-smoke"),
+                              dtype="bfloat16")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    assert params["embed"].dtype == torch.bfloat16
+    calls = []
+    launch = ops.paged_attention
+
+    def recording(q, k_pool, v_pool, tables, lens):
+        out = launch(q, k_pool, v_pool, tables, lens)
+        calls.append((q.dtype, out, ref.paged_attention_plain(
+            q, k_pool, v_pool, tables, lens)))
+        return out
+    monkeypatch.setattr(ops, "paged_attention", recording)
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab, 13, dtype=np.int32)
+    bs, MB, nb = 16, 4, 8
+    c = model.init_paged_cache(1, nb, bs, MB, device=cuda)
+    c["block_tables"] = torch.arange(MB, dtype=torch.int32,
+                                     device=cuda)[None]
+    before = ops.LAUNCHES["paged_attention"]
+    with torch.no_grad():
+        logits = model.forward_step(
+            params, torch.tensor(prompt[None], device=cuda), c,
+            torch.tensor([len(prompt)], dtype=torch.int32, device=cuda),
+            torch.ones(1, dtype=torch.bool, device=cuda), bs,
+            backend="flash")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] - before == cfg.n_layers
+    assert len(calls) == cfg.n_layers
+    for q_dtype, got, want in calls:
+        assert q_dtype == torch.float32
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL)
+    assert logits.dtype == torch.float32
+    assert torch.isfinite(logits).all()
 
 
 # ---------------------------------------------------------------------------

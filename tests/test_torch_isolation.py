@@ -48,7 +48,12 @@ SLICE_FILES = ("serve/disagg/__init__.py", "serve/disagg/coordinator.py",
                "dist/elastic.py")
 
 
-@pytest.mark.parametrize("name", SLICE_FILES)
+# the modules of the recurrent families' slice, named for the same reason
+RECURRENT_FILES = ("models/ssm.py", "models/xlstm.py",
+                   "configs/zamba2_2_7b.py", "configs/xlstm_125m.py")
+
+
+@pytest.mark.parametrize("name", SLICE_FILES + RECURRENT_FILES)
 def test_disagg_and_fleet_modules_import_no_jax(name):
     path = ROOT / "src" / "repro_torch" / name
     assert path in PORT_FILES

@@ -412,6 +412,8 @@ def test_gather_plan_splits_a_huge_k_to_fit_shared_memory():
     (4, 40, 4, 4, 32, 4, 1, 1),         # 2 chunks: no split
     (8, 2048, 4, 2, 16, 4, 4, 16),      # llama3.2-1b-smoke, Dh 16, f32
     (8, 2048, 4, 2, 16, 2, 4, 16),      # the same, bf16 K/V
+    (4, 512, 32, 32, 80, 4, 1, 3),      # zamba2-2.7b, Dh 80: 16-key chunks
+    (4, 512, 32, 32, 80, 2, 1, 3),      # the same, bf16 K/V
 ])
 def test_decode_plan_picks_rows_and_split(B, S, Hq, Kv, Dh, nbytes, rows,
                                           n_split):
@@ -433,7 +435,7 @@ def test_decode_plan_leaves_no_split_empty(S, B, Kv):
     """Chunk c goes to split c % n_split: on the longest context (kv_len >=
     S) every split gets a chunk, and each split's first round gives every
     warp but those of the last split a chunk."""
-    for Dh in (16, 32, 64, 128):
+    for Dh in (16, 32, 64, 80, 128):
         for G in (1, 4, 8):
             plan = decode_attn.decode_plan(B, S, Kv * G, Kv, Dh, 4,
                                            H100_SMS)
@@ -443,7 +445,7 @@ def test_decode_plan_leaves_no_split_empty(S, B, Kv):
                 < n_chunks or plan["n_split"] == 1
 
 
-@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("nbytes", [4, 2])
 def test_decode_plan_stays_within_shared_memory(Dh, nbytes):
     """Any G: past 16 query heads per KV head the heads take more CTAs,

@@ -6,7 +6,9 @@ the ROADMAP item that brings them; ``--spec ngram|selfspec`` serves
 speculatively and ``--async`` through the async engine; ``--obs``,
 ``--trace-out``, ``--metrics-port`` and ``--profile`` add the reference
 CLI's output keys, and so do ``--disagg*``, ``--direct-max-suffix``,
-``--replicas`` and ``--router-policy``; ``metrics.summary()`` has the reference's keys, the
+``--replicas`` and ``--router-policy``; ``--model zamba2-smoke`` and
+``--model xlstm-smoke`` serve through the slot engine and refuse the
+paged flags; ``metrics.summary()`` has the reference's keys, the
 speculative-decoding counters included.
 """
 
@@ -143,6 +145,26 @@ def test_cli_refuses_the_model_drafter(capsys):
         cli.main(["--device", "cpu", "--spec", "model"])
     assert exc.value.code != 0
     assert "--spec" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name", ["zamba2-smoke", "xlstm-smoke"])
+def test_cli_serves_the_recurrent_families(name, monkeypatch):
+    """``--model zamba2-smoke`` / ``xlstm-smoke`` serve through the slot
+    engine; a paged flag is refused for them with the reference CLI's
+    error."""
+    s = cli.main(["--device", "cpu", "--model", name, "--requests", "3",
+                  "--max-new", "3", "--max-batch", "2"])
+    assert s["device"] == "cpu" and s["requests"] == 3 and s["tokens"] == 9
+    from repro.launch import serve as jax_cli
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", name, "--paged",
+                                      "--requests", "1", "--max-new", "1"])
+    with pytest.raises(ValueError, match="attention-only") as want:
+        jax_cli.main()
+    for flags in (["--paged"], ["--prefix-cache"], ["--async"]):
+        with pytest.raises(ValueError, match="attention-only") as got:
+            cli.main(["--device", "cpu", "--model", name, "--requests",
+                      "1", "--max-new", "1", *flags])
+        assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("paged", [True, False])

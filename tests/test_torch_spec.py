@@ -733,8 +733,9 @@ def test_streaming_generate_with_drafter(nectar, baseline):
 
 def test_spec_refusals(nectar, draft):
     """The slot engine, codebook and M-RoPE models, an unknown drafter, a
-    model drafter without weights or with another vocab, a recurrent
-    draft model: each refused with the reference's error type."""
+    model drafter without weights or with another vocab: each refused
+    with the reference's error type. A recurrent draft model is taken,
+    for the sequential drafting path, as the reference takes it."""
     _, _, tcfg, tparams = nectar
     dtcfg, dtparams = draft[2], draft[3]
     with pytest.raises(ValueError, match="paged"):
@@ -754,9 +755,10 @@ def test_spec_refusals(nectar, draft):
                            dataclasses.replace(tcfg, vocab=4096), tparams,
                            ServeConfig(paged=True), draft_params=dtparams,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tspec.ModelDrafter(dataclasses.replace(dtcfg, family="ssm"),
-                           dtparams, 64, device="cpu")
+    # a recurrent draft model is no longer refused: it drafts one request
+    # at a time (tests/test_torch_recurrent.py holds that path)
+    assert not tspec.ModelDrafter(dataclasses.replace(dtcfg, family="ssm"),
+                                  dtparams, 64, device="cpu")._batched
     with pytest.raises(ValueError, match="attention"):
         tspec.SelfSpecDrafter(dataclasses.replace(tcfg, family="moe"),
                               tparams, 64, device="cpu")
