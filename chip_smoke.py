@@ -158,6 +158,31 @@ Phases, each reporting on lines of its own:
                request at a time for the paged nectar engine: tokens
                against phase 5's paged serve and the CPU, kernel 5 once a
                draft step.
+ 19. families — the paper's C4 dispatch, then the attention variants
+               and MoE (runs after phase 18): (a) core.heterogeneous's
+               decode decision tables at the v5e's and the H100 SXM's
+               ridge side by side (nectar, llama3.2-1b, qwen3-4b,
+               moonshot widths, batch 8), and a Dispatcher at the H100
+               SXM sending nectar's decode sites and a prefill-sized site
+               to kernel 4 (exact), kernel 2 and torch.matmul (within
+               1e-5 of their plain versions); (b) kernel 1 at Dh 128,
+               f32 pools, G 4/8/5/1 (qwen3-4b, qwen2.5-3b, maverick,
+               moonshot), S 1 and 4, is a phase-3 row, within 1e-6 +
+               1e-5 x |exact| of its plain version evaluated in f64 and
+               bit-equal relaunched; (c) the four
+               SMOKEs, f32, on the phase-5 prompts through the paged flash
+               engine, card against CPU teacher-forced (near-tie rule; an
+               MoE request judged before its first routing difference,
+               which must be a router near-tie or a capacity drop), and
+               moonshot-v1-smoke through the async engine at K = 8 with
+               the sync serve's tokens; (d) qwen3-4b at full width and
+               depth in bf16 (seeded weights made on the card), 4 prompts
+               of 32-128 tokens, 16 new tokens each, teacher-forced on the
+               CPU and held to the bf16 rule, times from a plain serve and
+               a profiled one (busy share, kernel 1's device ms a call);
+               (e) moonshot-v1-16b-a3b at full width cut to 2 layers, the
+               same, with the MoE blocks' share of the device time and
+               the capacity drops per step.
  13. profile — the paged, slot, prefix, sampled, int8kv, the ngram and
                model spec serves, the K = 8 decode-heavy async serve and
                the phase-17 disagg serve again under torch.profiler: each kernel's device time per
@@ -188,9 +213,22 @@ KERNEL_ATOL = 1e-4   # kernel vs plain version: the same f32 terms (bf16
 #                      K/V widened exactly) summed in another order;
 #                      errors seen are ~1e-6, and up to ~2e-5 for the
 #                      fused FFN's 3xTF32 products at d 2048
+FAMILY_ATOL = 1e-6   # kernel 1 at the new configs' head groupings (phase
+FAMILY_RTOL = 1e-5   # 19 (b)) against its plain version evaluated in f64:
+#                      |kernel - exact| <= ATOL + RTOL * |exact|. Both f32
+#                      versions round the online and the plain softmax at
+#                      Dh 128 by ~1e-6 (up to 1.49e-6 apart at G 5, the
+#                      kernel up to 1.31e-6 from the exact answer at G 4,
+#                      PR 22), so 1e-6 alone does not hold
 LOGIT_ATOL = 1e-3    # card vs CPU logits of one whole forward step
 NEAR_TIE = 1e-3      # a token flip with a CPU top-2 margin at most this
 #                      is a summation-order near-tie, not a fault
+ROUTER_TIE_SIGMAS = 8   # where a run taking another's expert choices would
+#                      have chosen otherwise, the top-k boundary gap of its
+#                      router logits must lie within this many RMS of the
+#                      two runs' router-logit differences: a near-tie that
+#                      the other summation order or bf16 rounding crossed,
+#                      not a difference of its own
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 rate outside the tensor cores
 TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate
@@ -436,7 +474,7 @@ def attention_case(dev, rng, B, S, Hq, Kv, Dh, bs, MB, max_ctx,
                    pool_dtype=torch.float32):
     """Inputs for kernel 1: every row's blocks cover its causal limit,
     the rest of the table is sentinel; the last row is IDLE (all
-    sentinel)."""
+    sentinel: it reads block 0, as the reference's kernel does)."""
     n_blocks = B * MB
     lens = rng.integers(1, max_ctx - S + 1, B).astype(np.int32)
     tables = np.full((B, MB), n_blocks, np.int32)
@@ -453,7 +491,8 @@ def attention_case(dev, rng, B, S, Hq, Kv, Dh, bs, MB, max_ctx,
 
 def attention_work(q, k_pool, tables, lens):
     """(bytes, flops) this input needs: q and the output once, the
-    tables and lens, the K and V blocks each row's queries can see."""
+    tables and lens, the K and V blocks each row's queries can see (a
+    sentinel entry among them reads block 0)."""
     B, S, Hq, Dh = q.shape
     n_blocks, bs, Kv, _ = k_pool.shape
     tb, ln = tables.cpu().numpy(), lens.cpu().numpy()
@@ -461,40 +500,74 @@ def attention_work(q, k_pool, tables, lens):
     flops = 0
     for b in range(B):
         n = min(tb.shape[1], (int(ln[b]) + S - 1) // bs + 1)
-        live = [int(x) for x in tb[b, :n] if 0 <= x < n_blocks]
-        blocks.update(live)
-        if live:
-            vis = sum(int(ln[b]) + j + 1 for j in range(S))
-            flops += 4 * Dh * Hq * vis
+        blocks.update(int(x) if 0 <= x < n_blocks else 0 for x in tb[b, :n])
+        vis = sum(min(int(ln[b]) + j + 1, tb.shape[1] * bs)
+                  for j in range(S))
+        flops += 4 * Dh * Hq * vis
     n_bytes = (2 * q.numel() + tables.numel() + lens.numel()) * 4 \
         + len(blocks) * bs * Kv * Dh * k_pool.element_size() * 2
     return n_bytes, flops
 
 
-def run_attention(dev, rng, label, **shape):
+def paged_attention_f64(q, k_pool, v_pool, tables, lens):
+    """``ref.paged_attention_plain``'s function evaluated in float64: the
+    exact answer both f32 versions round, as f32."""
+    from repro_torch.kernels import ref
+    kg = ref._gather_clamped(k_pool.double(), tables)
+    vg = ref._gather_clamped(v_pool.double(), tables)
+    B, S, Hq, Dh = q.shape
+    Kv, Skv = kg.shape[2], kg.shape[1]
+    qg = q.double().reshape(B, S, Kv, Hq // Kv, Dh) * Dh ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kg)
+    gpos = lens[:, None].long() + torch.arange(S, device=q.device)[None, :]
+    vis = torch.arange(Skv, device=q.device)[None, None, :] \
+        <= gpos[:, :, None]
+    s = s.masked_fill(~vis[:, None, None], ref.NEG_INF)
+    o = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1), vg)
+    return o.reshape(B, S, Hq, Dh).float()
+
+
+def run_attention(dev, rng, label, exact=False, **shape):
+    """One phase-3 row of kernel 1; with ``exact`` it also reads the
+    kernel's and the f32 plain version's distances from the f64 answer
+    (``f64_err``, ``plain_f64_err``)."""
     from repro_torch.kernels import decode_attn, ref
     import torch.nn.functional as F
     q, kp, vp, tables, lens = attention_case(dev, rng, **shape)
     err = held(f"{label}: paged_attention",
                lambda: decode_attn.paged_attention(q, kp, vp, tables, lens),
-               lambda: ref.paged_attention_plain(q, kp, vp, tables, lens),
-               zero_rows=(q.shape[0] - 1,))
+               lambda: ref.paged_attention_plain(q, kp, vp, tables, lens))
+    # the live rows apart from the IDLE one, which reads block 0 at every
+    # position of its context
+    extra = {"live_rows_err": float(
+        (decode_attn.paged_attention(q, kp, vp, tables, lens)[:-1]
+         - ref.paged_attention_plain(q, kp, vp, tables, lens)[:-1])
+        .abs().max())}
+    if exact:
+        want = paged_attention_f64(q, kp, vp, tables, lens)
+        got = decode_attn.paged_attention(q, kp, vp, tables, lens)
+        extra.update({
+            "f64_err": float((got - want).abs().max()),
+            "f64_excess": float(((got - want).abs()
+                                 - FAMILY_RTOL * want.abs()).max()),
+            "plain_f64_err": float((ref.paged_attention_plain(
+                q, kp, vp, tables, lens) - want).abs().max())})
     # the library yardstick: SDPA over the gathered, masked sequence, in
-    # the pools' dtype
-    kg = ref._gather_paged(kp, tables).transpose(1, 2)
-    vg = ref._gather_paged(vp, tables).transpose(1, 2)
+    # the pools' dtype (a sentinel gathers block 0, as the kernel reads it)
+    kg = ref._gather_clamped(kp, tables).transpose(1, 2)
+    vg = ref._gather_clamped(vp, tables).transpose(1, 2)
     S, Skv = q.shape[1], kg.shape[2]
     vis = (torch.arange(Skv, device=dev)[None, None, :]
            <= (lens[:, None].long()
                + torch.arange(S, device=dev)[None, :])[:, :, None])
     qt, mask = q.to(kp.dtype).transpose(1, 2), vis[:, None]
-    return measure(
+    return dict(measure(
         "paged_attention", label, err,
         lambda: decode_attn.paged_attention(q, kp, vp, tables, lens),
         lambda: ref.paged_attention_plain(q, kp, vp, tables, lens),
         lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask,
                                                enable_gqa=True),
-        *attention_work(q, kp, tables, lens))
+        *attention_work(q, kp, tables, lens)), **extra)
 
 
 def run_sparse(dev, rng, label, B, k, d_ff, d, empty_frac):
@@ -626,8 +699,8 @@ def run_nmce(dev, rng, label, M, K, N, sat):
 
 def attention_edge(dev, rng, S, G, Dh, bs, MB, lens, pool_dtype, label):
     """One edge case of kernel 1: rows of the given contexts (the last
-    IDLE, all sentinel: exact zeros) over scattered blocks. Returns its
-    max abs error."""
+    IDLE, all sentinel: block 0, as the plain version reads it) over
+    scattered blocks. Returns its max abs error."""
     from repro_torch.kernels import decode_attn, ref
     Kv, B = 2, len(lens)
     n_blocks = B * MB
@@ -644,15 +717,14 @@ def attention_edge(dev, rng, S, G, Dh, bs, MB, lens, pool_dtype, label):
     ln = torch.tensor(np.asarray(lens, np.int32), device=dev)
     return held(f"edges paged_attention {label}",
                 lambda: decode_attn.paged_attention(q, kp, vp, t, ln),
-                lambda: ref.paged_attention_plain(q, kp, vp, t, ln),
-                zero_rows=(B - 1,))
+                lambda: ref.paged_attention_plain(q, kp, vp, t, ln))
 
 
 def attention_edges(dev, rng):
     """Kernel 1 at the edges of its split design. Rows: one block (where
     S <= bs), ending exactly on a block boundary, a long context that
     splits unevenly over warps and CTAs, a short one, an IDLE row (all
-    sentinel: exact zeros); block sizes 8/16/32, S*G from 1 to 128, head
+    sentinel: block 0); block sizes 8/16/32, S*G from 1 to 128, head
     dims 32/64/128, a narrow table (MB 4: no split). Then head dim 16 with
     f32 and bf16 pools and bf16 pools at nectar's head dim 32: contexts
     0, 1, 31-33, a full table less the row's queries and one short of it,
@@ -837,7 +909,9 @@ def print_rows(kernel, rows):
               f" plain_ms="
               f"{r['plain_ms']:.5f} library_ms={lib} library_device_ms="
               f"{lib_dev} bound_ms="
-              f"{r['bound_ms']:.6f} ({r['bound_by']})")
+              f"{r['bound_ms']:.6f} ({r['bound_by']})"
+              + "".join(f" {key}={r[key]:.3g}" for key in (
+                  "live_rows_err", "f64_err", "plain_f64_err") if key in r))
 
 
 # ---------------------------------------------------------------------------
@@ -1932,19 +2006,31 @@ def bf16_error(cfg, params, prompts):
     """The bf16 error of ``cfg`` measured on the CPU: the largest |logit -
     f32 logit| of the port's bf16 forward against the f32 forward of the
     same bf16-rounded weights (``params``, on the CPU), over every
-    position of ``prompts``."""
+    position of ``prompts``; for an MoE config the f32 forward takes the
+    bf16 forward's expert choices (``replay_routing``), and where its own
+    would differ they must be near-ties. Returns (the error, the
+    replayed routing's ties)."""
     from repro_torch.models import transformer
     f32_cfg = dataclasses.replace(cfg, dtype="float32")
     f32_params = tree_map(lambda t: t.float(), params)
-    worst = 0.0
+    worst, ties = 0.0, {"ties": [], "dsq": 0.0, "n": 0}
     with torch.no_grad():
         for p in prompts:
             tok = torch.tensor(p[None])
-            logits = [transformer.project_logits(
-                          pr, c, transformer.forward(pr, c, tok)[0])
-                      for pr, c in ((params, cfg), (f32_params, f32_cfg))]
-            worst = max(worst, float((logits[0] - logits[1]).abs().max()))
-    return worst
+            ROUTE_SINK.append([])
+            try:
+                bf = transformer.project_logits(
+                    params, cfg, transformer.forward(params, cfg, tok)[0])
+            finally:
+                calls = ROUTE_SINK.pop()
+            with replay_routing(calls) as rep:
+                f32 = transformer.project_logits(
+                    f32_params, f32_cfg,
+                    transformer.forward(f32_params, f32_cfg, tok)[0])
+            for key in ("ties", "dsq", "n"):
+                ties[key] += rep[key]
+            worst = max(worst, float((bf - f32).abs().max()))
+    return worst, ties
 
 
 def timed_prefills(engine):
@@ -1992,31 +2078,41 @@ def faulty_state(engine, fault):
     engine.model.decode_step = faulty_step
 
 
-def forced_scores(engine, prompts, max_new, tokens):
+def forced_scores(engine, prompts, max_new, tokens, replay=None):
     """Serve ``prompts`` on ``engine`` teacher-forced through ``tokens``:
     {(request, index): the score vector behind token index}, the CPU-side
-    top-2 margins keyed the same way, and the serve's seconds."""
+    top-2 margins keyed the same way, and the serve's seconds; with
+    ``replay`` (another serve's MoE calls) the serve also takes its expert
+    choices, and the replay's ties come last."""
     scores = {}
     _, _, margins = recording_engine(engine, scores)
     t0 = time.perf_counter()
-    got, rids, _, _, _ = serve(engine, prompts, max_new, forced=tokens)
+    if replay is None:
+        got, rids, _, _, _ = serve(engine, prompts, max_new, forced=tokens)
+    else:
+        with replay_routing(replay) as rep:
+            got, rids, _, _, _ = serve(engine, prompts, max_new,
+                                       forced=tokens)
     secs = time.perf_counter() - t0
     check(got == tokens, "a teacher-forced serve did not commit the "
           "forced tokens")
     index = {rid: i for i, rid in enumerate(rids)}
-    return ({(index[r], j): z for (r, j), z in scores.items()},
-            {(index[r], j): m for (r, j), m in margins.items()}, secs)
+    out = ({(index[r], j): z for (r, j), z in scores.items()},
+           {(index[r], j): m for (r, j), m in margins.items()}, secs)
+    return out if replay is None else out + (rep,)
 
 
-def max_diff(a, b):
-    """The largest |a - b| over two {key: score vector} of the same keys."""
+def max_diff(a, b, keys=None):
+    """The largest |a - b| over two {key: score vector} of the same keys
+    (over ``keys`` alone where given)."""
     check(a.keys() == b.keys(), "two teacher-forced serves scored "
           "different tokens")
-    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+    return max((float(np.abs(a[k] - b[k]).max())
+                for k in (a if keys is None else keys)), default=0.0)
 
 
 def card_vs_cpu(label, cfg, params, sc, dev, prompts, max_new, bf16,
-                plain=False, control=False):
+                plain=False, control=False, judge="cpu"):
     """Serve ``prompts`` greedily on the card, then teacher-force the CPU
     (the same weights, moved) through the card's tokens, so that every
     token's logits read the same inputs on both sides. f32 models: the
@@ -2028,20 +2124,36 @@ def card_vs_cpu(label, cfg, params, sc, dev, prompts, max_new, bf16,
     teacher-forced the same way and of ``bf16_error`` over every prompt
     position; the card's logits must lie within ``err`` of the CPU's and
     of the f32 serve's, and a token may differ from the CPU's choice only
-    where the CPU margin is within ``err``. ``plain``: serve once more on
+    where the CPU margin is within ``err``. ``judge="f32"`` (phase 19's
+    full-width serves) holds the card to the f32 serve alone, as the
+    CPU's bf16 serve is held: the card's logits within ``err`` of it, a
+    token apart from its choice only where its top-2 margin is within
+    ``err``; the card's distance from the CPU's bf16 serve is reported
+    (two bf16 roundings of one forward part by up to the sum of their
+    errors: qwen3-4b's card lies 0.093 from the f32 forward, the CPU
+    0.102, and the two 0.122 from each other, PR 22). ``plain``: serve once more on
     the card with no recording, for the times (the first serve syncs
     around each prefill and copies each tick's logits to the host).
     ``control``: also teacher-force a card serve for each control fault
     of ``faulty_state`` and report how far its logits lie from the
-    CPU's; a lost state write must lie beyond the bound. Returns the
-    record, with the card's tokens, rids, launches, wall and engine."""
+    CPU's; a lost state write must lie beyond the bound. An MoE config
+    (paged) routes each token to discrete experts, and where two runs
+    route a token differently (a router near-tie, or a capacity drop one
+    causes) its logits jump: so the CPU serves (bf16 and f32) take the
+    card serve's expert choices (``replay_routing``), every token's
+    logits are compared, and every choice the CPU would have made
+    otherwise must sit at a near-tie (``check_ties``). Returns the
+    record, with the card's tokens, rids, launches, wall, engine and
+    (MoE) its ``RoutingRecorder``."""
     from repro_torch.serve.engine import Engine
 
     def make(c, device, p):
         return Engine(c, p, sc, device=device)
+    routed = "moe" in cfg.pattern_unit()
     eng = make(cfg, dev, params)
     scores = {}
     ticks, prefills, _ = recording_engine(eng, scores)
+    card_rec = RoutingRecorder(eng) if routed else None
     prefill_ms = [] if sc.paged else timed_prefills(eng)
     tokens, rids, wall, summary, launches = serve(eng, prompts, max_new)
     check_tokens(label, tokens, cfg, max_new, ticks + prefills)
@@ -2057,18 +2169,27 @@ def card_vs_cpu(label, cfg, params, sc, dev, prompts, max_new, bf16,
               f"{label}: the plain serve's tokens or launches differ from "
               f"the first's")
     cpu_params = tree_map(lambda t: t.cpu(), params)
-    cpu, cpu_margins, cpu_s = forced_scores(make(cfg, "cpu", cpu_params),
-                                            prompts, max_new, tokens)
+    replay = card_rec.calls if routed else None
+    cpu, cpu_margins, cpu_s, *ties = forced_scores(
+        make(cfg, "cpu", cpu_params), prompts, max_new, tokens,
+        replay=replay)
+    routing = {"CPU": check_ties(f"{label} CPU", ties[0])} if routed else {}
+    keys = sorted(cpu)
     logit_err = max_diff(card, cpu)
     err, tie, bound_, f32_err, err_s = None, NEAR_TIE, LOGIT_ATOL, None, 0.0
     if bf16:
         t0 = time.perf_counter()
         f32_cfg = dataclasses.replace(cfg, dtype="float32")
-        f32, _, _ = forced_scores(
+        f32, _, _, *ties = forced_scores(
             make(f32_cfg, "cpu", tree_map(lambda t: t.float(), cpu_params)),
-            prompts, max_new, tokens)
+            prompts, max_new, tokens, replay=replay)
+        if routed:
+            routing["f32"] = check_ties(f"{label} f32", ties[0])
         err_tokens = max_diff(cpu, f32)
-        err_prompts = bf16_error(cfg, cpu_params, prompts)
+        err_prompts, ties = bf16_error(cfg, cpu_params, prompts)
+        if routed:
+            routing["f32 forward of the prompts"] = check_ties(
+                f"{label} f32 prompts", ties)
         err_s = time.perf_counter() - t0
         err = tie = bound_ = max(err_tokens, err_prompts)
         f32_err = max_diff(card, f32)
@@ -2077,19 +2198,28 @@ def card_vs_cpu(label, cfg, params, sc, dev, prompts, max_new, bf16,
               f"forward of the same weights (bound {err})")
         timing.update(bf16_error_tokens=err_tokens,
                       bf16_error_prompts=err_prompts, f32_err=f32_err)
-    check(logit_err <= bound_,
-          f"{label}: card logits differ by {logit_err} from the CPU's "
-          f"(bound {bound_})")
+    check(judge == "cpu" or (judge == "f32" and bf16),
+          f"{label}: judge {judge!r}")
+    if judge == "cpu":
+        check(logit_err <= bound_,
+              f"{label}: card logits differ by {logit_err} from the CPU's "
+              f"(bound {bound_})")
+        ref_scores, ref_name, ref_margins = cpu, "CPU", cpu_margins
+    else:
+        ref_scores, ref_name = f32, "f32 forward"
+        ref_margins = {key: float(np.diff(np.sort(f32[key])[-2:])[0])
+                       for key in keys}
     flips = []
-    for (i, j), z in sorted(cpu.items()):
+    for i, j in keys:
+        z = ref_scores[(i, j)]
         if int(np.argmax(z)) != tokens[i][j]:
-            margin = cpu_margins[(i, j)]
+            margin = ref_margins[(i, j)]
             check(margin <= tie,
                   f"{label}: request {i} token {j} is {tokens[i][j]} on "
-                  f"the card, {int(np.argmax(z))} on the CPU, whose top-2 "
-                  f"margin {margin} > {tie}")
+                  f"the card, {int(np.argmax(z))} on the {ref_name}, "
+                  f"whose top-2 margin {margin} > {tie}")
             flips.append({"request": i, "step": j, "margin": margin})
-    all_margins = np.array(list(cpu_margins.values()))
+    all_margins = np.array([ref_margins[key] for key in keys])
     median_margin = float(np.median(all_margins))
     within_tie = int((all_margins <= tie).sum())
     ctrl_err = {}
@@ -2108,34 +2238,199 @@ def card_vs_cpu(label, cfg, params, sc, dev, prompts, max_new, bf16,
         print(f"{label}: the recording serve took "
               f"{timing['instrumented_wall_s']:.3f} s, TPOT p50 "
               f"{timing['instrumented_tpot_p50_ms']:.3f} ms")
-    print(f"{label}: teacher-forced, {len(cpu)} tokens' logits compared "
-          f"({len(prompts)} prefills, {len(cpu) - len(prompts)} decode "
-          f"steps); card against CPU max_abs_err {logit_err:.4g}"
+    if routed:
+        print(f"{label}: routing, the CPU runs took the card serve's expert "
+              f"choices; where their own differed (count, largest top-k "
+              f"boundary gap, the RMS router-logit difference; each gap a "
+              f"near-tie within {ROUTER_TIE_SIGMAS} RMS): "
+              + "; ".join(f"{k} {v['n']}, {v['max_gap']:.4g}, "
+                          f"{v['rms']:.3g}" for k, v in routing.items()))
+    print(f"{label}: teacher-forced, {len(keys)} tokens' logits compared "
+          f"({len(prompts)} prefills, "
+          f"{len(cpu) - len(prompts)} decode steps); card against CPU "
+          f"max_abs_err {logit_err:.4g}"
+          + (" (reported: held to the f32 forward)" if judge == "f32"
+             else "")
           + (f", against the f32 forward {f32_err:.4g}, bound {bound_:.4g}"
              f" = the bf16 error on the CPU (CPU bf16 against f32: "
              f"{timing['bf16_error_tokens']:.4g} over the served tokens, "
              f"{timing['bf16_error_prompts']:.4g} over every prompt "
              f"position; {err_s:.1f} s)" if bf16
              else f" (bound {bound_:.4g})")
-          + f"; {len(cpu) - len(flips)}/{len(cpu)} tokens the CPU's choice,"
-          f" flips (CPU margin <= {tie:.4g}): {flips}; CPU top-2 margin "
-          f"median {median_margin:.4g}, {within_tie}/{len(cpu)} within the "
-          f"tie"
+          + f"; {len(keys) - len(flips)}/{len(keys)} tokens the "
+          f"{ref_name}'s choice, flips ({ref_name} margin <= {tie:.4g}): "
+          f"{flips}; {ref_name} top-2 margin median {median_margin:.4g}, "
+          f"{within_tie}/{len(keys)} within the tie"
           + "".join(f"; control fault {f} state against CPU {e:.4g}, "
                     + ("beyond" if e > bound_ else "within") + " the bound"
                     for f, e in ctrl_err.items())
           + f"; CPU serve {cpu_s:.1f} s")
     return {"tokens": tokens, "rids": rids, "launches": launches,
             "wall_s": wall, "summary": summary, "steps": steps,
-            "engine": eng,
+            "engine": eng, "routing": card_rec,
             "record": dict(summary, wall_s=wall, steps=steps,
                            launches=launches, logit_err=logit_err,
                            bound=bound_, bf16_error=err, flips=flips,
-                           n_compared=len(cpu),
+                           n_compared=len(keys), judge=judge,
+                           routing_ties=routing,
                            median_margin=median_margin,
                            within_tie=within_tie, control_err=ctrl_err,
                            cpu_serve_s=cpu_s, prefill_ms=prefill_ms,
                            **timing)}
+
+
+# ---------------------------------------------------------------------------
+# MoE routing across two runs (phase 19)
+
+ROUTE_SINK = []     # the dispatch list of the step (or forward) in flight
+ROUTE_FORCE = []    # a replay in flight: another serve's (logits, table)s
+
+
+def record_routing():
+    """Wrap ``moe.route``. While a ``replay_routing`` is open, each call
+    takes the expert choices and dispatch table of the replayed serve's
+    call of the same order (gates and aux from this call's own router
+    probabilities) and notes where its own top-k would have differed,
+    with its k-th minus (k+1)-th router logit there. Each call appends
+    (router logits f32[T, E], dispatch table i32[E, cap]), on the host,
+    to ROUTE_SINK's last list while one is open (a ``RoutingRecorder``
+    step or ``bf16_error``'s forward). Returns the undo."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording_route(logits, cfg, cap):
+        if ROUTE_FORCE:
+            rec = ROUTE_FORCE[-1]
+            check(rec["next"] < len(rec["calls"]),
+                  "routing replay: more MoE calls than the replayed serve")
+            out = forced_route(logits, cfg, *rec["calls"][rec["next"]],
+                               rec)
+            rec["next"] += 1
+        else:
+            out = route(logits, cfg, cap)
+        if ROUTE_SINK:
+            ROUTE_SINK[-1].append((logits.float().cpu().numpy(),
+                                   out[0].cpu().numpy()))
+        return out
+    moe.route = recording_route
+    return lambda: setattr(moe, "route", route)
+
+
+def forced_route(logits, cfg, rec_logits, rec_table, rep):
+    """``moe.route`` with the experts and slots another run chose (its
+    router logits ``rec_logits`` and dispatch table ``rec_table``): the
+    gates are this run's normalized top-k probabilities at those experts,
+    the aux loss this run's. Adds to ``rep`` this run's k-th minus
+    (k+1)-th logit wherever its own top-k differs from the forced
+    (``ties``), and the squared differences of the two runs' router
+    logits (``dsq`` over ``n``)."""
+    T, E = logits.shape
+    k, dev = cfg.top_k, logits.device
+    check(rec_logits.shape == (T, E) and rec_table.shape[0] == E,
+          f"routing replay: a call of {T} x {E} router logits replays one of "
+          f"{rec_logits.shape}")
+    probs = torch.softmax(logits.float(), dim=-1)
+    idx = torch.topk(torch.from_numpy(rec_logits).to(dev), k,
+                     dim=-1).indices
+    own = torch.topk(probs, k, dim=-1).indices
+    differ = (torch.sort(own, dim=-1).values
+              != torch.sort(idx, dim=-1).values).any(-1).cpu().numpy()
+    mine = logits.float().cpu().numpy()
+    rep["dsq"] += float(((mine - rec_logits) ** 2).sum())
+    rep["n"] += mine.size
+    if differ.any():
+        z = np.sort(mine[differ], axis=-1)
+        rep["ties"].extend((z[:, -k] - z[:, -k - 1]).tolist())
+    vals = probs.gather(1, idx)
+    vals = vals / vals.sum(-1, keepdim=True)
+    full = torch.zeros((T + 1, E), dtype=torch.float32, device=dev)
+    full[torch.arange(T, device=dev)[:, None], idx] = vals
+    table = torch.from_numpy(rec_table).to(dev)
+    gates = full[table.long(), torch.arange(E, device=dev)[:, None]]
+    ce = (idx[:, :1] == torch.arange(E, device=dev)).float().mean(0)
+    return table, gates, E * (probs.mean(0) * ce).sum()
+
+
+class replay_routing:
+    """``with replay_routing(calls) as rep:`` every MoE call inside takes
+    ``calls``' choices in order (``forced_route``); ``rep`` collects the
+    top-k boundary gaps where the run's own choice differed and the
+    router-logit differences (``check_ties``). Every recorded call must
+    be replayed."""
+
+    def __init__(self, calls):
+        self.rec = {"calls": calls, "next": 0, "ties": [], "dsq": 0.0,
+                    "n": 0}
+
+    def __enter__(self):
+        ROUTE_FORCE.append(self.rec)
+        return self.rec
+
+    def __exit__(self, kind, *_):
+        ROUTE_FORCE.pop()
+        if kind is None:
+            check(self.rec["next"] == len(self.rec["calls"]),
+                  f"routing replay: {self.rec['next']} MoE calls, the "
+                  f"replayed serve made {len(self.rec['calls'])}")
+        return False
+
+
+class RoutingRecorder:
+    """The MoE dispatch of every step of one paged engine's serve: per
+    step, its rows' n_valid, its width and each MoE block's (router
+    logits, table), in call order (``calls`` flattens them)."""
+
+    def __init__(self, engine):
+        check(engine.scfg.paged, "RoutingRecorder: a paged engine")
+        self.steps = []
+        step = engine.runner.step
+
+        def recording_step(batch):
+            rec = {"n_valid": batch.n_valid.copy(),
+                   "S": batch.tokens.shape[1], "calls": []}
+            self.steps.append(rec)
+            ROUTE_SINK.append(rec["calls"])
+            try:
+                return step(batch)
+            finally:
+                ROUTE_SINK.pop()
+        engine.runner.step = recording_step
+
+    @property
+    def calls(self):
+        return [c for st in self.steps for c in st["calls"]]
+
+
+def check_ties(label, rep):
+    """Every routing choice a replayed run would have made otherwise must
+    sit at a router near-tie: its top-k boundary gap within
+    ROUTER_TIE_SIGMAS root-mean-squares of the two runs' router-logit
+    differences. Returns the count, the largest gap and that RMS."""
+    rms = (rep["dsq"] / rep["n"]) ** 0.5 if rep["n"] else 0.0
+    worst = max(rep["ties"], default=0.0)
+    check(worst <= ROUTER_TIE_SIGMAS * rms,
+          f"{label}: a routing choice differs at a top-k boundary gap of "
+          f"{worst}, beyond {ROUTER_TIE_SIGMAS} x the router logits' RMS "
+          f"difference {rms}: not a near-tie")
+    return {"n": len(rep["ties"]), "max_gap": worst, "rms": rms}
+
+
+def capacity_drops(rec, k):
+    """Per step of a recorded serve, the assignments its MoE blocks
+    dropped: of valid tokens (rows' tokens below n_valid) and of all
+    routed rows (padding and idle rows too), summed over the blocks."""
+    out = []
+    for st in rec.steps:
+        valid = total = 0
+        for _, tb in st["calls"]:
+            T = len(st["n_valid"]) * st["S"]
+            kept = np.bincount(tb[tb < T].ravel(), minlength=T)
+            total += T * k - int(kept.sum())
+            mask = (np.arange(st["S"])[None, :]
+                    < st["n_valid"][:, None]).ravel()
+            valid += int((k - kept)[mask].sum())
+        out.append({"valid": valid, "all": total, "width": st["S"]})
+    return out
 
 
 def check_launches(label, launches, want):
@@ -2342,6 +2637,318 @@ def recurrent_phase(dev, cfg, params, scfg, prompts, max_new, paged_run,
     return details, total
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the paper's C4 dispatch, then the attention variants and MoE
+
+DISPATCH_ATOL = 1e-5   # kernel 2 and the dense product against their plain
+#                        versions (kernel 4 must be exact)
+
+
+def dispatch_phase(dev):
+    """Phase 19 (a): ``core.heterogeneous``'s decision tables at the v5e's
+    ridge and at the H100 SXM's, side by side, for four configs' decode
+    widths (batch 8); then a ``Dispatcher`` judged at the H100 SXM, its
+    three regimes bound on the card (``gemv_stream``: int8 weights from
+    ``core.quant`` through ``ops.nmce_matmul``, kernel 4; ``sparse_gather``:
+    ``ops.sparse_gather_matvec``, kernel 2; ``gemm_mxu``: ``torch.matmul``,
+    cuBLAS), takes each decode site of nectar-relu-llama-1.7m and a
+    prefill-sized site (2048 x 512 x 8192, the dense regime), each output held
+    against its regime's plain version on the card. Returns (details, the
+    kernel launches of the dispatched calls)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import heterogeneous, quant, sparsity
+    from repro_torch.kernels import ops, ref
+    from repro_torch.roofline import hw
+    tables = {}
+    for name in ("nectar-relu-llama-1.7m", "llama3.2-1b", "qwen3-4b",
+                 "moonshot-v1-16b-a3b"):
+        c = get_config(name)
+        args = (c.d_model, c.d_ff, c.vocab, 8)
+        v5e = heterogeneous.decode_regime_report(*args, chip=hw.V5E)
+        h100 = heterogeneous.decode_regime_report(*args, chip=hw.H100_SXM)
+        sites = heterogeneous.decode_sites(*args)
+        tables[name] = {
+            site: {"v5e": v5e[site], "h100_sxm": h100[site],
+                   "intensity": heterogeneous.arithmetic_intensity(
+                       sites[site])} for site in v5e}
+        print(f"dispatch {name} (d {c.d_model}, d_ff {c.d_ff}, vocab "
+              f"{c.vocab}, batch 8), site: FLOP/byte, tpu-v5e / h100-sxm: "
+              + "; ".join(f"{site} {t['intensity']:.2f}, {t['v5e']} / "
+                          f"{t['h100_sxm']}" for site, t in
+                          tables[name].items()))
+    ridges = {chip.name: chip.peak_flops / chip.hbm_bw
+              for chip in (hw.V5E, hw.H100_SXM)}
+    print(f"dispatch: ridge points (bf16 peak over HBM rate) "
+          + ", ".join(f"{k} {v:.1f} FLOP/byte" for k, v in ridges.items()))
+
+    def gemv(x, w):
+        return ops.nmce_matmul(x, quant.quantize_int8(w, axis=1))
+
+    def gemv_plain(x, w):
+        w_q, x_q = quant.quantize_int8(w, axis=1), quant.quantize_int8(x,
+                                                                       axis=0)
+        return ref.nmce_matmul_plain(x_q.q, w_q.q, x_q.scale.reshape(-1, 1),
+                                     w_q.scale.reshape(1, -1))
+    impls = {"gemv_stream": gemv,
+             "sparse_gather": ops.sparse_gather_matvec,
+             "gemm_mxu": torch.matmul}
+    plain = {"gemv_stream": gemv_plain,
+             "sparse_gather": ref.sparse_gather_matvec_plain,
+             "gemm_mxu": lambda x, w: (x.double() @ w.double()).float()}
+    disp = heterogeneous.Dispatcher(impls, chip=hw.H100_SXM)
+    drng = np.random.default_rng(SEED + 19)
+
+    def normal(shape, scale=1.0):
+        return torch.tensor(drng.standard_normal(shape) * scale,
+                            dtype=torch.float32, device=dev)
+    cfg = get_config("nectar-relu-llama-1.7m")
+    sites = dict(heterogeneous.decode_sites(cfg.d_model, cfg.d_ff, cfg.vocab,
+                                            8))
+    # a prefill-sized site above the H100's ridge; K 512 keeps the f32
+    # product's rounding under DISPATCH_ATOL (at K 2048 cuBLAS's f32
+    # product parts from the f64 one by 1.2e-5)
+    sites["prefill 2048 rows"] = heterogeneous.MatmulSite(
+        rows=2048, k=512, n=8192)
+    calls = []
+    for name, site in sites.items():
+        w = normal((site.k, site.n), site.k ** -0.5)
+        if site.sparsity:
+            # the top (1 - sparsity) of a ReLU hidden's units, the rest
+            # empty slots (index d_ff)
+            h = torch.relu(normal((site.rows, site.k)))
+            k = round(site.k * (1 - site.sparsity))
+            idx, valid = sparsity.topk_indices(h, k)
+            hk = torch.where(valid, torch.gather(h, -1, idx.long()), 0.0)
+            args = (hk.contiguous(),
+                    torch.where(valid, idx, site.k).contiguous(), w)
+        else:
+            args = (normal((site.rows, site.k)), w)
+        calls.append((name, site, args))
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    outs = [disp(site, *args) for _, site, args in calls]
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    rows, want = {}, dict.fromkeys(KERNELS, 0)
+    for (name, site, args), (out, regime) in zip(calls, outs):
+        check(regime == heterogeneous.classify(site, hw.H100_SXM),
+              f"dispatch {name}: regime {regime}")
+        expect = plain[regime](*args)
+        err = float((out - expect).abs().max())
+        if regime == "gemv_stream":
+            check(torch.equal(out, expect), f"dispatch {name}: kernel 4 "
+                  f"differs from its plain version by {err}")
+            want["nmce_matmul"] += 1
+        else:
+            check(err <= DISPATCH_ATOL, f"dispatch {name} ({regime}): "
+                  f"max_abs_err {err} against its plain version")
+            want["sparse_gather_matvec"] += regime == "sparse_gather"
+        rows[name] = {"regime": regime, "max_abs_err": err,
+                      "rows": site.rows, "k": site.k, "n": site.n}
+    check_launches("dispatch", launches, want)
+    print("dispatch: a Dispatcher at h100-sxm on the card: "
+          + "; ".join(f"{n} {r['rows']}x{r['k']}x{r['n']} -> {r['regime']}"
+                      f" max_abs_err {r['max_abs_err']:.3g}"
+                      for n, r in rows.items())
+          + f" (kernel 4 exact); launches {launches}")
+    return {"tables": tables, "ridges": ridges, "sites": rows}, launches
+
+
+def moe_device_share(make_engine, prompts, max_new):
+    """One more serve under torch.profiler (CPU and CUDA activity), every
+    MoE block inside a ``record_function`` range: the device time of the
+    kernels those ranges launched over all the serve's device time, as
+    (moe ms, total ms), or None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe
+    forward = moe.moe_forward
+
+    def annotated(*args, **kwargs):
+        with record_function("moe_block"):
+            return forward(*args, **kwargs)
+    engine = make_engine()
+    moe.moe_forward = annotated
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            serve(engine, prompts, max_new)
+            torch.cuda.synchronize()
+    finally:
+        moe.moe_forward = forward
+    from torch.autograd import DeviceType
+    total = sum(e.self_device_time_total
+                for e in device_events(prof.key_averages()))
+    # the CPU side of each range: the device time of the kernels its ops
+    # launched (the device side of a range spans its first to its last
+    # kernel, idle time included)
+    moe_us = sum(e.device_time_total for e in prof.events()
+                 if e.name == "moe_block" and e.device_type == DeviceType.CPU)
+    if not total or not moe_us or moe_us > total:
+        return None
+    return moe_us / 1e3, total / 1e3
+
+
+def families_phase(dev, scfg, prompts, max_new):
+    """Phase 19 ((b), kernel 1 at the new head groupings, is a phase-3
+    row): (a) ``dispatch_phase``; (c) the four SMOKEs (qwen3-4b-smoke,
+    qwen2.5-3b-smoke, moonshot-v1-smoke, llama4-maverick-smoke), f32,
+    through the paged flash engine on the phase-5 prompts (token ids mod
+    the vocab), card against CPU teacher-forced (the near-tie rule; MoE
+    judged before each request's first routing difference), and
+    moonshot-v1-smoke again through the async engine at K = 8 with the
+    sync serve's tokens; (d) qwen3-4b at full width and depth in bf16
+    (seeded weights made on the card), 4 prompts of 32-128 tokens, 16 new
+    tokens each, through the paged flash engine, held to ROADMAP §3's bf16
+    rule under teacher forcing, its times from a plain serve and a
+    profiled one; (e) moonshot-v1-16b-a3b at full width cut to 2 layers,
+    the same, with the MoE blocks' share of the device time and the
+    capacity drops per step. Returns (details, the serves' and the
+    dispatcher's launches summed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import AsyncConfig
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Engine
+    details, total = {}, dict.fromkeys(KERNELS, 0)
+
+    def add(launches):
+        for key in KERNELS:
+            total[key] += launches[key]
+
+    def seeded(c, seed):
+        return Model(c).init(torch.Generator(device=dev).manual_seed(seed),
+                             device=dev)
+    undo = record_routing()
+    try:
+        details["dispatch"], launches = dispatch_phase(dev)
+        add(launches)
+
+        # (c) the SMOKEs, f32, paged flash, the phase-5 prompts
+        for name in ("qwen3-4b-smoke", "qwen2.5-3b-smoke",
+                     "moonshot-v1-smoke", "llama4-maverick-smoke"):
+            c = get_config(name)
+            params = seeded(c, SEED + 19)
+            sm_prompts = [p % c.vocab for p in prompts]
+            r = card_vs_cpu(f"families {name}", c, params, scfg, dev,
+                            sm_prompts, max_new, bf16=False)
+            check(r["steps"] > 0, f"families {name}: no step ran")
+            check_launches(f"families {name}", r["launches"],
+                           {"paged_attention": c.n_layers * r["steps"]})
+            details[name] = r["record"]
+            add(r["launches"])
+            if name != "moonshot-v1-smoke":
+                continue
+            acfg = AsyncConfig(enabled=True, max_device_ticks=8)
+            eng = Engine(c, params, dataclasses.replace(scfg,
+                                                        async_cfg=acfg),
+                         device=dev)
+            a_tokens, _, a_wall, a_summary, a_launches = serve(
+                eng, sm_prompts, max_new)
+            stats = eng.async_stats()
+            check(a_tokens == r["tokens"], f"families {name}: the async "
+                  f"K = 8 serve's tokens differ from the sync serve's")
+            check(stats["loop_bursts"] > 0 and a_launches["paged_attention"]
+                  > 0, f"families {name}: async K = 8 ran no burst "
+                  f"({stats}, launches {a_launches})")
+            print_serve(f"families {name} async K=8", len(sm_prompts),
+                        a_summary, a_wall, eng.runner.n_steps, a_launches)
+            print(f"families {name} async K=8: the sync serve's tokens, "
+                  f"{len(sm_prompts)}/{len(sm_prompts)} requests; "
+                  f"async_stats {stats}, "
+                  f"{getattr(eng.runner, 'graph_replays', 0)} graph "
+                  f"replays")
+            details[name + " async K8"] = dict(
+                a_summary, wall_s=a_wall, launches=a_launches,
+                async_stats=stats)
+            add(a_launches)
+            del eng
+        lap_ = time.perf_counter()
+
+        # (d) qwen3-4b and (e) moonshot-v1-16b-a3b cut to 2 layers, bf16,
+        # at full width: 4 prompts of 32-128 tokens, 16 new tokens each
+        big_sc = dataclasses.replace(scfg, max_batch=4, max_seq=512)
+        frng = np.random.default_rng(SEED + 20)
+        for name, cut, seed in (("qwen3-4b", None, SEED + 21),
+                                ("moonshot-v1-16b-a3b", 2, SEED + 22)):
+            c = get_config(name)
+            if cut:
+                c = dataclasses.replace(c, n_layers=cut)
+            t0 = time.perf_counter()
+            params = seeded(c, seed)
+            torch.cuda.synchronize()
+            made_s = time.perf_counter() - t0
+            leaves = tree_leaves(params)
+            n_params = sum(t.numel() for t in leaves)
+            w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+            label = f"families {name}" + (f" ({cut} layers)" if cut else "")
+            print(f"{label}: {c.n_layers} layers ({c.pattern_unit()} x "
+                  f"{c.n_units}), d_model {c.d_model}, Hq {c.n_heads} / Kv "
+                  f"{c.n_kv_heads} / Dh {c.d_head}, vocab {c.vocab}, "
+                  f"{n_params} parameters (param_count() {c.param_count()}),"
+                  f" {w_bytes} bytes of bf16 weights (the router f32) made "
+                  f"on the card in {made_s:.1f} s")
+            big_prompts = [frng.integers(0, c.vocab, int(n), dtype=np.int32)
+                           for n in frng.integers(32, 129, 4)]
+            r = card_vs_cpu(label, c, params, big_sc, dev, big_prompts, 16,
+                            bf16=True, plain=True, judge="f32")
+            check_launches(label, r["launches"],
+                           {"paged_attention": c.n_layers * r["steps"]})
+            add(r["launches"])
+            prof = profile_serve(f"profile {name}",
+                                 lambda: Engine(c, params, big_sc,
+                                                device=dev),
+                                 big_prompts, 16, r["tokens"],
+                                 r["launches"], r["wall_s"])
+            s = r["summary"]
+            k1 = prof["kernel_device_ms"].get("paged_attention")
+            busy = ("not measured" if prof["busy_share"] is None
+                    else f"{100 * prof['busy_share']:.2f}%")
+            extra = {}
+            if "moe" in c.pattern_unit():
+                drops = capacity_drops(r["routing"], c.top_k)
+                share = moe_device_share(
+                    lambda: Engine(c, params, big_sc, device=dev),
+                    big_prompts, 16)
+                extra = {"capacity_drops": drops,
+                         "moe_device_ms": None if share is None
+                         else share[0],
+                         "device_ms_all": None if share is None
+                         else share[1]}
+                pre = [x for x in drops if x["width"] > 1]
+                dec = [x for x in drops if x["width"] == 1]
+                print(f"{label}: capacity drops a step (assignments of "
+                      f"valid tokens / of all routed rows, summed over the "
+                      f"{c.n_layers} MoE blocks): prefill steps "
+                      f"{[(x['valid'], x['all']) for x in pre]}, decode "
+                      f"steps {sum(x['valid'] for x in dec)} / "
+                      f"{sum(x['all'] for x in dec)} over {len(dec)}; MoE "
+                      f"blocks' device time "
+                      + ("not measured" if share is None else
+                         f"{share[0]:.3f} of {share[1]:.3f} ms = "
+                         f"{100 * share[0] / share[1]:.2f}%"))
+            print(f"{label}: plain serve {s['tokens_per_s']:.2f} tok/s, "
+                  f"TTFT p50 {s['ttft_p50_ms']:.2f} ms p99 "
+                  f"{s['ttft_p99_ms']:.2f} ms, TPOT p50 "
+                  f"{s['tpot_p50_ms']:.3f} ms p99 {s['tpot_p99_ms']:.3f} ms;"
+                  f" busy share {busy} of the plain serve's wall, "
+                  f"{prof['n_device_events']} CUDA kernels and copies; "
+                  f"kernel 1 "
+                  + ("not measured" if k1 is None else f"{k1:.5f}")
+                  + f" device ms a call, {c.n_layers} launches a step; "
+                  f"most device time: "
+                  + "; ".join(f"{n} x{cnt} {t:.3f}"
+                              for n, cnt, t in prof["top_device"]))
+            details[label] = dict(r["record"], profile=prof,
+                                  n_params=n_params, weight_bytes=w_bytes,
+                                  **extra)
+            del params, r
+            torch.cuda.empty_cache()
+        details["full_width_s"] = time.perf_counter() - lap_
+    finally:
+        undo()
+    return details, total
+
+
 def main():
     details = {}
     clock = [time.perf_counter()]
@@ -2459,6 +3066,24 @@ def main():
                    B=4, S=512, Hq=zcfg.n_heads, Kv=zcfg.n_kv_heads,
                    Dh=zcfg.d_head, kv_len=list(zrng.integers(1, 193, 4)),
                    dtype=torch.float32)]
+    # phase 19 (b): kernel 1 at Dh 128, f32 pools, at the head groupings
+    # of the new paged configs (G 4 qwen3-4b, G 8 qwen2.5-3b, G 5
+    # llama4-maverick, G 1 moonshot), decode rows (S = 1) and verify rows
+    # (S = 4), at the full-width serves' shape (B 4, bs 16, MB 32: max_seq
+    # 512, contexts to 145), from a stream of its own
+    grng = np.random.default_rng(SEED + 18)
+    for cname, Hq, Kv in (("qwen3-4b", 32, 8), ("qwen2.5-3b", 16, 2),
+                          ("llama4-maverick", 40, 8),
+                          ("moonshot-v1-16b-a3b", 16, 16)):
+        for S in (1, 4):
+            row = run_attention(dev, grng, f"{cname} G{Hq // Kv} Dh128 S={S}",
+                                exact=True, S=S, B=4, Hq=Hq, Kv=Kv, Dh=128,
+                                bs=16, MB=32, max_ctx=145 + S)
+            check(row["f64_excess"] <= FAMILY_ATOL,
+                  f"{row['case']}: paged_attention differs by "
+                  f"{row['f64_err']} from its plain version in f64, beyond "
+                  f"{FAMILY_ATOL} + {FAMILY_RTOL} of it")
+            rows["paged_attention"].append(row)
     # the shapes speculative decoding gives kernels 1, 2 and 5 (phase 14),
     # from a stream of their own: nectar verify rows at k_max 4 and 8; the
     # draft model's step with rows parked at lens = max_seq; the gathers of
@@ -2812,6 +3437,12 @@ def main():
         (gpu_tokens, gpu_margins, gpu_rids))
     lap(clock, "18) recurrent families")
 
+    # ---- 19) the paper's C4 dispatch and the model families (runs after
+    # phase 18; its kernel-1 rows (b) are in phase 3) ----------------------
+    details["families"], families_launches = families_phase(
+        dev, scfg, prompts, max_new)
+    lap(clock, "19) dispatch and model families")
+
     # ---- 14) speculative decoding (runs before phase 13, which profiles
     # two of its serves) ---------------------------------------------------------
     from repro_torch.configs.base import SpecConfig
@@ -3107,11 +3738,13 @@ def main():
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     # each kernel's launches on the paths that run it (paged attention:
-    # the paged, prefix, greedy spec, async, obs, disagg and phase-18 bf16
-    # and drafter serves; the gather: those and the slot serve; decode
-    # attention: the slot serve, the model and self-spec drafters and the
-    # phase-18 zamba2 serves and recurrent drafter; nmce_matmul: the ops
-    # phase), and its row at the shape the main path gives it
+    # the paged, prefix, greedy spec, async, obs, disagg, phase-18 bf16
+    # and drafter serves and the phase-19 serves; the gather: those, the
+    # slot serve and the phase-19 dispatcher; decode attention: the slot
+    # serve, the model and self-spec drafters and the phase-18 zamba2
+    # serves and recurrent drafter; nmce_matmul: the ops phase and the
+    # phase-19 dispatcher), and its row at the shape the main path gives
+    # it
     spec_launches = {key: sum(run[2][key] for run in spec_runs.values())
                      for key in KERNELS}
     path_launches = {
@@ -3121,7 +3754,8 @@ def main():
         + async_launches["paged_attention"]
         + obs_launches["paged_attention"]
         + disagg_launches["paged_attention"]
-        + recurrent_launches["paged_attention"],
+        + recurrent_launches["paged_attention"]
+        + families_launches["paged_attention"],
         "sparse_gather_matvec": launches["sparse_gather_matvec"]
         + slot_launches["sparse_gather_matvec"]
         + pre_launches["sparse_gather_matvec"]
@@ -3129,12 +3763,14 @@ def main():
         + async_launches["sparse_gather_matvec"]
         + obs_launches["sparse_gather_matvec"]
         + disagg_launches["sparse_gather_matvec"]
-        + recurrent_launches["sparse_gather_matvec"],
+        + recurrent_launches["sparse_gather_matvec"]
+        + families_launches["sparse_gather_matvec"],
         "decode_attention": slot_launches["decode_attention"]
         + spec_launches["decode_attention"]
         + recurrent_launches["decode_attention"],
         "relu_ffn": slot_launches["relu_ffn"],
-        "nmce_matmul": ops_launches["nmce_matmul"]}
+        "nmce_matmul": ops_launches["nmce_matmul"]
+        + families_launches["nmce_matmul"]}
     main_case = {"paged_attention": rows["paged_attention"][0],
                  "sparse_gather_matvec": rows["sparse_gather_matvec"][0],
                  "decode_attention": rows["decode_attention"][0],

@@ -26,9 +26,13 @@
 //    split order; with n_split == 1 the CTA writes the output itself.
 //  * K/V chunks are staged through a two-stage shared-memory ring with
 //    16-byte cp.async: the next chunk loads while the current one is
-//    scored. Positions past the rows' causal limit, past MB, or in a
-//    sentinel table entry are zero-filled by the copy (src-size 0) and
-//    never dereferenced; they are masked out of the softmax. f32 pools
+//    scored. Positions past the rows' causal limit or past MB are
+//    zero-filled by the copy (src-size 0) and never dereferenced; they
+//    are masked out of the softmax. A sentinel table entry inside the
+//    causal limit reads block 0, as the reference kernel's index map
+//    clamps it: only padding positions and IDLE rows (all-sentinel
+//    tables) meet one, and an MoE block routes those rows too, so their
+//    outputs must be the reference's (and the plain version's). f32 pools
 //    copy 4 values and bf16 pools 8 values a copy; bf16 is widened to f32
 //    when read from shared memory (exactly), so both types share the f32
 //    arithmetic below.
@@ -54,8 +58,8 @@
 //    uses); the host entry refuses any other.
 //  * f32 arithmetic throughout, no tensor cores (TF32 would not hold
 //    1e-4), no float atomics: the same inputs give the same bits every
-//    run. The last divide is by max(l, 1e-30), so an IDLE row
-//    (all-sentinel table) gives exact zeros.
+//    run. The last divide is by max(l, 1e-30), so a row with no visible
+//    key gives exact zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,8 +143,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Where each chunk's keys come from. tbl_s holds the row's first n_ent
-// table entries; position p is valid iff its entry is one of them and not
-// a sentinel.
+// table entries; position p is valid iff its entry is one of them. A
+// sentinel entry (or any other outside [0, n_blocks)) reads block 0.
 template <typename T>
 struct Ctx {
   const T* k_pool;
@@ -154,8 +158,8 @@ __device__ __forceinline__ bool key_src(const Ctx<T>& c, int p,
                                         size_t* off) {
   const int e = p / c.bs;
   if (e >= c.n_ent) return false;
-  const int blk = c.tbl_s[e];
-  if (blk < 0 || blk >= c.n_blocks) return false;
+  int blk = c.tbl_s[e];
+  if (blk < 0 || blk >= c.n_blocks) blk = 0;
   *off = (((size_t)blk * c.bs + (p - e * c.bs)) * c.Kv + c.kvh) * DH;
   return true;
 }

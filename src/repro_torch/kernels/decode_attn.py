@@ -2,8 +2,10 @@
 
 Kernel 1, ``paged_attention`` (csrc/paged_attention.cu): S query rows per
 slot read the shared KV block pools (f32 or bf16) through per-row block
-tables, query j of row b attending kv positions <= lens[b]+j. Its plain
-version is ``ref.paged_attention_plain``.
+tables, query j of row b attending kv positions <= lens[b]+j; a sentinel
+table entry inside that limit (padding positions, IDLE rows) reads block 0,
+as the reference's index map clamps it. Its plain version is
+``ref.paged_attention_plain``.
 
 Kernel 5, ``decode_attention`` (csrc/decode_attention.cu): one query token
 per row against a contiguous [B, S, Kv, Dh] cache in f32 or bf16, masked

@@ -27,6 +27,18 @@ def _gather_paged(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return g.reshape(B, MB * pool.shape[1], *pool.shape[2:])
 
 
+def _gather_clamped(pool: torch.Tensor, tables: torch.Tensor
+                    ) -> torch.Tensor:
+    """[n_blocks, bs, Kv, Dh] gathered through tables i32[B, MB] ->
+    [B, MB*bs, Kv, Dh], an entry outside [0, n_blocks) (the sentinel)
+    reading block 0, as the reference kernel's index map clamps it."""
+    n_blocks = pool.shape[0]
+    B, MB = tables.shape
+    valid = (tables >= 0) & (tables < n_blocks)
+    g = pool[torch.where(valid, tables, 0).long()]      # [B, MB, bs, Kv, Dh]
+    return g.reshape(B, MB * pool.shape[1], *pool.shape[2:])
+
+
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, tables: torch.Tensor,
                           lens: torch.Tensor) -> torch.Tensor:
@@ -35,10 +47,13 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     q f[B, S, Hq, Dh]; k_pool/v_pool f[n_blocks, bs, Kv, Dh]; tables
     i32[B, MB] (sentinel ``n_blocks``); lens i32[B]. Query j of row b sits
     at position lens[b]+j and sees kv positions <= lens[b]+j. The tables
-    are gathered into one logical sequence and masked per query.
-    Returns f32[B, S, Hq, Dh]."""
-    return gathered_attention(q, _gather_paged(k_pool, tables),
-                              _gather_paged(v_pool, tables), lens)
+    are gathered into one logical sequence and masked per query. A
+    sentinel entry inside a query's causal limit reads block 0, as the
+    reference kernel does (its index map clamps the sentinel): only
+    padding positions and IDLE rows meet one, and an MoE block routes
+    those rows too. Returns f32[B, S, Hq, Dh]."""
+    return gathered_attention(q, _gather_clamped(k_pool, tables),
+                              _gather_clamped(v_pool, tables), lens)
 
 
 def gathered_attention(q: torch.Tensor, kg: torch.Tensor, vg: torch.Tensor,

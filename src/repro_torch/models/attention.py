@@ -1,5 +1,6 @@
 """Multi-head attention (MHA/GQA) with a KV cache: the contiguous slot
-cache (prefill and single-token decode) and the paged serving step."""
+cache (prefill and single-token decode) and the paged serving step; the
+projections take qwen2.5's QKV bias and qwen3's per-head qk-norm."""
 
 from __future__ import annotations
 
@@ -17,10 +18,17 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig,
               dtype: torch.dtype, device: torch.device) -> dict:
     d, dh = cfg.d_model, cfg.d_head
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    return {"wq": layers.dense_init(generator, (d, nq * dh), dtype, device),
-            "wk": layers.dense_init(generator, (d, nkv * dh), dtype, device),
-            "wv": layers.dense_init(generator, (d, nkv * dh), dtype, device),
-            "wo": layers.dense_init(generator, (nq * dh, d), dtype, device)}
+    p = {"wq": layers.dense_init(generator, (d, nq * dh), dtype, device),
+         "wk": layers.dense_init(generator, (d, nkv * dh), dtype, device),
+         "wv": layers.dense_init(generator, (d, nkv * dh), dtype, device),
+         "wo": layers.dense_init(generator, (nq * dh, d), dtype, device)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+            p[name] = torch.zeros(n * dh, dtype=dtype, device=device)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = torch.ones(dh, dtype=dtype, device=device)
+    return p
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -57,10 +65,19 @@ def init_paged_kv_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
 
 
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """The q, k, v projections of x [B, S, d] per head, before RoPE: the
+    bias (``qkv_bias``) after the products, the per-head RMS norm
+    (``qk_norm``) after the reshape."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
+        q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 

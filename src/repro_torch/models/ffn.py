@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -11,8 +13,11 @@ from repro_torch.models import layers
 
 
 def init_ffn(generator: torch.Generator, cfg: ModelConfig,
-             dtype: torch.dtype, device: torch.device) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+             dtype: torch.dtype, device: torch.device,
+             d_ff: Optional[int] = None) -> dict:
+    """W_up, W_down (and W_gate for a GLU) of width ``d_ff`` (default the
+    config's; an MoE's shared expert is wider)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     p = {"w_up": layers.dense_init(generator, (d, f), dtype, device),
          "w_down": layers.dense_init(generator, (f, d), dtype, device)}
     if cfg.glu:

@@ -32,3 +32,12 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     xf = x.float()
     scale = torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
     return (xf * scale * gamma.float()).to(x.dtype)
+
+
+def head_rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Per-head RMSNorm over d_head (qwen3's qk_norm), in fp32, cast back
+    to the input dtype. x: [..., H, d_head]."""
+    xf = x.float()
+    scale = torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (xf * scale * gamma.float()).to(x.dtype)

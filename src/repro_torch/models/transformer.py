@@ -2,7 +2,8 @@
 kind the port serves, and the paged serving step.
 
 Parameters keep the reference's stacked layout: a config's
-``pattern_unit()`` (nectar: one attention block; zamba2: five Mamba2
+``pattern_unit()`` (nectar: one attention block; moonshot: one MoE block;
+llama4-maverick: an attention block and an MoE block; zamba2: five Mamba2
 blocks and one invocation of the shared attention block; xLSTM: mLSTM
 blocks and an sLSTM block) is the loop body, and every per-block leaf of
 ``params["units"][f"b{j}"]`` carries a leading [n_units] axis, as
@@ -10,8 +11,8 @@ blocks and an sLSTM block) is the loop body, and every per-block leaf of
 lives at ``params["shared"]``, outside the units, and is not stacked;
 each of its invocations keeps a KV cache of its own. The reference's
 ``lax.scan`` over units becomes a Python loop over views of those stacks.
-The paged serving step serves attention stacks only, as the reference's
-does.
+The paged serving step serves the stacks whose every block keeps a KV
+cache (attention and MoE blocks), as the reference's does.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, ffn, layers, rope, ssm, xlstm
+from repro_torch.models import attention, ffn, layers, moe, rope, ssm, xlstm
 
 ATTN_KINDS = ("attn", "shared_attn")
 # every kind whose state is a KV cache alone: the kinds a paged cache
@@ -32,20 +33,20 @@ RECURRENT_KINDS = ("mamba2", "mlstm", "slstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config outside the port's slices."""
+    """Raise for a config outside the port's slices: M-RoPE, sinusoidal
+    positions, codebook streams and frontends come with ROADMAP item 8c."""
     missing = [name for name, off in (
-        ("attention, mamba2, mlstm and slstm blocks only",
-         set(cfg.pattern_unit()) <= set(ATTN_KINDS + RECURRENT_KINDS)),
+        ("attention, moe, mamba2, mlstm and slstm blocks only",
+         set(cfg.pattern_unit()) <= set(KV_KINDS + RECURRENT_KINDS)),
         ("rope positions or none", cfg.pos_emb in ("rope", "none")
          and not cfg.mrope),
         ("single token stream", not cfg.n_codebooks),
-        ("no frontend", cfg.frontend == "none"),
-        ("no qk_norm", not cfg.qk_norm),
-        ("no qkv_bias", not cfg.qkv_bias)) if not off]
+        ("no frontend", cfg.frontend == "none")) if not off]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention stacks and the "
-            f"recurrent families; this config needs {missing}")
+            f"{cfg.name}: the port serves attention and MoE stacks and the "
+            f"recurrent families; this config needs {missing} (the "
+            f"frontends are ROADMAP item 8c)")
 
 
 def check_prompt_len(cfg: ModelConfig, S: int) -> None:
@@ -70,7 +71,7 @@ def merge_slot(cfg: ModelConfig, cache: dict, tmp: dict, slot: int,
     for j, kind in enumerate(cfg.pattern_unit()):
         mine, theirs = cache["units"][f"b{j}"], tmp["units"][f"b{j}"]
         for name, leaf in mine.items():
-            if kind in ATTN_KINDS:
+            if kind in KV_KINDS:
                 leaf[:, slot, :prompt_len] = theirs[name][:, 0]
                 leaf[:, slot, prompt_len:] = 0
             else:
@@ -99,12 +100,16 @@ def _write(cache: dict, new: dict) -> None:
 
 def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
                dtype: torch.dtype, device: torch.device) -> dict:
-    if kind in ATTN_KINDS:
+    if kind in KV_KINDS:
         ones = torch.ones(cfg.d_model, dtype=dtype, device=device)
-        return {"norm1": ones,
-                "attn": attention.init_attn(generator, cfg, dtype, device),
-                "norm2": ones.clone(),
-                "ffn": ffn.init_ffn(generator, cfg, dtype, device)}
+        p = {"norm1": ones,
+             "attn": attention.init_attn(generator, cfg, dtype, device),
+             "norm2": ones.clone()}
+        if kind == "moe":
+            p["moe"] = moe.init_moe(generator, cfg, dtype, device)
+        else:
+            p["ffn"] = ffn.init_ffn(generator, cfg, dtype, device)
+        return p
     if kind == "mamba2":
         return {"norm": torch.ones(cfg.d_model, dtype=dtype, device=device),
                 "mamba": ssm.init_mamba2(generator, cfg, dtype, device)}
@@ -117,7 +122,7 @@ def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      dtype: torch.dtype, device: torch.device) -> dict:
-    if kind in ATTN_KINDS:
+    if kind in KV_KINDS:
         return attention.init_kv_cache(cfg, batch, max_len, dtype, device)
     if kind == "mamba2":
         return ssm.init_mamba2_cache(cfg, batch, dtype, device)
@@ -182,18 +187,19 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
     """Paged decode cache: one block pool per layer, stacked over units,
     plus per-slot block tables (sentinel-filled; serve.paged_kv assigns
     blocks). ``int8_kv`` stores int8 K/V with f32 per-(token, head)
-    scales (``attention.init_paged_kv_cache``). Requires an
-    attention-only pattern, as the reference's does: recurrent blocks keep
+    scales (``attention.init_paged_kv_cache``). Requires a pattern of
+    attention and MoE blocks, as the reference's does: recurrent blocks keep
     O(1) state and are served through the slot engine instead.
 
-    Each pool leaf [n_units, n_blocks, ...] is a view of a slab with trash
-    blocks behind the pool, which no table names: the writes of sentinel
-    entries (padding, IDLE rows) land there, so a step writes its KV with
-    no host sync (``attention._store_paged``). ``cache["trash_rows"]``
-    is the trash's size in tokens: at least ``batch * max_width``, the
-    entries of the widest step the caller makes (default: a step as wide
-    as a sequence, ``max_blocks_per_seq * block_size``). A wider step
-    raises."""
+    Each block position j of the unit has its pools under
+    ``units[f"b{j}"]``. Each pool leaf [n_units, n_blocks, ...] is a view
+    of a slab with trash blocks behind the pool, which no table names: the
+    writes of sentinel entries (padding, IDLE rows) land there, so a step
+    writes its KV with no host sync (``attention._store_paged``).
+    ``cache["trash_rows"]`` is the trash's size in tokens: at least
+    ``batch * max_width``, the entries of the widest step the caller
+    makes (default: a step as wide as a sequence, ``max_blocks_per_seq *
+    block_size``). A wider step raises."""
     device = resolve_device(device)
     check_supported(cfg)
     unit = cfg.pattern_unit()
@@ -202,22 +208,20 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
         raise ValueError(
             f"{cfg.name}: paged KV needs an attention-only pattern "
             f"(found {bad}); serve this family with ServeConfig(paged=False)")
-    if unit != ("attn",):
-        raise NotImplementedError(
-            f"{cfg.name}: the port's paged step serves one attention block "
-            f"a unit, this pattern is {unit}")
     if max_width is None:
         max_width = max_blocks_per_seq * block_size
     n_trash = -(-batch * max_width // block_size)
-    slabs = _stack([attention.init_paged_kv_cache(cfg, n_blocks + n_trash,
-                                                  block_size, dtype, device,
-                                                  int8_kv=int8_kv)
-                    for _ in range(cfg.n_units)])
-    pools = {k: v[:, :n_blocks] for k, v in slabs.items()}
+
+    def pools():
+        slabs = _stack([attention.init_paged_kv_cache(
+            cfg, n_blocks + n_trash, block_size, dtype, device,
+            int8_kv=int8_kv) for _ in range(cfg.n_units)])
+        return {k: v[:, :n_blocks] for k, v in slabs.items()}
     return {"lens": torch.zeros(batch, dtype=torch.int32, device=device),
             "block_tables": torch.full((batch, max_blocks_per_seq), n_blocks,
                                        dtype=torch.int32, device=device),
-            "units": {"b0": pools}, "trash_rows": n_trash * block_size}
+            "units": {f"b{j}": pools() for j in range(len(unit))},
+            "trash_rows": n_trash * block_size}
 
 
 def _embed_inputs(params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -239,16 +243,17 @@ def block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
                   ctx: dict, cache: Optional[dict]) -> torch.Tensor:
     """One block over a whole prompt at positions [0, S). An attention
     block runs causal attention (writing the cache at [0, S) when given)
-    and the dense FFN; a recurrent block runs its parallel form and, with
-    a cache, leaves its final state there."""
+    and the dense FFN, an MoE block the same attention and the routed
+    experts; a recurrent block runs its parallel form and, with a cache,
+    leaves its final state there."""
     if kind == "shared_attn":
         p = ctx["shared_params"]
-    if kind in ATTN_KINDS:
+    if kind in KV_KINDS:
         h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + attention.attn_forward(p["attn"], cfg, h, ctx["cos"],
                                        ctx["sin"], cache=cache)
         h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-        return x + ffn.ffn_forward(p["ffn"], cfg, h)
+        return x + _ffn_or_moe(p, cfg, h, ffn.ffn_forward)
     if kind == "mamba2":
         h = layers.rms_norm(x, p["norm"], cfg.norm_eps)
         y, new = ssm.mamba2_forward(p["mamba"], cfg, h, cache=cache)
@@ -268,16 +273,17 @@ def block_decode(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
                  ctx: dict, cache: dict) -> torch.Tensor:
     """One block for one token per row. An attention block runs decode
     attention over the slot cache (the decode-attention kernel) and the
-    decode FFN (sparse gather under relu_sparse); a recurrent block runs
-    its one-step recurrence. The cache is written in place."""
+    decode FFN (sparse gather under relu_sparse), an MoE block the same
+    attention and the routed experts; a recurrent block runs its one-step
+    recurrence. The cache is written in place."""
     if kind == "shared_attn":
         p = ctx["shared_params"]
-    if kind in ATTN_KINDS:
+    if kind in KV_KINDS:
         h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + attention.attn_decode(p["attn"], cfg, h, ctx["cos"],
                                       ctx["sin"], cache, ctx["lens"])
         h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-        return x + ffn.ffn_decode(p["ffn"], cfg, h)
+        return x + _ffn_or_moe(p, cfg, h, ffn.ffn_decode)
     if kind == "mamba2":
         h = layers.rms_norm(x, p["norm"], cfg.norm_eps)
         y, new = ssm.mamba2_decode(p["mamba"], cfg, h, cache)
@@ -290,6 +296,17 @@ def block_decode(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
         raise ValueError(kind)
     _write(cache, new)
     return x
+
+
+def _ffn_or_moe(p: dict, cfg: ModelConfig, h: torch.Tensor,
+                dense) -> torch.Tensor:
+    """The second half of an attention or MoE block: ``dense`` (an FFN path
+    of ``models.ffn``) for an attention block, the routed experts for an
+    MoE block (every row routed; the aux loss is a training term, unused
+    when serving)."""
+    if "moe" in p:
+        return moe.moe_forward(p["moe"], cfg, h)[0]
+    return dense(p["ffn"], cfg, h)
 
 
 def _unit_blocks(params: dict, cfg: ModelConfig, cache: Optional[dict],
@@ -309,8 +326,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     [0, S). With ``cache`` each attention block's K/V land at [0, S) of it
     and each recurrent block's final state in it, in place, and the
     returned cache has lens = S. Returns (hidden [B, S, d], cache or
-    None); the reference also returns an MoE aux loss, which none of
-    these blocks has."""
+    None); the reference also returns the MoE aux loss, a training term
+    (ROADMAP item 9a), which serving does not read."""
     B, S = tokens.shape
     check_prompt_len(cfg, S)
     x = _embed_inputs(params, tokens)
@@ -348,17 +365,20 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def block_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
                      cache: dict) -> torch.Tensor:
-    """One attention block of the serving step: paged attention, then the
-    per-row FFN select (dense for prefill rows, sparse gather for decode
-    and verify rows)."""
+    """One attention or MoE block of the serving step: paged attention,
+    then for an attention block the per-row FFN select (dense for prefill
+    rows, sparse gather for decode and verify rows), for an MoE block the
+    routed experts over every row of the step, idle and padding rows
+    included (so ``moe.capacity`` counts them, as the reference's)."""
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     x = x + attention.attn_step_paged(
         p["attn"], cfg, h, ctx["cos"], ctx["sin"], cache, ctx["lens"],
         ctx["n_valid"], ctx["tables"], ctx["block_size"],
         backend=ctx["backend"])
     h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + ffn.ffn_step(p["ffn"], cfg, h, ctx["is_prefill"],
-                            has_prefill=ctx["has_prefill"])
+    return x + _ffn_or_moe(
+        p, cfg, h, lambda fp, c, y: ffn.ffn_step(
+            fp, c, y, ctx["is_prefill"], has_prefill=ctx["has_prefill"]))
 
 
 # elements of a bf16 vocab matrix widened to f32 at a time
@@ -403,18 +423,22 @@ def forward_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = lens[:, None] + torch.arange(S, dtype=lens.dtype,
                                              device=tokens.device)[None, :]
     cos, sin = _rope_tables(cfg, positions)
-    pools = cache["units"]["b0"]
-    n_blocks = pools["k"].shape[1]
-    # IDLE rows read and write nothing: their tables become all-sentinel
+    n_blocks = cache["units"]["b0"]["k"].shape[1]
+    # IDLE rows write nothing: their tables become all-sentinel (the
+    # plain read fills zeros there, kernel 1 reads block 0, each as the
+    # reference's read of that backend does)
     tables = torch.where(n_valid[:, None] > 0, cache["block_tables"],
                          n_blocks)
     ctx = {"cos": cos, "sin": sin, "lens": lens, "n_valid": n_valid,
            "is_prefill": is_prefill, "has_prefill": has_prefill,
            "tables": tables, "block_size": block_size, "backend": backend}
-    units = params["units"]["b0"]
     for i in range(cfg.n_units):
-        layer = dict(_index(pools, i), trash_rows=cache["trash_rows"])
-        x = block_step_paged(_index(units, i), cfg, x, ctx, layer)
+        for j, kind in enumerate(cfg.pattern_unit()):
+            p = params["shared"] if kind == "shared_attn" \
+                else _index(params["units"][f"b{j}"], i)
+            layer = dict(_index(cache["units"][f"b{j}"], i),
+                         trash_rows=cache["trash_rows"])
+            x = block_step_paged(p, cfg, x, ctx, layer)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return project_logits(params, cfg, x)
 

@@ -13,7 +13,12 @@ attention layer):
               over ``n_keys`` keys: 4 * Hq * Dh * S * n_keys (kernel 1 on
               the card, or the plain masked read);
   ffn_dense   the up (and gate) projection and the dense down projection
-              over R rows, in a step with prefill rows;
+              over R rows, in a step with prefill rows; an MoE block's
+              whole second half in every step, as the reference scopes
+              it: the f32 router product over R rows, the up (and gate)
+              and down products of all E experts over ``moe.capacity(R)``
+              rows each (empty slots are computed too), and the shared
+              experts' dense FFN over R rows;
   ffn_sparse  the gathered down projection over the top-k rows of W_down
               (kernel 2: 2 * R * k * d, k = active_fraction_to_k), plus
               the up projection in a step without prefill rows (a mixed
@@ -25,7 +30,11 @@ attention layer):
               XLA counts it: RMS norms (4), RoPE (3), residual adds, the
               attention softmax (5 a score), the activation, top-k's |h|
               and selection, the gathers' masks, the mixed step's select;
-              the plain read's zero fill of the gathered K and V.
+              the plain read's zero fill of the gathered K and V; the QKV
+              bias adds (1) and the per-head q/k RMS norms (4) where the
+              config has them; an MoE block's router softmax and top-k
+              (6 a logit), its activations, the gates on its expert rows
+              and the combine's adds.
 
 Bytes follow the reference's convention for a product: its operands plus
 its output, each once. Kernel 2 counts the k rows of W_down it fetches
@@ -48,6 +57,7 @@ import dataclasses
 from typing import Dict, Optional
 
 from repro_torch.core import sparsity
+from repro_torch.models import moe
 
 # the reference's scope names; "other" is the elementwise remainder
 SCOPES = ("attn", "ffn_dense", "ffn_sparse", "logits", "sample")
@@ -105,7 +115,7 @@ def step_cost(runner, width: int, has_prefill: bool,
     B, S = scfg.max_batch, width
     R = B * S
     d, Hq, Kv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    f, V, L = cfg.d_ff, cfg.vocab, cfg.n_layers
+    f, V = cfg.d_ff, cfg.vocab
     w_bytes = runner.params["embed"].element_size()
     kv_bytes = 1 if scfg.kv_quant else F32
     if n_keys is None or plain_read(runner):
@@ -119,7 +129,7 @@ def step_cost(runner, width: int, has_prefill: bool,
     glu = cfg.glu
     sparse = cfg.relu_sparse
     k = sparsity.active_fraction_to_k(f, cfg.sparse_k_frac) if sparse else 0
-    for _ in range(L):
+    for kind in cfg.layer_kinds():
         # attention: projections, the read, the softmax and the KV write
         for n_out in (Hq * Dh, Kv * Dh, Kv * Dh):
             add("attn", _product(R, d, n_out, w_bytes))
@@ -133,7 +143,14 @@ def step_cost(runner, width: int, has_prefill: bool,
                  + 5 * Hq * S * n_keys)   # the softmax
         if plain_read(runner):
             other += 2 * capacity_keys(scfg) * Kv * Dh     # the zero fill
+        if cfg.qkv_bias:
+            other += R * (Hq + 2 * Kv) * Dh
+        if cfg.qk_norm:
+            other += 4 * R * (Hq + Kv) * Dh
         add("other", (other, 2 * R * Kv * Dh * kv_bytes))
+        if kind == "moe":
+            _moe_cost(cfg, R, w_bytes, add)
+            continue
         # FFN
         hidden = _product(R, d, f * (2 if glu else 1), w_bytes)
         act = R * f * (2 if glu else 1)
@@ -163,6 +180,30 @@ def step_cost(runner, width: int, has_prefill: bool,
                     flops=sum(v["flops"] for v in by_scope.values()),
                     hbm_bytes=sum(v["bytes"] for v in by_scope.values()),
                     by_scope=by_scope)
+
+
+def _moe_cost(cfg, R: int, w_bytes: float, add) -> None:
+    """An MoE block's second half over R routed rows (see the module's
+    account); its products count each expert's weights once."""
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    n_up = 2 if cfg.glu else 1
+    rows = E * moe.capacity(R, cfg)
+    add("ffn_dense", _product(R, d, E, F32))                  # the router
+    add("ffn_dense", (2.0 * rows * d * f * n_up,
+                      (rows * d + rows * f * n_up) * F32
+                      + E * d * f * n_up * w_bytes))
+    add("ffn_dense", (2.0 * rows * f * d,
+                      (rows * f + rows * d) * F32 + E * f * d * w_bytes))
+    fs = f * cfg.n_shared_experts
+    other = (6 * R * E                  # the router's softmax and top-k
+             + rows * f * n_up          # the activation (and gate product)
+             + rows * d                 # the gates on the expert rows
+             + R * k * d)               # the combine's adds
+    if fs:
+        add("ffn_dense", _product(R, d, fs * n_up, w_bytes))
+        add("ffn_dense", _product(R, fs, d, w_bytes))
+        other += R * fs * n_up + R * d  # its activation, and its add
+    add("other", (other, (R * k + rows) * I32))
 
 
 def sampler_cost(batch: int, vocab: int) -> Dict[str, float]:

@@ -178,6 +178,14 @@ class StepOutput:
         return row
 
 
+
+def _pool_leaves(cache: dict) -> Dict[str, torch.Tensor]:
+    """Every block pool leaf of a paged cache, "b{j}/name" -> [n_units,
+    n_blocks, ...]: each block position of the pattern unit has its own
+    pools (an attention block and an MoE block in llama4-maverick's)."""
+    return {f"{pos}/{name}": leaf for pos, pools in cache["units"].items()
+            for name, leaf in pools.items()}
+
 class ModelRunner:
     """Owns the device-side paged cache; the engine builds a StepBatch
     per tick and calls ``step``, and its async ticks call ``graph_step``
@@ -488,7 +496,7 @@ class ModelRunner:
         perm = np.asarray(perm, np.int64)
         p = self._stage(_Layout((("perm", torch.int64, perm.shape),)),
                         {"perm": perm})["perm"]
-        for leaf in self.cache["units"]["b0"].values():
+        for leaf in _pool_leaves(self.cache).values():
             leaf.copy_(leaf.index_select(1, p))
 
     def copy_blocks(self, pairs: List[Tuple[int, int]]) -> None:
@@ -504,7 +512,7 @@ class ModelRunner:
         idx = self._stage(
             _Layout((("src", torch.int64, (n,)), ("dst", torch.int64, (n,)))),
             {"src": [a for a, _ in pairs], "dst": [b for _, b in pairs]})
-        for leaf in self.cache["units"]["b0"].values():
+        for leaf in _pool_leaves(self.cache).values():
             leaf[:, idx["dst"]] = leaf[:, idx["src"]]
 
     def import_blocks_from(self, src: "ModelRunner", src_ids: Sequence[int],
@@ -518,7 +526,7 @@ class ModelRunner:
         replay. Both ids lie in the pools proper, never in the trash
         blocks behind them. Both runners must be on one device (peer
         copies between cards come with multi-device serving)."""
-        mine, theirs = self.cache["units"]["b0"], src.cache["units"]["b0"]
+        mine, theirs = _pool_leaves(self.cache), _pool_leaves(src.cache)
         at = [next(iter(pool.values())).device for pool in (theirs, mine)]
         if at[0] != at[1]:
             raise ValueError(f"import_blocks_from: source pool on {at[0]}, "

@@ -53,7 +53,15 @@ RECURRENT_FILES = ("models/ssm.py", "models/xlstm.py",
                    "configs/zamba2_2_7b.py", "configs/xlstm_125m.py")
 
 
-@pytest.mark.parametrize("name", SLICE_FILES + RECURRENT_FILES)
+# the modules of the dispatch, prefetch and model-family slice
+FAMILY_FILES = ("core/heterogeneous.py", "core/prefetch.py", "models/moe.py",
+                "configs/qwen3_4b.py", "configs/qwen2_5_3b.py",
+                "configs/moonshot_v1_16b_a3b.py",
+                "configs/llama4_maverick_400b_a17b.py")
+
+
+@pytest.mark.parametrize("name", SLICE_FILES + RECURRENT_FILES
+                         + FAMILY_FILES)
 def test_disagg_and_fleet_modules_import_no_jax(name):
     path = ROOT / "src" / "repro_torch" / name
     assert path in PORT_FILES

@@ -86,7 +86,8 @@ def test_paged_attention_plain_s1_matches_decode_oracle():
 
 def test_paged_attention_plain_idle_row_is_finite():
     """An IDLE row (all-sentinel table, what forward_step gives inactive
-    rows) reads nothing and returns finite values."""
+    rows) reads block 0 through its sentinels and returns finite
+    values."""
     nb, bs, MB = 8, 8, 3
     q, kp, vp, _, lens = _paged_case(5, 2, 4, 4, 4, 16, nb, bs, MB,
                                      lens=[0, 9])
@@ -95,6 +96,30 @@ def test_paged_attention_plain_idle_row_is_finite():
         torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
         torch.from_numpy(tables), torch.from_numpy(lens))
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("S,Hq,Kv", [(1, 4, 2), (16, 4, 4), (5, 8, 2)])
+def test_paged_attention_plain_reads_sentinels_as_the_pallas_kernel(S, Hq,
+                                                                    Kv):
+    """Padding queries past a row's allocated blocks and an IDLE row
+    (all-sentinel table) read block 0 where the reference's kernel clamps
+    the sentinel: every position, not only the valid ones, equals the
+    Pallas kernel's (an MoE block routes the padding and IDLE rows too)."""
+    nb, bs, MB, Dh = 24, 8, 6, 16
+    q, kp, vp, _, lens = _paged_case(S + Hq + 7, 3, S, Hq, Kv, Dh, nb, bs,
+                                     MB, lens=[17, 2, 30])
+    tables = np.full((3, MB), nb, np.int32)
+    tables[0, :3] = [5, 11, 2]           # one valid token: 17 + 1 <= 24
+    tables[1, :1] = [7]
+    want = np.asarray(jax_paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(lens), block_size=bs,
+        interpret=True))
+    got = ref.paged_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(lens)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert np.abs(got[2]).max() > 0      # the IDLE row read block 0
 
 
 @pytest.mark.parametrize("S,Hq,Kv,bs,lens", [

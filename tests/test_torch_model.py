@@ -93,9 +93,12 @@ def test_forward_step_matches_reference(nectar, shape, backend):
     assert tl.shape == (len(lens), S, cfg.vocab)
     jl = np.asarray(jl)
     for b, nv in enumerate(n_valid):
-        # only valid positions are defined: padding and IDLE rows read
-        # through sentinels, which the two packages fill differently
-        np.testing.assert_allclose(tl[b, :nv].numpy(), jl[b, :nv],
+        # the flash read's padding and IDLE rows read block 0 through
+        # their sentinels in both packages (an MoE block routes them);
+        # the plain read's fill them with zeros in both, but this one
+        # model's padding rows are read by nothing
+        upto = S if backend == "flash" else nv
+        np.testing.assert_allclose(tl[b, :upto].numpy(), jl[b, :upto],
                                    **LOGIT_TOL)
     for leaf in ("k", "v"):
         np.testing.assert_allclose(tc["units"]["b0"][leaf].numpy(),
