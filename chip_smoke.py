@@ -175,14 +175,32 @@ Phases, each reporting on lines of its own:
                MoE request judged before its first routing difference,
                which must be a router near-tie or a capacity drop), and
                moonshot-v1-smoke through the async engine at K = 8 with
-               the sync serve's tokens; (d) qwen3-4b at full width and
-               depth in bf16 (seeded weights made on the card), 4 prompts
+               the sync serve's tokens; (d) qwen3-4b at full width, cut
+               to 12 of 36 layers, in bf16 (seeded weights made on the
+               card), 4 prompts
                of 32-128 tokens, 16 new tokens each, teacher-forced on the
                CPU and held to the bf16 rule, times from a plain serve and
                a profiled one (busy share, kernel 1's device ms a call);
                (e) moonshot-v1-16b-a3b at full width cut to 2 layers, the
                same, with the MoE blocks' share of the device time and
                the capacity drops per step.
+ 20. frontends — qwen2-vl's M-RoPE and vision stub, musicgen's
+               sinusoidal positions and codebook streams (runs after
+               phase 19): (a) qwen2-vl-smoke and musicgen-smoke, f32, on
+               the phase-5 prompts (musicgen's [L, 2]) through the paged
+               flash and slot engines, card against CPU teacher-forced
+               (near-tie rule, codebook by codebook), qwen2-vl-smoke also
+               through the async engine at K = 8 with the sync serve's
+               tokens; (b) musicgen-medium at full size in bf16 (48
+               layers, 4 codebooks), 4 prompts of 32-128 frames, 16 new
+               tokens, paged flash and slot, held to phase 18's bf16 rule;
+               (c) qwen2-vl-72b at full width cut to 2 layers, bf16, 4
+               prompts of 16-64 tokens, paged flash under phase 19's
+               judge="f32", and one Model.forward
+               with patch embeddings and a t/h/w M-RoPE grid against the
+               CPU; (d) kernel 1 at (24, 24, Dh 64) and (64, 8, Dh 128)
+               and kernel 5 at (24, 24, Dh 64) are phase-3 rows, each
+               within 1.5e-6 of its plain version.
  13. profile — the paged, slot, prefix, sampled, int8kv, the ngram and
                model spec serves, the K = 8 decode-heavy async serve and
                the phase-17 disagg serve again under torch.profiler: each kernel's device time per
@@ -220,6 +238,9 @@ FAMILY_RTOL = 1e-5   # 19 (b)) against its plain version evaluated in f64:
 #                      Dh 128 by ~1e-6 (up to 1.49e-6 apart at G 5, the
 #                      kernel up to 1.31e-6 from the exact answer at G 4,
 #                      PR 22), so 1e-6 alone does not hold
+FRONTEND_ATOL = 1.5e-6   # kernels 1 and 5 at the frontends' shapes (phase
+#                      20 (d)) against their plain versions: the same f32
+#                      terms summed in another order
 LOGIT_ATOL = 1e-3    # card vs CPU logits of one whole forward step
 NEAR_TIE = 1e-3      # a token flip with a CPU top-2 margin at most this
 #                      is a summation-order near-tie, not a fault
@@ -236,7 +257,10 @@ INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 PROFILE_ITERS = 20
 PROFILE_TRIES = 8             # windows a profiled measurement may take
 PROFILE_PAUSE_S = 0.2         # before a window runs again (see ``profiled``)
-PROFILE_DEADLINE_S = 900      # no window runs again after this
+PROFILE_DEADLINE_S = 1000     # no window runs again after this: the
+#                               script ends by about 700 s and must by
+#                               1200 s; past this a lossy window fails
+#                               the check that reads it
 BLIND = []                    # set once the profiler proved blind
 TOP_DEVICE = 6                # device-time leaders listed per profiled serve
 DRAFT_NAME = "nectar-relu-llama-draft"
@@ -335,7 +359,7 @@ def profiled(fn, complete=None, setup=None):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = fn(*args)
             torch.cuda.synchronize()
-        window = prof.key_averages()
+        window = device_averages(prof)
         if not any(e.self_device_time_total > 0
                    for e in device_events(window)):
             fault = "showed no device activity"
@@ -351,6 +375,70 @@ def profiled(fn, complete=None, setup=None):
               f"device times from here on are not measured where a single "
               f"window shows none")
     return out, averages
+
+
+class DeviceAverage:
+    """One name's CUDA events in a profiler window: the fields of
+    torch.profiler's FunctionEventAvg that this script reads, with the
+    same values (a device event has no children, so its self time is its
+    time, and an async one counts with no time)."""
+    __slots__ = ("key", "count", "device_time_total", "device_type",
+                 "is_user_annotation")
+
+    def __init__(self, key, device_type, is_user_annotation):
+        self.key, self.device_type = key, device_type
+        self.is_user_annotation = is_user_annotation
+        self.count, self.device_time_total = 0, 0.0
+
+    @property
+    def self_device_time_total(self):
+        return self.device_time_total
+
+
+AVERAGES_CHECKED = []   # set once a window's reading matched key_averages
+
+
+def device_averages(prof):
+    """The window's CUDA events summed by name (µs), read from the
+    profiler's Kineto events. ``key_averages`` first builds a Python event
+    object for every event, CPU-side launch records included: about 10 s
+    for a serve's ~100k kernels, most of each profiled serve's time. The
+    first window with device activity is read both ways and must agree
+    (count and device µs for every name)."""
+    from torch.autograd import DeviceType
+    out, names = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or getattr(
+                e, "is_hidden_event", lambda: False)():
+            continue
+        raw = e.name()
+        name = names.get(raw)
+        if name is None:
+            # key_averages's names: demangled, as its StringTable does
+            name = names[raw] = (torch._C._demangle(raw) if len(raw) > 1
+                                 else raw)
+        a = out.get(name)
+        if a is None:
+            a = out[name] = DeviceAverage(name, DeviceType.CUDA,
+                                          e.is_user_annotation())
+        a.count += 1
+        if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            a.device_time_total += (e.end_ns() - e.start_ns()) / 1e3
+    averages = list(out.values())
+    if not AVERAGES_CHECKED and any(a.device_time_total > 0
+                                    for a in averages):
+        slow = {e.key: (e.count, e.device_time_total)
+                for e in device_events(prof.key_averages())}
+        fast = {e.key: (e.count, e.device_time_total)
+                for e in device_events(averages)}
+        check(slow.keys() == fast.keys() and all(
+            slow[k][0] == fast[k][0]
+            and abs(slow[k][1] - fast[k][1]) <= 1e-6 * max(1.0, slow[k][1])
+            for k in slow),
+              f"profiler: the Kineto events read directly {fast} differ "
+              f"from key_averages {slow}")
+        AVERAGES_CHECKED.append(True)
+    return averages
 
 
 def launch_count(averages, kernel):
@@ -935,20 +1023,34 @@ def perturbed_scores(logits, presence, temp, top_k, top_p, rep, keys):
     return torch.where(t(temp)[:, None] > 0, noisy, pen).cpu().numpy()
 
 
+def top2_margin(z):
+    """The top-2 margin of a score vector f32[V]; of a codebook model's
+    f32[nc, V], each codebook's (an array)."""
+    z = np.sort(z, axis=-1)
+    return z[..., -1] - z[..., -2]
+
+
 def recording_engine(engine, scores=None):
     """Record the score vector behind every committed token (the logits,
     or the perturbed score of a sampled row) and its top-2 margin,
-    {(rid, index): margin}; with ``scores`` also each token's score
-    vector there, {(rid, index): f32[V]}. Every batched sample goes
-    through ``engine.sampler``; the slot engine samples a request's first
-    token from its prefill logits on the host."""
+    {(rid, index): margin} (a codebook model's: the least of its
+    codebooks'); with ``scores`` also each token's score vector there,
+    {(rid, index): f32[V]} (f32[nc, V]). Every batched sample goes
+    through ``engine.sampler``, a codebook model's through the engine's
+    per-codebook argmax (``_sample_rows``); the slot engine samples a
+    request's first token from its prefill logits on the host."""
     ticks, prefills, margins = [], [], {}
     sampler, append = engine.sampler, engine._append_token
+    sample_rows = engine._sample_rows
     paged = engine.scfg.paged
 
     def recording_sampler(*args):
         ticks.append(perturbed_scores(*args))
         return sampler(*args)
+
+    def recording_rows(pairs, last_logits):
+        ticks.append(last_logits.float().cpu().numpy())
+        return sample_rows(pairs, last_logits)
 
     def recording_append(req, slot, tok, lp):
         if paged or req.tokens_out:
@@ -957,8 +1059,8 @@ def recording_engine(engine, scores=None):
             z = prefills[-1]
         if scores is not None:
             scores[(req.rid, len(req.tokens_out))] = z
-        z = np.sort(z)
-        margins[(req.rid, len(req.tokens_out))] = float(z[-1] - z[-2])
+        margins[(req.rid, len(req.tokens_out))] = float(
+            np.min(top2_margin(z)))
         return append(req, slot, tok, lp)
 
     if not paged:
@@ -969,7 +1071,10 @@ def recording_engine(engine, scores=None):
             prefills.append(logits[0, 0].float().cpu().numpy())
             return logits, cache
         engine.model.prefill = recording_prefill
-    engine.sampler = recording_sampler
+    if engine.cfg.n_codebooks:
+        engine._sample_rows = recording_rows
+    else:
+        engine.sampler = recording_sampler
     engine._append_token = recording_append
     return ticks, prefills, margins
 
@@ -1006,7 +1111,9 @@ def serve(engine, prompts, max_new, sps=None, forced=None):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    tokens = [list(finished[rid].tokens_out) for rid in rids]
+    # a codebook model's token is a list of nc ids
+    tokens = [[np.asarray(t).tolist() for t in finished[rid].tokens_out]
+              for rid in rids]
     return tokens, rids, wall, engine.metrics.summary(), launches
 
 
@@ -1084,9 +1191,11 @@ def print_serve(label, n, summary, wall, steps, launches):
 
 
 def check_tokens(label, tokens, cfg, max_new, logits):
-    check(all(len(t) == max_new and all(0 <= x < cfg.vocab for x in t)
-              for t in tokens),
-          f"{label}: every request must return max_new valid token ids")
+    shape = (max_new, cfg.n_codebooks) if cfg.n_codebooks else (max_new,)
+    check(all(np.shape(t) == shape and np.all(np.asarray(t) >= 0)
+              and np.all(np.asarray(t) < cfg.vocab) for t in tokens),
+          f"{label}: every request must return max_new valid token ids"
+          + (f", {cfg.n_codebooks} a token" if cfg.n_codebooks else ""))
     check(all(np.isfinite(z).all() for z in logits),
           f"{label}: non-finite logits")
 
@@ -2112,7 +2221,7 @@ def max_diff(a, b, keys=None):
 
 
 def card_vs_cpu(label, cfg, params, sc, dev, prompts, max_new, bf16,
-                plain=False, control=False, judge="cpu"):
+                plain=False, control=False, judge="cpu", prompt_err=None):
     """Serve ``prompts`` greedily on the card, then teacher-force the CPU
     (the same weights, moved) through the card's tokens, so that every
     token's logits read the same inputs on both sides. f32 models: the
@@ -2186,7 +2295,13 @@ def card_vs_cpu(label, cfg, params, sc, dev, prompts, max_new, bf16,
         if routed:
             routing["f32"] = check_ties(f"{label} f32", ties[0])
         err_tokens = max_diff(cpu, f32)
-        err_prompts, ties = bf16_error(cfg, cpu_params, prompts)
+        # the prompts' error depends on the weights and prompts alone: a
+        # caller serving them through two engines passes one dict
+        if prompt_err is None:
+            prompt_err = {}
+        if "err" not in prompt_err:
+            prompt_err["err"] = bf16_error(cfg, cpu_params, prompts)
+        err_prompts, ties = prompt_err["err"]
         if routed:
             routing["f32 forward of the prompts"] = check_ties(
                 f"{label} f32 prompts", ties)
@@ -2207,17 +2322,20 @@ def card_vs_cpu(label, cfg, params, sc, dev, prompts, max_new, bf16,
         ref_scores, ref_name, ref_margins = cpu, "CPU", cpu_margins
     else:
         ref_scores, ref_name = f32, "f32 forward"
-        ref_margins = {key: float(np.diff(np.sort(f32[key])[-2:])[0])
+        ref_margins = {key: float(np.min(top2_margin(f32[key])))
                        for key in keys}
     flips = []
     for i, j in keys:
         z = ref_scores[(i, j)]
-        if int(np.argmax(z)) != tokens[i][j]:
-            margin = ref_margins[(i, j)]
+        # the codebooks (a codebook model) whose choice parts from the card's
+        parted = np.atleast_1d(np.argmax(z, axis=-1)
+                               != np.asarray(tokens[i][j]))
+        if parted.any():
+            margin = float(np.atleast_1d(top2_margin(z))[parted].max())
             check(margin <= tie,
                   f"{label}: request {i} token {j} is {tokens[i][j]} on "
-                  f"the card, {int(np.argmax(z))} on the {ref_name}, "
-                  f"whose top-2 margin {margin} > {tie}")
+                  f"the card, {np.argmax(z, axis=-1).tolist()} on the "
+                  f"{ref_name}, whose top-2 margin {margin} > {tie}")
             flips.append({"request": i, "step": j, "margin": margin})
     all_margins = np.array([ref_margins[key] for key in keys])
     median_margin = float(np.median(all_margins))
@@ -2797,11 +2915,11 @@ def families_phase(dev, scfg, prompts, max_new):
     the vocab), card against CPU teacher-forced (the near-tie rule; MoE
     judged before each request's first routing difference), and
     moonshot-v1-smoke again through the async engine at K = 8 with the
-    sync serve's tokens; (d) qwen3-4b at full width and depth in bf16
-    (seeded weights made on the card), 4 prompts of 32-128 tokens, 16 new
-    tokens each, through the paged flash engine, held to ROADMAP §3's bf16
-    rule under teacher forcing, its times from a plain serve and a
-    profiled one; (e) moonshot-v1-16b-a3b at full width cut to 2 layers,
+    sync serve's tokens; (d) qwen3-4b at full width in bf16, cut to 12
+    of its 36 layers (seeded weights made on the card), 4
+    prompts of 32-128 tokens, 16 new tokens each, through the paged flash
+    engine, held to ROADMAP §3's bf16 rule under teacher forcing, its
+    times from a plain serve and a profiled one; (e) moonshot-v1-16b-a3b at full width cut to 2 layers,
     the same, with the MoE blocks' share of the device time and the
     capacity drops per step. Returns (details, the serves' and the
     dispatcher's launches summed)."""
@@ -2868,7 +2986,9 @@ def families_phase(dev, scfg, prompts, max_new):
         # at full width: 4 prompts of 32-128 tokens, 16 new tokens each
         big_sc = dataclasses.replace(scfg, max_batch=4, max_seq=512)
         frng = np.random.default_rng(SEED + 20)
-        for name, cut, seed in (("qwen3-4b", None, SEED + 21),
+        # qwen3-4b at 12 of its 36 layers since phase 20 joined: the CPU
+        # runs of the full depth took ~110 s of the script's time
+        for name, cut, seed in (("qwen3-4b", 12, SEED + 21),
                                 ("moonshot-v1-16b-a3b", 2, SEED + 22)):
             c = get_config(name)
             if cut:
@@ -2946,6 +3066,213 @@ def families_phase(dev, scfg, prompts, max_new):
         details["full_width_s"] = time.perf_counter() - lap_
     finally:
         undo()
+    return details, total
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the frontends (qwen2-vl's M-RoPE and vision stub, musicgen's
+# sinusoidal positions and codebook streams)
+
+
+def codebook_prompts(rng, c, lengths):
+    """A codebook model's prompts: [L, nc] token ids for each L."""
+    return [rng.integers(0, c.vocab, (int(n), c.n_codebooks), dtype=np.int32)
+            for n in lengths]
+
+
+def frontend_forward(dev, c, params):
+    """One ``Model.forward`` of qwen2-vl (bf16) on the card with patch
+    embeddings over the first half of 64 positions and M-RoPE positions
+    whose channels differ (a 1 x 4 x 8 t/h/w grid, then text), against
+    the CPU: held, as the bf16 serves are, to the f32 forward of the same
+    bf16-rounded weights within the CPU's own bf16 error there."""
+    from repro_torch.models import Model
+    frng = np.random.default_rng(SEED + 27)
+    S = 64
+    toks = frng.integers(0, c.vocab, (1, S)).astype(np.int32)
+    vis = frng.standard_normal((1, S // 2, c.d_model)).astype(np.float32)
+    grid = np.stack([np.zeros(32), np.repeat(np.arange(4), 8),
+                     np.tile(np.arange(8), 4)])
+    text = np.broadcast_to(8 + np.arange(S - 32), (3, S - 32))
+    pos = np.concatenate([grid, text], 1)[:, None].astype(np.int32)
+    f32_cfg = dataclasses.replace(c, dtype="float32")
+
+    def run(cfg, p, device):
+        t = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
+        with torch.no_grad():
+            logits, _ = Model(cfg).forward(p, t(toks), vision_embeds=t(vis),
+                                           mrope_positions=t(pos))
+        return logits.float().cpu()
+    card = run(c, params, dev)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu = run(c, cpu_params, "cpu")
+    f32 = run(f32_cfg, tree_map(lambda t: t.float(), cpu_params), "cpu")
+    err = float((cpu - f32).abs().max())
+    f32_err = float((card - f32).abs().max())
+    cpu_err = float((card - cpu).abs().max())
+    check(bool(torch.isfinite(card).all()) and card.shape == (1, S, c.vocab),
+          "frontends qwen2-vl forward: non-finite logits or a wrong shape")
+    check(f32_err <= err, f"frontends qwen2-vl forward: card logits differ "
+          f"by {f32_err} from the f32 forward (bound {err}, the CPU's bf16 "
+          f"error)")
+    print(f"frontends {c.name} Model.forward: {S} positions, patch "
+          f"embeddings over the first {S // 2}, M-RoPE t/h/w grid 1x4x8 then "
+          f"text; card against the f32 forward {f32_err:.4g} (bound "
+          f"{err:.4g} = CPU bf16 against f32), against the CPU's bf16 "
+          f"forward {cpu_err:.4g}")
+    return {"f32_err": f32_err, "bound": err, "cpu_err": cpu_err,
+            "positions": S}
+
+
+def frontends_phase(dev, scfg, slot_scfg, prompts, max_new):
+    """Phase 20 ((d), kernels 1 and 5 at the new shapes, is a phase-3
+    row): (a) qwen2-vl-smoke and musicgen-smoke, f32, on the phase-5
+    prompts (token ids mod the vocab; musicgen's [L, 2] of the same
+    lengths, from the same seed) through the paged flash and the slot
+    engines, card against CPU teacher-forced (the near-tie rule, codebook
+    by codebook), and qwen2-vl-smoke through the async engine at K = 8
+    with the sync serve's tokens; (b) musicgen-medium at full size in bf16
+    (seeded weights made on the card), 4 prompts of 32-128 frames x 4
+    codebooks, 16 new tokens each, paged flash and slot, held to phase
+    18's bf16 rule under teacher forcing, times from a plain serve and a
+    profiled one; (c) qwen2-vl-72b at full width cut to 2 layers in bf16,
+    the same through the paged flash engine under phase 19's
+    ``judge="f32"`` on 4 prompts of 16-64 tokens, and one
+    ``Model.forward`` with the vision stub and distinct M-RoPE channels
+    (``frontend_forward``). Returns (details,
+    the serves' launches summed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import AsyncConfig
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Engine
+    details, total = {}, dict.fromkeys(KERNELS, 0)
+
+    def add(launches):
+        for key in KERNELS:
+            total[key] += launches[key]
+
+    def seeded(c, seed):
+        return Model(c).init(torch.Generator(device=dev).manual_seed(seed),
+                             device=dev)
+
+    def want(c, sc, steps):
+        key = "paged_attention" if sc.paged else "decode_attention"
+        return {key: c.n_layers * steps}
+
+    # (a) the SMOKEs, f32, paged flash and slot, the phase-5 prompts
+    for name in ("qwen2-vl-smoke", "musicgen-smoke"):
+        c = get_config(name)
+        params = seeded(c, SEED + 25)
+        sm_prompts = codebook_prompts(
+            np.random.default_rng(SEED), c, [len(p) for p in prompts]) \
+            if c.n_codebooks else [p % c.vocab for p in prompts]
+        for engine, sc in (("paged flash", scfg), ("slot", slot_scfg)):
+            label = f"frontends {name} {engine}"
+            r = card_vs_cpu(label, c, params, sc, dev, sm_prompts, max_new,
+                            bf16=False)
+            check(r["steps"] > 0, f"{label}: no step ran")
+            check_launches(label, r["launches"], want(c, sc, r["steps"]))
+            details[f"{name} {engine}"] = r["record"]
+            add(r["launches"])
+            if c.n_codebooks or not sc.paged:
+                continue
+            acfg = AsyncConfig(enabled=True, max_device_ticks=8)
+            eng = Engine(c, params, dataclasses.replace(sc, async_cfg=acfg),
+                         device=dev)
+            a_tokens, _, a_wall, a_summary, a_launches = serve(
+                eng, sm_prompts, max_new)
+            stats = eng.async_stats()
+            check(a_tokens == r["tokens"], f"{label}: the async K = 8 "
+                  f"serve's tokens differ from the sync serve's")
+            check(stats["loop_bursts"] > 0
+                  and a_launches["paged_attention"] > 0,
+                  f"{label}: async K = 8 ran no burst ({stats}, launches "
+                  f"{a_launches})")
+            print_serve(f"{label} async K=8", len(sm_prompts), a_summary,
+                        a_wall, eng.runner.n_steps, a_launches)
+            print(f"{label} async K=8: the sync serve's tokens, "
+                  f"{len(sm_prompts)}/{len(sm_prompts)} requests; "
+                  f"async_stats {stats}, {eng.runner.graph_replays} graph "
+                  f"replays")
+            details[f"{name} async K8"] = dict(
+                a_summary, wall_s=a_wall, launches=a_launches,
+                async_stats=stats)
+            add(a_launches)
+            del eng
+    lap_ = time.perf_counter()
+
+    # (b) musicgen-medium at full size, 4 prompts of 32-128 frames x 4
+    # codebooks, and (c) qwen2-vl-72b cut to 2 layers, 4 prompts of 16-64
+    # tokens (its CPU runs project every position to 152,064 logits),
+    # bf16, 16 new tokens each
+    frng = np.random.default_rng(SEED + 26)
+    for name, cut, seed, engines, judge, (lo, hi) in (
+            ("musicgen-medium", None, SEED + 28,
+             (("paged flash", scfg), ("slot", slot_scfg)), "cpu", (32, 128)),
+            ("qwen2-vl-72b", 2, SEED + 29, (("paged flash", scfg),), "f32",
+             (16, 64))):
+        c = get_config(name)
+        if cut:
+            c = dataclasses.replace(c, n_layers=cut)
+        t0 = time.perf_counter()
+        params = seeded(c, seed)
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t0
+        leaves = tree_leaves(params)
+        n_params = sum(t.numel() for t in leaves)
+        w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        base = f"frontends {name}" + (f" ({cut} layers)" if cut else "")
+        print(f"{base}: {c.n_layers} layers, d_model {c.d_model}, Hq "
+              f"{c.n_heads} / Kv {c.n_kv_heads} / Dh {c.d_head}, vocab "
+              f"{c.vocab}" + (f" x {c.n_codebooks} codebooks"
+                              if c.n_codebooks else "")
+              + f", {n_params} parameters (param_count() "
+              f"{c.param_count()}), {w_bytes} bytes of bf16 weights made "
+              f"on the card in {made_s:.1f} s")
+        lengths = frng.integers(lo, hi + 1, 4)
+        prompt_err = {}                 # shared by the engines' CPU runs
+        big_prompts = codebook_prompts(frng, c, lengths) if c.n_codebooks \
+            else [frng.integers(0, c.vocab, int(n), dtype=np.int32)
+                  for n in lengths]
+        for engine, sc in engines:
+            big_sc = dataclasses.replace(sc, max_batch=4, max_seq=512)
+            label = f"{base} {engine}"
+            r = card_vs_cpu(label, c, params, big_sc, dev, big_prompts, 16,
+                            bf16=True, plain=True, judge=judge,
+                            prompt_err=prompt_err)
+            check_launches(label, r["launches"],
+                           want(c, big_sc, r["steps"]))
+            add(r["launches"])
+            prof = profile_serve(f"profile {name} {engine}",
+                                 lambda: Engine(c, params, big_sc,
+                                                device=dev),
+                                 big_prompts, 16, r["tokens"],
+                                 r["launches"], r["wall_s"])
+            s = r["summary"]
+            key = "paged_attention" if big_sc.paged else "decode_attention"
+            k_ms = prof["kernel_device_ms"].get(key)
+            busy = ("not measured" if prof["busy_share"] is None
+                    else f"{100 * prof['busy_share']:.2f}%")
+            print(f"{label}: plain serve {s['tokens_per_s']:.2f} tok/s, "
+                  f"TTFT p50 {s['ttft_p50_ms']:.2f} ms p99 "
+                  f"{s['ttft_p99_ms']:.2f} ms, TPOT p50 "
+                  f"{s['tpot_p50_ms']:.3f} ms p99 {s['tpot_p99_ms']:.3f} "
+                  f"ms; busy share {busy} of the plain serve's wall, "
+                  f"{prof['n_device_events']} CUDA kernels and copies; "
+                  f"{key} "
+                  + ("not measured" if k_ms is None else f"{k_ms:.5f}")
+                  + f" device ms a call, {c.n_layers} launches a step; "
+                  f"most device time: "
+                  + "; ".join(f"{n} x{cnt} {t:.3f}"
+                              for n, cnt, t in prof["top_device"]))
+            details[label] = dict(r["record"], profile=prof,
+                                  n_params=n_params, weight_bytes=w_bytes)
+            del r
+        if c.mrope:
+            details[f"{base} forward"] = frontend_forward(dev, c, params)
+        del params
+        torch.cuda.empty_cache()
+    details["full_width_s"] = time.perf_counter() - lap_
     return details, total
 
 
@@ -3084,6 +3411,25 @@ def main():
                   f"{row['f64_err']} from its plain version in f64, beyond "
                   f"{FAMILY_ATOL} + {FAMILY_RTOL} of it")
             rows["paged_attention"].append(row)
+    # phase 20 (d): kernel 1 at musicgen-medium's head grouping (Hq = Kv =
+    # 24, Dh 64, G 1) and qwen2-vl-72b's (Hq 64 / Kv 8, Dh 128, G 8), f32
+    # pools, decode rows at the full-width serves' shape (B 4, bs 16, MB
+    # 32: max_seq 512, contexts to 145), and kernel 5 at musicgen-medium's
+    # slot decode (B 4, S 512, f32 cache, kv_len 33-145), from a stream
+    # of their own; each within FRONTEND_ATOL of its plain version
+    frng = np.random.default_rng(SEED + 24)
+    for cname, Hq, Kv, Dh in (("musicgen-medium", 24, 24, 64),
+                              ("qwen2-vl-72b", 64, 8, 128)):
+        rows["paged_attention"].append(run_attention(
+            dev, frng, f"{cname} G{Hq // Kv} Dh{Dh} S=1", exact=True, S=1,
+            B=4, Hq=Hq, Kv=Kv, Dh=Dh, bs=16, MB=32, max_ctx=146))
+    rows["decode_attention"].append(run_decode(
+        dev, frng, "musicgen-medium slot Dh64 f32", B=4, S=512, Hq=24, Kv=24,
+        Dh=64, kv_len=list(frng.integers(33, 146, 4)), dtype=torch.float32))
+    for row in (rows["paged_attention"][-2:] + rows["decode_attention"][-1:]):
+        check(row["max_abs_err"] <= FRONTEND_ATOL,
+              f"{row['case']}: max_abs_err {row['max_abs_err']} against the "
+              f"plain version, beyond {FRONTEND_ATOL}")
     # the shapes speculative decoding gives kernels 1, 2 and 5 (phase 14),
     # from a stream of their own: nectar verify rows at k_max 4 and 8; the
     # draft model's step with rows parked at lens = max_seq; the gathers of
@@ -3443,6 +3789,12 @@ def main():
         dev, scfg, prompts, max_new)
     lap(clock, "19) dispatch and model families")
 
+    # ---- 20) the frontends (runs after phase 19; its kernel rows (d) are
+    # in phase 3) ----------------------------------------------------------
+    details["frontends"], frontends_launches = frontends_phase(
+        dev, scfg, slot_scfg, prompts, max_new)
+    lap(clock, "20) frontends")
+
     # ---- 14) speculative decoding (runs before phase 13, which profiles
     # two of its serves) ---------------------------------------------------------
     from repro_torch.configs.base import SpecConfig
@@ -3739,10 +4091,11 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     # each kernel's launches on the paths that run it (paged attention:
     # the paged, prefix, greedy spec, async, obs, disagg, phase-18 bf16
-    # and drafter serves and the phase-19 serves; the gather: those, the
-    # slot serve and the phase-19 dispatcher; decode attention: the slot
-    # serve, the model and self-spec drafters and the phase-18 zamba2
-    # serves and recurrent drafter; nmce_matmul: the ops phase and the
+    # and drafter serves and the phase-19 and phase-20 paged serves; the
+    # gather: those, the slot serve and the phase-19 dispatcher; decode
+    # attention: the slot serve, the model and self-spec drafters, the
+    # phase-18 zamba2 serves and recurrent drafter and the phase-20 slot
+    # serves; nmce_matmul: the ops phase and the
     # phase-19 dispatcher), and its row at the shape the main path gives
     # it
     spec_launches = {key: sum(run[2][key] for run in spec_runs.values())
@@ -3755,7 +4108,8 @@ def main():
         + obs_launches["paged_attention"]
         + disagg_launches["paged_attention"]
         + recurrent_launches["paged_attention"]
-        + families_launches["paged_attention"],
+        + families_launches["paged_attention"]
+        + frontends_launches["paged_attention"],
         "sparse_gather_matvec": launches["sparse_gather_matvec"]
         + slot_launches["sparse_gather_matvec"]
         + pre_launches["sparse_gather_matvec"]
@@ -3767,7 +4121,8 @@ def main():
         + families_launches["sparse_gather_matvec"],
         "decode_attention": slot_launches["decode_attention"]
         + spec_launches["decode_attention"]
-        + recurrent_launches["decode_attention"],
+        + recurrent_launches["decode_attention"]
+        + frontends_launches["decode_attention"],
         "relu_ffn": slot_launches["relu_ffn"],
         "nmce_matmul": ops_launches["nmce_matmul"]
         + families_launches["nmce_matmul"]}

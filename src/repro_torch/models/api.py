@@ -1,5 +1,5 @@
-"""Public model API of the port: init / slot cache, prefill and decode /
-paged cache and serving step."""
+"""Public model API of the port: init / forward / slot cache, prefill and
+decode / paged cache and serving step."""
 
 from __future__ import annotations
 
@@ -22,6 +22,24 @@ class Model:
              device: Optional[Union[str, torch.device]] = None) -> dict:
         return transformer.init_params(self.cfg, generator, device=device)
 
+    def param_count(self, params: dict) -> int:
+        """The number of parameters in ``params``, every leaf counted."""
+        return sum(t.numel() for t in transformer.tree_leaves(params))
+
+    def forward(self, params: dict, tokens: torch.Tensor,
+                vision_embeds: Optional[torch.Tensor] = None,
+                audio_embeds: Optional[torch.Tensor] = None,
+                mrope_positions: Optional[torch.Tensor] = None):
+        """Logits of every position of tokens i32[B, S] (a codebook
+        model's [B, S, nc]) and the aux loss: (f32[B, S, V] or
+        [B, S, nc, V], f32[]). The optional inputs are those of the
+        reference's batch dict: the frontend stubs' embeddings [B, S', d]
+        added to the first S' positions, and M-RoPE positions [3, B, S]."""
+        hidden, aux, _ = transformer.forward(
+            params, self.cfg, tokens, vision_embeds=vision_embeds,
+            audio_embeds=audio_embeds, mrope_positions=mrope_positions)
+        return transformer.project_logits(params, self.cfg, hidden), aux
+
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.float32,
                    device: Optional[Union[str, torch.device]] = None
@@ -39,20 +57,35 @@ class Model:
         in place (see transformer.merge_slot)."""
         transformer.merge_slot(self.cfg, cache, tmp, slot, prompt_len)
 
-    def prefill(self, params: dict, tokens: torch.Tensor, cache: dict):
-        """Process a prompt tokens i32[B, S], fill the cache, return the
-        logits f32[B, 1, V] of the last position and the updated cache
-        (the reference takes a batch dict {"tokens": ...})."""
-        hidden, new_cache = transformer.forward(params, self.cfg, tokens,
-                                                cache=cache)
+    def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
+                vision_embeds: Optional[torch.Tensor] = None,
+                audio_embeds: Optional[torch.Tensor] = None,
+                mrope_positions: Optional[torch.Tensor] = None):
+        """Process a prompt tokens i32[B, S] ([B, S, nc] for codebooks),
+        fill the cache, return the logits f32[B, 1, V] ([B, 1, nc, V]) of
+        the last position and the updated cache (the reference takes a
+        batch dict {"tokens": ...} with the same optional inputs as
+        ``forward``)."""
+        hidden, _, new_cache = transformer.forward(
+            params, self.cfg, tokens, cache=cache,
+            vision_embeds=vision_embeds, audio_embeds=audio_embeds,
+            mrope_positions=mrope_positions)
         logits = transformer.project_logits(params, self.cfg,
                                             hidden[:, -1:])
         return logits, new_cache
 
-    def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
+    def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict,
+                    vision_embeds: Optional[torch.Tensor] = None,
+                    audio_embeds: Optional[torch.Tensor] = None):
         """One token per row at cache["lens"]; returns (logits f32[B, 1,
-        V], the cache with lens + 1)."""
-        return transformer.decode_step(params, self.cfg, tokens, cache)
+        V] or [B, 1, nc, V], the cache with lens + 1). The optional inputs
+        are those of the reference's ``batch_extra``: the stubs'
+        embeddings, added to the token's. The position is cache["lens"]
+        on every M-RoPE channel: the reference's decode step reads no
+        ``mrope_positions`` from its batch_extra either."""
+        return transformer.decode_step(params, self.cfg, tokens, cache,
+                                       vision_embeds=vision_embeds,
+                                       audio_embeds=audio_embeds)
 
     def init_paged_cache(self, batch: int, n_blocks: int, block_size: int,
                          max_blocks_per_seq: int,

@@ -41,3 +41,22 @@ def head_rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     xf = x.float()
     scale = torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
     return (xf * scale * gamma.float()).to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int,
+                         max_scale: float = 10000.0) -> torch.Tensor:
+    """The classic sin/cos table (musicgen's backbone): f32[..., d] for
+    positions i32[...]. ``log(max_scale)`` and the frequencies are
+    computed in f32, as the reference computes them: a float64 log moves
+    a frequency by an ulp, which at positions in the thousands moves the
+    angle by ~1e-4 rad. The division is by a tensor (a CUDA division by
+    a Python number becomes a product with its reciprocal)."""
+    half = d // 2
+    dev = positions.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    # filled on the device (no host copy: a CUDA graph may capture this)
+    log_scale = torch.log(torch.full((), max_scale, **f32))
+    freqs = torch.exp(-log_scale * torch.arange(half, **f32)
+                      / torch.full((), float(half), **f32))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

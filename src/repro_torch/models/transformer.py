@@ -13,6 +13,13 @@ each of its invocations keeps a KV cache of its own. The reference's
 ``lax.scan`` over units becomes a Python loop over views of those stacks.
 The paged serving step serves the stacks whose every block keeps a KV
 cache (attention and MoE blocks), as the reference's does.
+
+The frontends: a codebook model (musicgen) embeds nc token streams,
+summed, and projects each through a head of its own; M-RoPE (qwen2-vl)
+rotates three sections of the frequencies by three position channels;
+sinusoidal positions (musicgen) are added to the embedding; and the
+frontend stubs' embeddings (``vision_embeds``, ``audio_embeds``), given by
+the caller, are added to the first positions of a prompt.
 """
 
 from __future__ import annotations
@@ -33,20 +40,12 @@ RECURRENT_KINDS = ("mamba2", "mlstm", "slstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config outside the port's slices: M-RoPE, sinusoidal
-    positions, codebook streams and frontends come with ROADMAP item 8c."""
-    missing = [name for name, off in (
-        ("attention, moe, mamba2, mlstm and slstm blocks only",
-         set(cfg.pattern_unit()) <= set(KV_KINDS + RECURRENT_KINDS)),
-        ("rope positions or none", cfg.pos_emb in ("rope", "none")
-         and not cfg.mrope),
-        ("single token stream", not cfg.n_codebooks),
-        ("no frontend", cfg.frontend == "none")) if not off]
-    if missing:
+    """Raise for a config with a block kind the port has no module for."""
+    kinds = set(cfg.pattern_unit()) - set(KV_KINDS + RECURRENT_KINDS)
+    if kinds:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention and MoE stacks and the "
-            f"recurrent families; this config needs {missing} (the "
-            f"frontends are ROADMAP item 8c)")
+            f"{cfg.name}: the port serves attention, moe, mamba2, mlstm "
+            f"and slstm blocks; this config has {sorted(kinds)}")
 
 
 def check_prompt_len(cfg: ModelConfig, S: int) -> None:
@@ -84,6 +83,12 @@ def _stack(trees: List[dict]) -> dict:
     return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
             else torch.stack([t[k] for t in trees])
             for k, v in trees[0].items()}
+
+
+def tree_leaves(tree: dict) -> List[torch.Tensor]:
+    """Every tensor of a nested dict."""
+    return [x for v in tree.values()
+            for x in (tree_leaves(v) if isinstance(v, dict) else [v])]
 
 
 def _index(tree: dict, i: int) -> dict:
@@ -143,11 +148,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     check_supported(cfg)
     dtype = getattr(torch, cfg.dtype)
     unit = cfg.pattern_unit()
+    nc = cfg.n_codebooks
+    # a codebook model embeds and projects each of its nc streams with a
+    # table of its own: embed [nc, V, d], head [nc, d, V]
     params: Dict[str, object] = {"embed": layers.embed_init(
-        generator, cfg.vocab, cfg.d_model, dtype, device)}
+        generator, (nc or 1) * cfg.vocab, cfg.d_model, dtype, device)}
+    if nc:
+        params["embed"] = params["embed"].reshape(nc, cfg.vocab, cfg.d_model)
     if not cfg.tie_embeddings:
         params["head"] = layers.dense_init(
-            generator, (cfg.d_model, cfg.vocab), dtype, device)
+            generator, ((nc, cfg.d_model, cfg.vocab) if nc
+                        else (cfg.d_model, cfg.vocab)), dtype, device)
     params["final_norm"] = torch.ones(cfg.d_model, dtype=dtype,
                                       device=device)
     params["units"] = {
@@ -224,28 +235,90 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
             "trash_rows": n_trash * block_size}
 
 
-def _embed_inputs(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  vision_embeds: Optional[torch.Tensor] = None,
+                  audio_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """The residual stream's input [B, S, d]: the token embedding (a
+    codebook model's tokens [B, S, nc] gather from the flattened [nc*V, d]
+    table and sum over nc), plus the frontend stub's embeddings where the
+    config has that frontend and the caller gives them: [B, S', d] added
+    to the first S' positions."""
+    emb = params["embed"]
+    if cfg.n_codebooks:
+        nc, V, d = emb.shape
+        if tokens.dim() != 3 or tokens.shape[-1] != nc:
+            # the reference's gather fails to broadcast such tokens too
+            raise ValueError(f"{cfg.name}: a codebook model takes tokens "
+                             f"[B, S, {nc}], got {tuple(tokens.shape)}")
+        idx = tokens.long() + V * torch.arange(nc, device=tokens.device)
+        x = emb.reshape(nc * V, d)[idx].sum(dim=2)
+    else:
+        x = emb[tokens.long()]
+    stub = {"vision_stub": vision_embeds,
+            "audio_stub": audio_embeds}.get(cfg.frontend)
+    if stub is not None:
+        pad = x.shape[1] - stub.shape[1]
+        x = x + torch.nn.functional.pad(stub.to(x.dtype), (0, 0, 0, pad))
+    return x
+
+
+def _positions(cfg: ModelConfig, lens: torch.Tensor, S: int,
+               mrope_positions: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """Each row's positions lens[b] + [0, S): i32[B, S], or for M-RoPE
+    [3, B, S], the caller's ``mrope_positions`` where given, else the
+    three channels equal (text only)."""
+    if cfg.mrope and mrope_positions is not None:
+        return mrope_positions
+    pos = lens[:, None] + torch.arange(S, dtype=lens.dtype,
+                                       device=lens.device)[None, :]
+    return pos.expand(3, *pos.shape) if cfg.mrope else pos
+
+
+def _mrope_sections(cfg: ModelConfig):
+    """The M-RoPE split of the d_head//2 frequency slots into temporal,
+    height and width sections: (16, 24, 24) at d_head 128."""
+    half = cfg.d_head // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
 
 
 def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
     if cfg.pos_emb != "rope":
         # the identity rotation
+        if cfg.mrope:
+            positions = positions[0]
         shape = tuple(positions.shape) + (cfg.d_head // 2,)
         return (torch.ones(shape, dtype=torch.float32,
                            device=positions.device),
                 torch.zeros(shape, dtype=torch.float32,
                             device=positions.device))
+    if cfg.mrope:
+        return rope.mrope_cos_sin(positions, cfg.d_head, cfg.rope_theta,
+                                  sections=_mrope_sections(cfg))
     return rope.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
 
 
+def _add_positions(cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """The sinusoidal position table added to the residual stream where
+    the config has one (musicgen); M-RoPE's first channel where both."""
+    if cfg.pos_emb != "sin":
+        return x
+    p1 = positions[0] if cfg.mrope else positions
+    return x + layers.sinusoidal_positions(p1, cfg.d_model).to(x.dtype)
+
+
 def block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
-                  ctx: dict, cache: Optional[dict]) -> torch.Tensor:
+                  ctx: dict, cache: Optional[dict]):
     """One block over a whole prompt at positions [0, S). An attention
     block runs causal attention (writing the cache at [0, S) when given)
     and the dense FFN, an MoE block the same attention and the routed
     experts; a recurrent block runs its parallel form and, with a cache,
-    leaves its final state there."""
+    leaves its final state there. Returns (x, the block's aux loss: the
+    MoE load-balance term, else 0)."""
     if kind == "shared_attn":
         p = ctx["shared_params"]
     if kind in KV_KINDS:
@@ -253,7 +326,10 @@ def block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
         x = x + attention.attn_forward(p["attn"], cfg, h, ctx["cos"],
                                        ctx["sin"], cache=cache)
         h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-        return x + _ffn_or_moe(p, cfg, h, ffn.ffn_forward)
+        if "moe" in p:
+            y, aux = moe.moe_forward(p["moe"], cfg, h)
+            return x + y, aux
+        return x + ffn.ffn_forward(p["ffn"], cfg, h), 0.0
     if kind == "mamba2":
         h = layers.rms_norm(x, p["norm"], cfg.norm_eps)
         y, new = ssm.mamba2_forward(p["mamba"], cfg, h, cache=cache)
@@ -266,7 +342,7 @@ def block_forward(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
         raise ValueError(kind)
     if cache is not None:
         _write(cache, new)
-    return x
+    return x, 0.0
 
 
 def block_decode(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -300,10 +376,10 @@ def block_decode(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def _ffn_or_moe(p: dict, cfg: ModelConfig, h: torch.Tensor,
                 dense) -> torch.Tensor:
-    """The second half of an attention or MoE block: ``dense`` (an FFN path
-    of ``models.ffn``) for an attention block, the routed experts for an
-    MoE block (every row routed; the aux loss is a training term, unused
-    when serving)."""
+    """The second half of an attention or MoE block when serving: ``dense``
+    (an FFN path of ``models.ffn``) for an attention block, the routed
+    experts for an MoE block (every row routed; the aux loss is a training
+    term, which ``forward`` alone returns)."""
     if "moe" in p:
         return moe.moe_forward(p["moe"], cfg, h)[0]
     return dense(p["ffn"], cfg, h)
@@ -321,38 +397,53 @@ def _unit_blocks(params: dict, cfg: ModelConfig, cache: Optional[dict],
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: Optional[dict] = None):
-    """Full-sequence forward (prefill) of tokens i32[B, S] at positions
-    [0, S). With ``cache`` each attention block's K/V land at [0, S) of it
-    and each recurrent block's final state in it, in place, and the
-    returned cache has lens = S. Returns (hidden [B, S, d], cache or
-    None); the reference also returns the MoE aux loss, a training term
-    (ROADMAP item 9a), which serving does not read."""
-    B, S = tokens.shape
+            cache: Optional[dict] = None,
+            vision_embeds: Optional[torch.Tensor] = None,
+            audio_embeds: Optional[torch.Tensor] = None,
+            mrope_positions: Optional[torch.Tensor] = None):
+    """Full-sequence forward (prefill) of tokens i32[B, S] (a codebook
+    model's [B, S, nc]) at positions [0, S), M-RoPE's ``mrope_positions``
+    [3, B, S] where given; the frontend stubs' embeddings are added to the
+    first positions (``_embed_inputs``). With ``cache`` each attention
+    block's K/V land at [0, S) of it and each recurrent block's final
+    state in it, in place, and the returned cache has lens = S. Returns
+    (hidden [B, S, d], the aux loss f32[] summed over the blocks (the MoE
+    load-balance term; 0 without MoE blocks), cache or None)."""
+    B, S = tokens.shape[:2]
     check_prompt_len(cfg, S)
-    x = _embed_inputs(params, tokens)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device)[None, :].expand(B, S)
+    x = _embed_inputs(params, cfg, tokens, vision_embeds, audio_embeds)
+    positions = _positions(
+        cfg, torch.zeros(B, dtype=torch.int32, device=tokens.device), S,
+        mrope_positions)
     cos, sin = _rope_tables(cfg, positions)
+    x = _add_positions(cfg, x, positions)
     ctx = {"cos": cos, "sin": sin, "shared_params": params.get("shared")}
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(cfg.n_units):
         for kind, p, c in _unit_blocks(params, cfg, cache, i):
-            x = block_forward(kind, p, cfg, x, ctx, c)
+            x, a = block_forward(kind, p, cfg, x, ctx, c)
+            aux = aux + a
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cache is None:
-        return x, None
-    return x, {"lens": torch.full_like(cache["lens"], S),
-               "units": cache["units"]}
+        return x, aux, None
+    return x, aux, {"lens": torch.full_like(cache["lens"], S),
+                    "units": cache["units"]}
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: dict):
-    """One-token decode of every row: tokens i32[B, 1] at positions
-    cache["lens"]. The cache is written in place. Returns (logits
-    f32[B, 1, V], the cache with lens + 1)."""
-    x = _embed_inputs(params, tokens)
+                cache: dict, vision_embeds: Optional[torch.Tensor] = None,
+                audio_embeds: Optional[torch.Tensor] = None):
+    """One-token decode of every row: tokens i32[B, 1] (a codebook model's
+    [B, 1, nc]) at positions cache["lens"] (M-RoPE: all three channels
+    there, as the reference's decode step sets them whatever its
+    batch_extra holds). The frontend stubs' embeddings, where given, are
+    added as in ``forward``. The cache is written in place. Returns
+    (logits f32[B, 1, V] or [B, 1, nc, V], the cache with lens + 1)."""
+    x = _embed_inputs(params, cfg, tokens, vision_embeds, audio_embeds)
     lens = cache["lens"]
-    cos, sin = _rope_tables(cfg, lens[:, None])
+    positions = _positions(cfg, lens, 1)
+    cos, sin = _rope_tables(cfg, positions)
+    x = _add_positions(cfg, x, positions)
     ctx = {"cos": cos, "sin": sin, "lens": lens,
            "shared_params": params.get("shared")}
     for i in range(cfg.n_units):
@@ -387,13 +478,22 @@ _LOGIT_SLICE = 1 << 22
 
 def project_logits(params: dict, cfg: ModelConfig,
                    x: torch.Tensor) -> torch.Tensor:
-    """x [B, S, d] -> f32 logits [B, S, V]. An f32 model multiplies as it
-    is. A bf16 model keeps its operands' values and sums in f32, as the
-    reference's ``preferred_element_type=jnp.float32`` does: the vocab
+    """x [B, S, d] -> f32 logits [B, S, V] (a codebook model's
+    [B, S, nc, V], one head [d, V] per codebook). An f32 model multiplies
+    as it is. A bf16 model keeps its operands' values and sums in f32, as
+    the reference's ``preferred_element_type=jnp.float32`` does: the vocab
     matrix is widened to f32 one slice of columns at a time (exact), so
     the logits are never rounded to bf16 and no f32 copy of the matrix
     outlives the call."""
-    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    if cfg.n_codebooks:
+        return torch.stack([_project(x, w) for w in params["head"]], dim=2)
+    return _project(x, params["embed"].t() if cfg.tie_embeddings
+                    else params["head"])
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., d] @ w [d, V] in f32, a bf16 ``w`` widened a slice at a
+    time."""
     if w.dtype == torch.float32:
         return x @ w
     xf = x.float()
@@ -416,13 +516,15 @@ def forward_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     tokens[b, j]. ``lens`` and the tables never advance here: the engine
     republishes them before every step. ``is_prefill`` bool[B] routes each
     row's FFN; ``has_prefill`` is the host's no-prefill-rows fast path.
-    Returns logits f32[B, S, V]."""
-    x = _embed_inputs(params, tokens)
+    A codebook model's tokens are [B, S, nc]. M-RoPE positions are text
+    only (three equal channels), as the reference's step sets them.
+    Returns logits f32[B, S, V] (or [B, S, nc, V])."""
+    x = _embed_inputs(params, cfg, tokens)
     S = tokens.shape[1]
     lens = cache["lens"]
-    positions = lens[:, None] + torch.arange(S, dtype=lens.dtype,
-                                             device=tokens.device)[None, :]
+    positions = _positions(cfg, lens, S)
     cos, sin = _rope_tables(cfg, positions)
+    x = _add_positions(cfg, x, positions)
     n_blocks = cache["units"]["b0"]["k"].shape[1]
     # IDLE rows write nothing: their tables become all-sentinel (the
     # plain read fills zeros there, kernel 1 reads block 0, each as the

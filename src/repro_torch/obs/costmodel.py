@@ -24,12 +24,17 @@ attention layer):
               the up projection in a step without prefill rows (a mixed
               step computes the gather for every row too, as the reference
               does);
-  logits      the projection of every position of the step to the vocab;
-  sample      the greedy sampler: argmax and log-softmax over [B, V];
+  logits      the projection of every position of the step to the vocab
+              (a codebook model's: to each of its nc vocabularies, through
+              the head [nc, d, V]);
+  sample      the greedy sampler: argmax and log-softmax over [B, V]
+              (0 for a codebook model, as the reference reports it);
   other       the elementwise work, one FLOP per element and operation as
               XLA counts it: RMS norms (4), RoPE (3), residual adds, the
               attention softmax (5 a score), the activation, top-k's |h|
               and selection, the gathers' masks, the mixed step's select;
+              a codebook model's sum of its nc embeddings, and the
+              sinusoidal position table's add where the config has one;
               the plain read's zero fill of the gathered K and V; the QKV
               bias adds (1) and the per-head q/k RMS norms (4) where the
               config has them; an MoE block's router softmax and top-k
@@ -39,8 +44,9 @@ attention layer):
 Bytes follow the reference's convention for a product: its operands plus
 its output, each once. Kernel 2 counts the k rows of W_down it fetches
 for each row; the attention read counts the K and V of its keys, the
-queries and the output. ``other`` counts the embedding rows gathered and
-the KV rows the step writes.
+queries and the output. ``other`` counts the embedding rows gathered (nc
+a position for a codebook model, whose tokens are [B, S, nc]) and the KV
+rows the step writes.
 
 ``n_keys`` is the sum over rows of the keys the attention read covers.
 On the card kernel 1 reads only each row's live blocks, so the profiler
@@ -171,8 +177,13 @@ def step_cost(runner, width: int, has_prefill: bool,
             add("ffn_dense", dense)
             add("ffn_sparse", gather)
             add("other", (act + select + R * d, 0.0))
-    add("logits", _product(R, d, V, w_bytes))
-    add("other", (4 * R * d, R * d * (w_bytes + F32)))   # final norm, embed
+    nc = cfg.n_codebooks or 1
+    add("logits", _product(R, d, nc * V, w_bytes))
+    # the final norm, the embedding rows gathered (and a codebook model's
+    # sum of its nc), the sinusoidal positions' add
+    other = 4 * R * d + (nc - 1) * R * d \
+        + (R * d if cfg.pos_emb == "sin" else 0)
+    add("other", (other, R * d * (nc * w_bytes + F32)))
     by_scope = {name: {"flops": v[0], "bytes": v[1]}
                 for name, v in scope.items() if name != "sample"}
     return StepCost(width=width, has_prefill=has_prefill,
@@ -206,10 +217,16 @@ def _moe_cost(cfg, R: int, w_bytes: float, add) -> None:
     add("other", (other, (R * k + rows) * I32))
 
 
-def sampler_cost(batch: int, vocab: int) -> Dict[str, float]:
+def sampler_cost(batch: int, vocab: int,
+                 n_codebooks: int = 0) -> Dict[str, float]:
     """The per-tick greedy sampler (the "sample" scope): argmax and the
     log-softmax of the chosen token over f32 logits [batch, vocab]. The
-    filtered sampler costs more, which the table does not model."""
+    filtered sampler costs more, which the table does not model. A codebook
+    model's logits [batch, nc, vocab] get 0: the reference's compiled
+    sampler does not take them and it reports 0 (the engine's per-codebook
+    argmax goes uncounted there too)."""
+    if n_codebooks:
+        return {"flops": 0.0, "bytes": 0.0}
     return {"flops": 6.0 * batch * vocab,
             "bytes": float(batch * vocab * F32 + batch * 2 * 8)}
 

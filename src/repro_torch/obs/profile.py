@@ -82,8 +82,9 @@ class ServingProfiler:
         return costmodel.step_cost(self.runner, width, has_prefill, n_keys)
 
     def sample_cost(self) -> Dict[str, float]:
+        cfg = self.runner.cfg
         return costmodel.sampler_cost(self.runner.scfg.max_batch,
-                                      self.runner.cfg.vocab)
+                                      cfg.vocab, cfg.n_codebooks)
 
     def _tick_totals(self, width: int, has_prefill: bool,
                      n_keys: Optional[float]):

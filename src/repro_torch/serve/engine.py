@@ -18,6 +18,13 @@ The port of the reference engine's two synchronous modes:
     draws the first token on the host (``sampling.sample_np``); each
     ``step`` decodes one token for every slot.
 
+Both modes serve a codebook model (musicgen) as the reference does: a
+prompt is [L, nc], each committed token an i32[nc], drawn greedy per
+codebook whatever the request's sampling params, with no stop sequences,
+prompt log-probabilities, prefix cache, speculation or async bursts.
+M-RoPE models (qwen2-vl) are served on text-only positions; they refuse
+the prefix cache and speculation too.
+
 ``ServeConfig.async_cfg`` (paged mode) turns on the asynchronous tick
 pipeline: overlap ticks and device-resident decode bursts, whose tokens
 the host replays through the synchronous commit path (see the section
@@ -141,6 +148,10 @@ class Engine:
             raise ValueError(
                 f"{cfg.name}: speculative decode supports plain token "
                 f"streams only (no codebooks / M-RoPE)")
+        if scfg.prefix_cache and (cfg.n_codebooks or cfg.mrope):
+            raise ValueError(
+                f"{cfg.name}: prefix caching keys on plain token-id "
+                f"streams (no codebooks / M-RoPE)")
         self.cfg = cfg
         self.scfg = scfg
         self.model = Model(cfg)
@@ -158,8 +169,10 @@ class Engine:
         self.spec = scfg.spec
         self.drafter = None
         self.sampler = sampling.Sampler()
-        # per-slot token-id presence for the repetition penalty
-        self._presence = np.zeros((scfg.max_batch, cfg.vocab), bool)
+        # per-slot token-id presence for the repetition penalty (codebook
+        # streams are greedy only and skip it)
+        self._presence = None if cfg.n_codebooks else \
+            np.zeros((scfg.max_batch, cfg.vocab), bool)
         self._draw_ctr: Dict[int, int] = {}    # rid -> sample-draw counter
         # disagg seam (serve.disagg): rids submitted for prefill only park
         # at State.HANDOFF instead of decoding here. The coordinator sets
@@ -264,7 +277,8 @@ class Engine:
                 f"Engine.new_rid() to allocate ids")
         if not self.can_serve(req):
             return False
-        if req.sampling.prompt_logprobs and not self.scfg.paged:
+        if req.sampling.prompt_logprobs and (not self.scfg.paged
+                                             or self.cfg.n_codebooks):
             raise ValueError(
                 "prompt_logprobs needs the paged engine's all-position "
                 "prefill logits (ServeConfig(paged=True), plain token "
@@ -321,6 +335,8 @@ class Engine:
         return sampling.effective_params(req.sampling, fallback)
 
     def _seed_presence(self, slot: int, req: Request) -> None:
+        if self._presence is None:
+            return
         self._presence[slot, :] = False
         self._presence[slot, np.asarray(req.prompt, np.int64).reshape(-1)] \
             = True
@@ -332,8 +348,13 @@ class Engine:
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """One batched sample over the rows in ``pairs`` [(slot, req)],
         each with its own params and its next key; other rows get garbage
-        the caller ignores."""
+        the caller ignores. Codebook models are greedy only, as the
+        reference's: a per-codebook argmax of last_logits [B, nc, V], and
+        a sampled request is served greedy."""
         B = self.scfg.max_batch
+        if self.cfg.n_codebooks:
+            tok = last_logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            return tok, np.zeros((B,), np.float32)
         temp = np.zeros((B,), np.float32)
         top_k = np.zeros((B,), np.int32)
         top_p = np.ones((B,), np.float32)
@@ -351,15 +372,17 @@ class Engine:
         return self.sampler(last_logits, self._presence, temp, top_k,
                             top_p, rep, keys)
 
-    def _append_token(self, req: Request, slot: int, tok: int,
+    def _append_token(self, req: Request, slot: int, tok,
                       lp: float) -> str:
-        """Commit one token to the request stream. Returns "ok", "stop" (a
-        stop sequence matched and was truncated off) or "max"."""
+        """Commit one token (a codebook model's: i32[nc]) to the request
+        stream. Returns "ok", "stop" (a stop sequence matched and was
+        truncated off; codebook streams have no stops) or "max"."""
         req.tokens_out.append(tok)
         if req.sampling.logprobs:
             req.logprobs_out.append(float(lp))
-        self._presence[slot, int(tok)] = True
-        if req.sampling.stop:
+        if self._presence is not None:
+            self._presence[slot, int(tok)] = True
+        if req.sampling.stop and not self.cfg.n_codebooks:
             cut = sampling.stop_truncate(req.tokens_out, req.sampling.stop)
             if cut is not None:
                 del req.tokens_out[cut:]
@@ -665,7 +688,7 @@ class Engine:
                         e.resync = [int(t) for t in e.req.tokens_out[:-1]]
                         e.resync_replay = False
                 else:
-                    self._commit_emitted(e, int(tok_np[e.slot]),
+                    self._commit_emitted(e, self._one_token(tok_np, e.slot),
                                          lp_np[e.slot], finished,
                                          first=True)
                 # disagg: a prefill-only request parks at HANDOFF once its
@@ -723,6 +746,13 @@ class Engine:
         else:
             e.plp_prev = None
 
+    def _one_token(self, tok_np: np.ndarray, slot: int):
+        """Row ``slot``'s sampled token: an int, or a codebook model's
+        i32[nc]."""
+        if self.cfg.n_codebooks:
+            return tok_np[slot].copy()
+        return int(tok_np[slot])
+
     def _commit_decode(self, rows: List[SchedEntry], tok_np, lp_np,
                        finished: List[int]) -> None:
         """Commit one sampled token per decode row."""
@@ -730,7 +760,7 @@ class Engine:
             return
         kv_read = sum(e.ctx_len for e in rows) * self._kv_per_tok
         for e in rows:
-            alive = self._commit_emitted(e, int(tok_np[e.slot]),
+            alive = self._commit_emitted(e, self._one_token(tok_np, e.slot),
                                          lp_np[e.slot], finished)
             e.ctx_len += 1
             if alive and e.ctx_len + 1 > self.scfg.max_seq:
@@ -1345,14 +1375,16 @@ class Engine:
 
     def _add_request_slots(self, req: Request) -> bool:
         # a prompt length the prefill refuses raises before any state
-        # changes
-        self.model.check_prompt_len(len(np.asarray(req.prompt).reshape(-1)))
+        # changes; a codebook model's prompt is [L, nc]
+        prompt = np.asarray(req.prompt, np.int32)
+        if not self.cfg.n_codebooks:
+            prompt = prompt.reshape(-1)
+        self.model.check_prompt_len(len(prompt))
         slot = self.alloc.alloc(req.rid)
         if slot is None:
             return False
         self._requests[req.rid] = req
         self._active[req.rid] = req
-        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         self.metrics.on_arrival(req.rid, len(prompt))
         self.tracer.event(req.rid, "arrival", prompt_len=len(prompt))
         self.tracer.event(req.rid, "admitted", slot=slot)
@@ -1365,17 +1397,22 @@ class Engine:
                 tmp)
         self.model.merge_slot(self.cache, tmp, slot, len(prompt))
         self._seed_presence(slot, req)
-        # the first token is drawn on the host, from a per-request numpy
-        # generator (the reference's slot engine does the same)
-        sp = self._sp(req)
-        rng = self._host_rngs.setdefault(
-            req.rid, np.random.default_rng(np.random.SeedSequence(
-                entropy=0 if sp.seed is None else sp.seed,
-                spawn_key=(req.rid & 0xFFFFFFFF,))))
-        seen = prompt.astype(np.int64) if sp.repetition_penalty != 1.0 \
-            else ()
-        tok, lp = sampling.sample_np(logits[0, 0].float().cpu().numpy(), sp,
-                                     rng, seen=seen)
+        if self.cfg.n_codebooks:
+            # greedy only: a per-codebook argmax
+            tok = logits[0, 0].argmax(dim=-1).to(torch.int32).cpu().numpy()
+            lp = 0.0
+        else:
+            # the first token is drawn on the host, from a per-request
+            # numpy generator (the reference's slot engine does the same)
+            sp = self._sp(req)
+            rng = self._host_rngs.setdefault(
+                req.rid, np.random.default_rng(np.random.SeedSequence(
+                    entropy=0 if sp.seed is None else sp.seed,
+                    spawn_key=(req.rid & 0xFFFFFFFF,))))
+            seen = prompt.astype(np.int64) \
+                if sp.repetition_penalty != 1.0 else ()
+            tok, lp = sampling.sample_np(
+                logits[0, 0].float().cpu().numpy(), sp, rng, seen=seen)
         status = self._append_token(req, slot, tok, lp)
         if status != "stop":
             self.metrics.on_first_token(req.rid)
@@ -1397,7 +1434,8 @@ class Engine:
         slots = {req.rid: self.alloc.active[req.rid] for req in reqs}
         B = self.scfg.max_batch
         with tr.span("batch_assemble"):
-            tok = np.zeros((B, 1), np.int32)
+            nc = self.cfg.n_codebooks
+            tok = np.zeros((B, 1, nc) if nc else (B, 1), np.int32)
             for req in reqs:
                 tok[slots[req.rid], 0] = req.tokens_out[-1]
             tr.tick_attrs(rows_prefill=0, rows_decode=len(reqs),
@@ -1421,8 +1459,8 @@ class Engine:
         with tr.span("postprocess"):
             for req in reqs:
                 slot = slots[req.rid]
-                status = self._append_token(req, slot, int(tok_np[slot]),
-                                            lp_np[slot])
+                status = self._append_token(
+                    req, slot, self._one_token(tok_np, slot), lp_np[slot])
                 if status != "stop":
                     self.metrics.on_token(req.rid)
                 if status != "ok":

@@ -123,8 +123,9 @@ class _Burst:
 
 @dataclasses.dataclass
 class StepBatch:
-    """Host-side description of one step: tokens i32[B, S] (row b's valid
-    tokens occupy [0, n_valid[b])), the absolute position of each row's
+    """Host-side description of one step: tokens i32[B, S] (i32[B, S, nc]
+    for a codebook model; row b's valid tokens occupy [0, n_valid[b])),
+    the absolute position of each row's
     first token (``row_start``), the row phase and the block tables.
     PREFILL rows use the dense FFN, DECODE and VERIFY (K+1 speculative)
     rows the sparse one, IDLE rows are masked out (sentinel tables,
@@ -137,9 +138,11 @@ class StepBatch:
     tables: np.ndarray
 
     @classmethod
-    def empty(cls, max_batch: int, width: int,
-              tables: np.ndarray) -> "StepBatch":
-        return cls(tokens=np.zeros((max_batch, width), np.int32),
+    def empty(cls, max_batch: int, width: int, tables: np.ndarray,
+              n_codebooks: int = 0) -> "StepBatch":
+        shape = (max_batch, width, n_codebooks) if n_codebooks \
+            else (max_batch, width)
+        return cls(tokens=np.zeros(shape, np.int32),
                    row_start=np.zeros((max_batch,), np.int32),
                    n_valid=np.zeros((max_batch,), np.int32),
                    phase=np.full((max_batch,), IDLE, np.int32),
@@ -167,8 +170,8 @@ class StepOutput:
     at its last valid position. ``row_logits`` copies one row to the host
     on first use (prompt log-probabilities need every position)."""
 
-    logits: torch.Tensor         # f32[B, S, V]
-    last_logits: torch.Tensor    # f32[B, V]
+    logits: torch.Tensor         # f32[B, S, V] ([B, S, nc, V] codebooks)
+    last_logits: torch.Tensor    # f32[B, V] ([B, nc, V] codebooks)
     _rows: Dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
 
     def row_logits(self, slot: int) -> np.ndarray:
@@ -221,9 +224,11 @@ class ModelRunner:
         self.graph_captures = 0
         self.graph_replays = 0
         acfg = scfg.async_cfg
-        if acfg is not None and acfg.enabled and device.type == "cuda":
+        if acfg is not None and acfg.enabled and device.type == "cuda" \
+                and not self.cfg.n_codebooks:
             # capture both graphs now, so their warm-up launches happen
-            # before the engine serves
+            # before the engine serves (a codebook model's ticks are all
+            # synchronous: the engine's async gate refuses them)
             for sampled in (False, True):
                 self._burst(sampled, acfg.max_device_ticks)
 
@@ -238,7 +243,8 @@ class ModelRunner:
 
     def new_batch(self, max_valid: int, tables: np.ndarray) -> StepBatch:
         return StepBatch.empty(self.scfg.max_batch,
-                               self.width_for(max_valid), tables)
+                               self.width_for(max_valid), tables,
+                               n_codebooks=self.cfg.n_codebooks)
 
     # --- host -> device ---------------------------------------------------
     def _stage(self, layout: _Layout, arrays: Dict[str, np.ndarray],
@@ -279,11 +285,12 @@ class ModelRunner:
         lay = self._layouts.get(width)
         if lay is None:
             B, MB = self.scfg.max_batch, self.scfg.blocks_per_seq
+            nc = self.cfg.n_codebooks
             lay = self._layouts[width] = _Layout((
                 ("lens", torch.int32, (B,)),
                 ("tables", torch.int32, (B, MB)),
                 ("n_valid", torch.int32, (B,)),
-                ("tokens", torch.int32, (B, width)),
+                ("tokens", torch.int32, (B, width, nc) if nc else (B, width)),
                 ("is_prefill", torch.bool, (B,))))
         return lay
 

@@ -48,7 +48,7 @@ class Request:
     fills ``prompt_logprobs_out[i]`` with the log-probability of
     ``prompt[i]`` given ``prompt[:i]`` (index 0 is None — no prefix)."""
     rid: int
-    prompt: np.ndarray          # i32[S]
+    prompt: np.ndarray          # i32[S] (or [S, nc]: codebooks)
     max_new: int = 16
     tokens_out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False

@@ -60,9 +60,11 @@ def selfspec_decode_step(params: dict, cfg: ModelConfig,
     and the predictor-gathered FFN. The signature of
     ``transformer.decode_step`` (so ModelDrafter's feed loop is reused);
     the cache's K/V are written in place."""
-    x = transformer._embed_inputs(params, tokens)
+    x = transformer._embed_inputs(params, cfg, tokens)
     lens = cache["lens"]
-    cos, sin = transformer._rope_tables(cfg, lens[:, None])
+    positions = lens[:, None]
+    cos, sin = transformer._rope_tables(cfg, positions)
+    x = transformer._add_positions(cfg, x, positions)
     units = params["units"]["b0"]
     for i in range(cfg.n_units):
         p = transformer._index(units, i)

@@ -187,8 +187,8 @@ def test_bf16_smoke_served_through_both_packages(name, paged):
         f32[i] = _f32_logits(cfg, jparams_f32, seq)
         jl, _ = JaxModel(cfg).forward(jparams, {"tokens": jnp.asarray(
             seq[None])})
-        hidden, _ = transformer.forward(tparams, tcfg,
-                                        torch.from_numpy(seq[None]))
+        hidden, _, _ = transformer.forward(tparams, tcfg,
+                                           torch.from_numpy(seq[None]))
         tl = transformer.project_logits(tparams, tcfg, hidden)[0].numpy()
         served = slice(len(p) - 1, len(seq) - 1)
         ref_err.append(np.abs(np.asarray(jl, np.float32)[0]

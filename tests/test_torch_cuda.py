@@ -35,7 +35,13 @@ def cuda():
                                            (1, 4, 2, 16, 16),
                                            (5, 4, 2, 16, 8),
                                            (16, 4, 2, 16, 16),
-                                           (1, 8, 1, 16, 16)])
+                                           (1, 8, 1, 16, 16),
+                                           # musicgen-medium, G 1
+                                           (1, 24, 24, 64, 16),
+                                           (16, 24, 24, 64, 16),
+                                           # qwen2-vl-72b, G 8
+                                           (1, 64, 8, 128, 16),
+                                           (16, 64, 8, 128, 16)])
 def test_paged_attention_kernel_matches_plain(cuda, S, Hq, Kv, Dh, bs):
     rng = np.random.default_rng(S)
     B, nb, MB = 3, 40, 12
@@ -210,7 +216,9 @@ def test_sparse_gather_kernel_split_edges(cuda, B, k, d_ff, d):
     (4, 2, 16, 2048, torch.bfloat16),
     (32, 32, 80, 512, torch.float32),     # zamba2-2.7b's shared attention
     (32, 32, 80, 300, torch.bfloat16),
-    (4, 4, 80, 96, torch.float32)])
+    (4, 4, 80, 96, torch.float32),
+    (24, 24, 64, 512, torch.float32),     # musicgen-medium's slot decode
+    (24, 24, 64, 300, torch.bfloat16)])
 def test_decode_attention_kernel_matches_plain(cuda, Hq, Kv, Dh, S, dtype):
     """kv_len 1..S, past S (an idle slot: all S visible) and 0 (every
     position masked: a mean over all S)."""
@@ -1048,3 +1056,33 @@ def test_moe_async_ticks_make_no_host_sync(cuda):
             assert eng.async_stats()["loop_bursts"] > 0
             assert eng.runner.graph_replays > 0
     assert out[None] == out[8]
+
+
+@pytest.mark.cuda
+def test_mrope_model_decode_iteration_captures(cuda):
+    """An M-RoPE model (qwen2-vl-smoke) passes the async gate: its decode
+    iteration, M-RoPE tables included, is captured as a CUDA graph when
+    the engine is built (no host copy inside), and the async K = 4 serve
+    gives the sync serve's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import AsyncConfig, ServeConfig
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import Request
+    cfg = get_config("qwen2-vl-smoke")
+    params = Model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(m), dtype=np.int32)
+               for m in rng.integers(5, 30, 4)]
+    out = []
+    for acfg in (None, AsyncConfig(enabled=True, max_device_ticks=4)):
+        eng = Engine(cfg, params, ServeConfig(
+            paged=True, attn_backend="flash", max_batch=4, async_cfg=acfg),
+            device=cuda)
+        done = eng.run([Request(rid=i, prompt=p, max_new=12)
+                        for i, p in enumerate(prompts)])
+        out.append({i: list(r.tokens_out) for i, r in done.items()})
+    assert eng.runner.graph_captures == 2
+    assert eng.async_stats()["loop_bursts"] > 0
+    assert out[0] == out[1]

@@ -13,7 +13,9 @@ drawn away from their zero and one init so that they matter); greedy
 tokens through the paged (plain read, flash read's plain version, prefix
 cache) and slot engines, seeded sampled rows, the async engine and n-gram
 speculation identical to the reference's on ``tests/test_paged_serving``'s
-``_prompts``. bf16 trees keep each leaf's dtype, the router f32, and are
+``_prompts``; the two frontend SMOKEs (qwen2-vl, musicgen: [L, nc]
+prompts) run the same forward, decode, flash and slot cases
+(``tests/test_torch_frontends.py`` holds the rest). bf16 trees keep each leaf's dtype, the router f32, and are
 judged as ``tests/test_torch_bf16.py`` judges bf16. The cost model counts
 an MoE block's products as ``FlopCounterMode`` does within 1%.
 """
@@ -58,9 +60,9 @@ except ImportError:  # property tests are skipped on clean environments
     from conftest import given, settings, st  # no-op stand-ins
 
 SMOKES = ["qwen3-4b-smoke", "qwen2.5-3b-smoke", "moonshot-v1-smoke",
-          "llama4-maverick-smoke"]
+          "llama4-maverick-smoke", "qwen2-vl-smoke", "musicgen-smoke"]
 CONFIGS = ["qwen3-4b", "qwen2.5-3b", "moonshot-v1-16b-a3b",
-           "llama4-maverick-400b-a17b"]
+           "llama4-maverick-400b-a17b", "qwen2-vl-72b", "musicgen-medium"]
 BASE = dict(max_batch=2, max_seq=64, block_size=8, prefill_chunk=16)
 LENGTHS = [5, 21, 9, 13, 30, 3]
 
@@ -74,9 +76,11 @@ def _one_thread():
 
 
 def _prompts(cfg, lengths, seed=0):
-    """``tests/test_paged_serving.py``'s prompt draw."""
+    """``tests/test_paged_serving.py``'s prompt draw; a codebook model's
+    prompts are [L, nc]."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, cfg.vocab, size=int(n), dtype=np.int32)
+    return [rng.integers(0, cfg.vocab, size=(int(n), cfg.n_codebooks)
+                         if cfg.n_codebooks else int(n), dtype=np.int32)
             for n in lengths]
 
 
@@ -131,13 +135,15 @@ def _run_both(name, prompts, max_new=8, sps=None, jkw=None, tkw=None,
         rid=i, prompt=p, max_new=max_new,
         sampling=sampling.SamplingParams(**(sp or {})))
         for i, (p, sp) in enumerate(zip(prompts, sps))], max_steps=2000)
-    want = {i: [int(t) for t in r.tokens_out] for i, r in jdone.items()}
-    got = {i: [int(t) for t in r.tokens_out] for i, r in done.items()}
+    want = {i: [np.asarray(t).tolist() for t in r.tokens_out]
+            for i, r in jdone.items()}
+    got = {i: [np.asarray(t).tolist() for t in r.tokens_out]
+           for i, r in done.items()}
     return want, got, jeng, eng
 
 
 # ---------------------------------------------------------------------------
-# configs and refusals
+# configs
 
 
 @pytest.mark.parametrize("name", CONFIGS + SMOKES)
@@ -145,18 +151,6 @@ def test_config_copies_equal_the_reference(name):
     assert dataclasses.asdict(torch_get_config(name)) \
         == dataclasses.asdict(get_config(name))
 
-
-@pytest.mark.parametrize("name,what", [("qwen2-vl-72b", "rope"),
-                                       ("musicgen-medium", "token stream")])
-def test_frontends_stay_refused_naming_item_8c(name, what):
-    cfg = get_config(name)
-    tcfg = torch_get_config("qwen3-4b-smoke")
-    tcfg = dataclasses.replace(
-        tcfg, name=cfg.name, mrope=cfg.mrope, pos_emb=cfg.pos_emb,
-        n_codebooks=cfg.n_codebooks, frontend=cfg.frontend)
-    with pytest.raises(NotImplementedError, match="item 8c") as err:
-        transformer.check_supported(tcfg)
-    assert what in str(err.value) and "frontend" in str(err.value)
 
 
 # ---------------------------------------------------------------------------
@@ -350,15 +344,16 @@ def test_moe_step_reads_no_device_value_on_the_host(monkeypatch):
 @pytest.mark.parametrize("name", SMOKES)
 def test_forward_and_decode_logits_match_the_reference(name):
     cfg, jparams, tcfg, tparams = _trees(name)
-    tok = np.random.default_rng(2).integers(0, cfg.vocab, (2, 12)) \
+    shape = (2, 12, cfg.n_codebooks) if cfg.n_codebooks else (2, 12)
+    tok = np.random.default_rng(2).integers(0, cfg.vocab, shape) \
         .astype(np.int32)
     hidden, _, jcache = jax_transformer.forward(
         jparams, cfg, {"tokens": jnp.asarray(tok)},
         cache=jax_transformer.init_cache(cfg, 2, 32, jnp.float32))
     want = np.asarray(jax_transformer.project_logits(jparams, cfg, hidden))
     cache = transformer.init_cache(tcfg, 2, 32, device="cpu")
-    th, cache = transformer.forward(tparams, tcfg, torch.from_numpy(tok),
-                                    cache=cache)
+    th, _, cache = transformer.forward(tparams, tcfg, torch.from_numpy(tok),
+                                       cache=cache)
     got = transformer.project_logits(tparams, tcfg, th).numpy()
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
     nxt = np.argmax(want[:, -1], -1).astype(np.int32)[:, None]

@@ -211,7 +211,7 @@ def test_prefill_then_decode_matches_forward(models, name):
     toks = np.random.default_rng(13).integers(0, cfg.vocab, (B, S),
                                               dtype=np.int32)
     j_full, _ = jm.forward(jparams, {"tokens": jnp.asarray(toks)})
-    hidden, _ = transformer.forward(tparams, tcfg, torch.from_numpy(toks))
+    hidden, _, _ = transformer.forward(tparams, tcfg, torch.from_numpy(toks))
     t_full = transformer.project_logits(tparams, tcfg, hidden)
     np.testing.assert_allclose(t_full.numpy(), _np(j_full), **TOL)
 
