@@ -209,6 +209,28 @@ Phases, each reporting on lines of its own:
                time over the unprofiled serve's wall, and the same tokens
                as before; then one record_shapes window over the paged
                serve names the shapes and the Python line of every GEMM.
+ 21. train   — training (runs after phase 13): (a) kernel 3 with its
+               autograd rule at nectar's training rows (M 512): one
+               launch a forward and none in the backward, the output
+               within 1.5e-5 and dx, dW_up, dW_down within 1e-4
+               (relative) of the plain version's autograd, with the
+               forward's and the backward's device ms (its phase-3 row
+               and the backward's time are measured in phase 3); (b)
+               nectar trained 60 steps (B 8, S 64, lr 3e-3) on the card
+               and on the CPU from the same params: ce falling below
+               0.7x on both, card within 1e-3 of the CPU over the first
+               20 steps, 6 kernel-3 launches a step, step ms, tokens/s,
+               device events a step and the busy share; (c) ReLU
+               sparsity before and after, layer 0 above 0.45; (d) 6 steps
+               straight equal to 3 +
+               checkpoint + restore + 3 bit for bit, the preemption guard
+               stopping after one step with a checkpoint, 8-bit Adam
+               within 20% of fp32 Adam after 50 steps; (e) the trained
+               checkpoint served through the paged flash engine (kernels
+               1 and 2) against the CPU, near-tie rule; (f) llama3.2-1b at
+               full width in f32: 2 of 16 layers, one step's loss and
+               gradients against the CPU, then 16 layers for 3 steps of
+               8-bit Adam, peak memory and step ms.
 It exits non-zero, printing no result, when there is no CUDA device or a
 check fails. Its last line is the result JSON; the line before it holds
 the per-kernel JSON. Details go to build/chip_smoke.json.
@@ -3276,6 +3298,421 @@ def frontends_phase(dev, scfg, slot_scfg, prompts, max_new):
     return details, total
 
 
+# ---------------------------------------------------------------------------
+# phase 21: training (the loss, flash attention's backward, kernel 3 with a
+# gradient, the optimizer, data, checkpoints, fault handling)
+
+
+TRAIN_FFN_ATOL = 1.5e-5   # kernel 3 at the training rows against its plain
+#                           version (3xTF32 against f32: ~1e-6 at d 128)
+TRAIN_GRAD_RTOL = 1e-4    # its gradients (relative, Frobenius) against
+#                           autograd through the plain version
+TRAIN_CE_ATOL = 1e-3      # card against CPU ce, each of the first 20 steps
+TRAIN_ROWS = 8 * 64       # nectar's training rows: B 8 x S 64
+
+
+class TimedSource:
+    """A batch source that stamps the clock as each batch is taken: with
+    ``log_every=1`` the loop reads each step's metrics on the host, so the
+    stamps are one step apart."""
+
+    def __init__(self, source):
+        self.source, self.stamps = source, []
+
+    def iterate(self, start=0):
+        for item in self.source.iterate(start):
+            self.stamps.append(time.perf_counter())
+            yield item
+
+
+def step_times_ms(timed, end):
+    t = timed.stamps + [end]
+    return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+
+def rel_err(want, got):
+    return float(torch.linalg.norm((got - want).double())
+                 / max(float(torch.linalg.norm(want.double())), 1e-30))
+
+
+def ffn_sparsity(model, params, tokens):
+    """The fraction of exact zeros of relu(x @ W_up) in every layer's FFN
+    over ``tokens`` (one forward, no gradient), read at kernel 3's
+    dispatch (``ops._relu_ffn``)."""
+    from repro_torch.kernels import ops
+    fracs, real = [], ops._relu_ffn
+
+    def spy(x, w_up, w_down):
+        fracs.append(float((torch.relu(x @ w_up) == 0).float().mean()))
+        return real(x, w_up, w_down)
+
+    ops._relu_ffn = spy
+    try:
+        with torch.no_grad():
+            model.forward(params, tokens)
+    finally:
+        ops._relu_ffn = real
+    return fracs
+
+
+def layer0_sparsity(params, tokens, cfg):
+    """``tests/test_system.py``'s measure: relu(rms_norm(embed) @ W_up) of
+    layer 0 with its norm2, the fraction of exact zeros."""
+    from repro_torch.models import layers
+    with torch.no_grad():
+        x = params["embed"][tokens.long()]
+        h = layers.rms_norm(x, params["units"]["b0"]["norm2"][0],
+                            cfg.norm_eps)
+        hid = torch.relu(h @ params["units"]["b0"]["ffn"]["w_up"][0])
+        return float((hid == 0).float().mean())
+
+
+def relu_ffn_backward_ms(dev, rng, M, d, f):
+    """The device ms of one backward of kernel 3's autograd rule (its
+    four cuBLAS GEMMs and the mask) at M x d x f: all the CUDA time of
+    PROFILE_ITERS backwards, averaged (None where the profiler was
+    blind)."""
+    from repro_torch.kernels import ops
+    inputs = [a.requires_grad_(True) for a in ffn_case(dev, rng, M, d, f, ())]
+    y = ops.relu_ffn_fused(*inputs)
+    dy = torch.tensor(rng.standard_normal((M, d)), dtype=torch.float32,
+                      device=dev)
+    return library_device_ms(lambda: torch.autograd.grad(
+        y, inputs, dy, retain_graph=True))
+
+
+def training_phase(dev, cfg, scfg, prompts, max_new, paged_run, train_ffn):
+    """Phase 21. ``paged_run``: phase 5's (tokens/s, params, tokens) of
+    the random-weight paged serve; ``train_ffn``: phase 3's kernel-3 row
+    at the training rows and its backward's device ms. Returns (details,
+    launch counts of the card's runs that train and serve)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import Model
+    from repro_torch.train import checkpoint, data, fault
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import make_train_step, run_training
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.serve.engine import Engine
+    from repro_torch.tree import leaves
+    out, launches = {}, {key: 0 for key in KERNELS}
+
+    def counted(fn):
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        res = fn()
+        torch.cuda.synchronize()
+        got = dict(ops.LAUNCHES)
+        for key in KERNELS:
+            launches[key] += got[key]
+        return res, got
+
+    # (a) kernel 3 with a gradient at the training rows (B 8 x S 64)
+    trng = np.random.default_rng(SEED + 22)
+    B, S = 8, 64
+    M, d, f = B * S, cfg.d_model, cfg.d_ff
+    row, bwd_ms = train_ffn
+    check(row["max_abs_err"] <= TRAIN_FFN_ATOL,
+          f"train: relu_ffn at M={M} differs by {row['max_abs_err']} from "
+          f"its plain version, beyond {TRAIN_FFN_ATOL}")
+    arrays = list(ffn_case(dev, trng, M, d, f, ()))
+    mine = [a.clone().requires_grad_(True) for a in arrays]
+    plain = [a.clone().requires_grad_(True) for a in arrays]
+    dy = torch.tensor(trng.standard_normal((M, d)), dtype=torch.float32,
+                      device=dev)
+    n0 = ops.LAUNCHES["relu_ffn"]
+    y = ops.relu_ffn_fused(*mine)
+    n1 = ops.LAUNCHES["relu_ffn"]
+    grads = torch.autograd.grad(y, mine, dy)
+    torch.cuda.synchronize()
+    check(n1 - n0 == 1 and ops.LAUNCHES["relu_ffn"] == n1,
+          f"train: kernel 3's Function launched {n1 - n0} times in its "
+          f"forward and {ops.LAUNCHES['relu_ffn'] - n1} in its backward, "
+          f"expected 1 and 0")
+    check(type(y.grad_fn).__name__ == "ReluFFNBackward",
+          f"train: kernel 3's output has grad_fn {y.grad_fn}")
+    y_plain = ref.relu_ffn_plain(*plain)
+    want = torch.autograd.grad(y_plain, plain, dy)
+    fwd_err = float((y - y_plain).detach().abs().max())
+    errs = {n: rel_err(w, g) for n, w, g in zip(("dx", "dW_up", "dW_down"),
+                                                want, grads)}
+    check(fwd_err <= TRAIN_FFN_ATOL and max(errs.values()) <= TRAIN_GRAD_RTOL,
+          f"train: kernel 3's Function output {fwd_err}, gradients {errs} "
+          f"against the plain version's autograd")
+    out["kernel3"] = {"forward_err": fwd_err, "grad_rel_err": errs,
+                      "forward_device_ms": row["device_ms"],
+                      "backward_device_ms": bwd_ms}
+    print(f"train (a): kernel 3 at M={M} d {d} d_ff {f}: forward within "
+          f"{fwd_err:.3g} of plain, device ms {row['device_ms']} (bound "
+          f"{row['bound_ms']:.6f}); backward (4 cuBLAS GEMMs and the mask) "
+          f"device ms {bwd_ms}; gradients' relative errors "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + "; one launch a forward, none in the backward")
+
+    # (b) 60 steps of the paper's model, card then CPU, the same params
+    model = Model(cfg)
+    p0 = model.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    p0_cpu = tree_map(lambda t: t.cpu(), p0)
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=5, total_steps=60, seed=0)
+    src = data.TinyStoriesSynth(data.DataConfig(seq_len=S, batch_size=B,
+                                                vocab_size=cfg.vocab))
+    timed = TimedSource(src)
+    (trained, ostate, info), got = counted(lambda: run_training(
+        model, cfg, tcfg, timed, steps=60, params=p0, log_every=1,
+        device=dev))
+    step_ms = step_times_ms(timed, time.perf_counter())
+    check(got["relu_ffn"] == 60 * cfg.n_layers,
+          f"train (b): kernel 3 launched {got['relu_ffn']} times in 60 "
+          f"steps, expected {cfg.n_layers} a step")
+    t0 = time.perf_counter()
+    _, _, cinfo = run_training(model, cfg, tcfg, src, steps=60,
+                               params=p0_cpu, log_every=1, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    ce = [m["ce"] for _, m in info["history"]]
+    ce_cpu = [m["ce"] for _, m in cinfo["history"]]
+    diff = [abs(a - b) for a, b in zip(ce, ce_cpu)]
+    check(all(np.isfinite(ce)) and ce[-1] < 0.7 * ce[0]
+          and ce_cpu[-1] < 0.7 * ce_cpu[0],
+          f"train (b): ce {ce[0]} -> {ce[-1]} on the card, {ce_cpu[0]} -> "
+          f"{ce_cpu[-1]} on the CPU, expected a fall below 0.7x")
+    check(max(diff[:20]) <= TRAIN_CE_ATOL,
+          f"train (b): card and CPU ce differ by {max(diff[:20])} in the "
+          f"first 20 steps, beyond {TRAIN_CE_ATOL}")
+    # the step's device time, kernels and busy share: 10 steps under the
+    # profiler against the same 10 steps unprofiled
+    step = make_train_step(cfg, tcfg)
+    batches = [{k: torch.as_tensor(v).to(dev)
+                for k, v in src.batch_at(i).items()} for i in range(10)]
+
+    def ten(state=(trained, ostate)):
+        p, o = state
+        for b in batches:
+            p, o, _ = step(p, o, b)
+        return p
+    ten()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ten()
+    torch.cuda.synchronize()
+    ten_wall = time.perf_counter() - t0
+    _, averages = profiled(ten)
+    busy = n_events = dev_ms = None
+    if averages is not None:
+        on_device = device_events(averages)
+        dev_ms = sum(e.self_device_time_total for e in on_device) / 1e3 / 10
+        n_events = sum(e.count for e in on_device) / 10
+        busy = dev_ms * 10 / (ten_wall * 1e3)
+    p50, p99 = (float(np.percentile(step_ms, q)) for q in (50, 99))
+    out["nectar"] = {
+        "ce": ce, "ce_cpu": ce_cpu, "max_diff": max(diff),
+        "max_diff_first20": max(diff[:20]), "step_ms": step_ms,
+        "step_ms_p50": p50, "step_ms_p99": p99,
+        "tokens_per_s": B * S / (p50 / 1e3), "wall_s": info["wall_s"],
+        "cpu_wall_s": cpu_s, "launches": got,
+        "kernel3_per_step": got["relu_ffn"] / 60,
+        "ten_steps_wall_s": ten_wall, "device_ms_per_step": dev_ms,
+        "device_events_per_step": n_events, "busy_share": busy}
+    print(f"train (b): {cfg.name} 60 steps (B {B}, S {S}, lr 3e-3): ce "
+          f"{ce[0]:.4f} -> {ce[-1]:.4f} on the card, {ce_cpu[0]:.4f} -> "
+          f"{ce_cpu[-1]:.4f} on the CPU ({cpu_s:.1f} s); card against CPU "
+          f"max |ce diff| {max(diff[:20]):.3g} in the first 20 steps, "
+          f"{max(diff):.3g} over all 60")
+    print(f"train (b): step ms p50 {p50:.3f} p99 {p99:.3f} (host-timed, "
+          f"metrics read each step), {B * S / (p50 / 1e3):.0f} tokens/s; "
+          f"10 steps {ten_wall * 1e3 / 10:.3f} ms a step unprofiled, device "
+          f"{dev_ms} ms a step, busy share "
+          + ("not measured" if busy is None else f"{100 * busy:.2f}%")
+          + f", {n_events} device events (kernels and copies) a step; "
+          f"kernel 3 {got['relu_ffn'] / 60:.0f} launches a step")
+
+    # (c) ReLU sparsity before and after training, batch 0
+    tok0 = torch.as_tensor(src.batch_at(0)["tokens"]).to(dev)
+    l0 = {"before": layer0_sparsity(p0, tok0, cfg),
+          "after": layer0_sparsity(trained, tok0, cfg)}
+    per_layer = {"before": ffn_sparsity(model, p0, tok0),
+                 "after": ffn_sparsity(model, trained, tok0)}
+    check(l0["after"] > 0.45,
+          f"train (c): layer-0 ReLU sparsity {l0['after']} after training, "
+          f"expected above 0.45")
+    out["sparsity"] = {"layer0": l0, "per_layer": per_layer}
+    print(f"train (c): layer-0 ReLU sparsity (tests/test_system.py's "
+          f"measure) {l0['before']:.4f} -> {l0['after']:.4f}; in the model, "
+          f"per layer before " + ", ".join(f"{x:.4f}" for x in
+                                           per_layer["before"])
+          + "; after " + ", ".join(f"{x:.4f}" for x in per_layer["after"]))
+
+    # (d) resume, preemption, 8-bit Adam
+    ck = ROOT / "build" / "train_ckpt"
+    import shutil
+    shutil.rmtree(ck, ignore_errors=True)
+    rcfg = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=6, seed=0)
+    rsrc = data.TinyStoriesSynth(data.DataConfig(seq_len=32, batch_size=2,
+                                                 vocab_size=cfg.vocab))
+    (pA, oA, _), _ = counted(lambda: run_training(
+        model, cfg, rcfg, rsrc, steps=6, params=p0, device=dev))
+    (pB, oB, _), _ = counted(lambda: run_training(
+        model, cfg, rcfg, rsrc, steps=3, params=p0, device=dev))
+    checkpoint.save(str(ck / "resume"), 3, {"p": pB, "o": oB}, data_cursor=3)
+    restored, man = checkpoint.restore(str(ck / "resume"), 3,
+                                       {"p": pB, "o": oB}, device=dev)
+    (pC, oC, _), _ = counted(lambda: run_training(
+        model, cfg, rcfg, rsrc, steps=6, params=restored["p"],
+        opt_state=restored["o"], start_step=man["data_cursor"], device=dev))
+    unequal = [i for i, (a, c) in enumerate(zip(leaves(pA) + leaves(oA),
+                                                leaves(pC) + leaves(oC)))
+               if not torch.equal(a, c)]
+    check(not unequal, f"train (d): resume is not bit-exact on the card: "
+          f"leaves {unequal} differ")
+    guard = fault.PreemptionGuard()
+    guard.should_stop = True
+    (_, _, pinfo), _ = counted(lambda: run_training(
+        model, cfg, rcfg, rsrc, steps=10, params=p0, guard=guard,
+        on_checkpoint=lambda s, p, o: checkpoint.save(
+            str(ck / "preempt"), s, {"params": p, "opt": o}, data_cursor=s),
+        device=dev))
+    check(pinfo["steps_done"] == 1
+          and checkpoint.latest_step(str(ck / "preempt")) == 1,
+          f"train (d): the preemption guard stopped after "
+          f"{pinfo['steps_done']} steps with checkpoint "
+          f"{checkpoint.latest_step(str(ck / 'preempt'))}")
+    finals, sizes = {}, {}
+    for eight in (False, True):
+        acfg = TrainConfig(lr=3e-3, warmup_steps=5, total_steps=50, seed=0,
+                           adam_8bit=eight)
+        (_, ost, ainfo), _ = counted(lambda: run_training(
+            model, cfg, acfg, src, steps=50, params=p0, log_every=49,
+            device=dev))
+        finals[eight] = ainfo["history"][-1][1]["ce"]
+        sizes[eight] = opt.state_bytes(ost)
+    gap = abs(finals[True] - finals[False]) / finals[False]
+    check(gap < 0.2, f"train (d): 8-bit Adam's final ce {finals[True]} "
+          f"against fp32 Adam's {finals[False]}: {gap:.3f} apart")
+    out["resume"] = {"bit_exact": True, "preempt_steps": pinfo["steps_done"],
+                     "adam_final_ce": finals[False],
+                     "adam8_final_ce": finals[True], "adam8_gap": gap,
+                     "adam_state_bytes": sizes[False],
+                     "adam8_state_bytes": sizes[True]}
+    print(f"train (d): 6 steps straight equal 3 + save + restore + 3 bit "
+          f"for bit (params and optimizer state); the preemption guard "
+          f"stopped after 1 step with a checkpoint; 50 steps fp32 Adam ce "
+          f"{finals[False]:.4f}, 8-bit Adam {finals[True]:.4f} "
+          f"({100 * gap:.2f}% apart); optimizer state {sizes[False]} B fp32, "
+          f"{sizes[True]} B int8")
+
+    # (e) serve the trained checkpoint through kernels 1 and 2
+    checkpoint.save(str(ck / "serve"), 60, {"params": trained,
+                                            "opt": ostate}, data_cursor=60)
+    served = checkpoint.restore_params(
+        str(ck / "serve"), checkpoint.latest_step(str(ck / "serve")),
+        model.init(torch.Generator(), device="meta"), device=dev)
+    check(all(torch.equal(a, b) for a, b in zip(leaves(served),
+                                                leaves(trained))),
+          "train (e): the checkpoint's params differ from the trained ones")
+    engine = Engine(cfg, served, scfg, device=dev)
+    ticks, _, _ = recording_engine(engine)
+    (tokens, rids, wall, summary, slaunches) = serve(engine, prompts,
+                                                     max_new)
+    for key in KERNELS:
+        launches[key] += slaunches[key]
+    steps = engine.runner.n_steps
+    check(slaunches["paged_attention"] == cfg.n_layers * steps > 0
+          and slaunches["sparse_gather_matvec"] == cfg.n_layers * steps,
+          f"train (e): the trained serve launched {slaunches} in {steps} "
+          f"steps, expected kernels 1 and 2 once per layer per step")
+    check_tokens("train (e)", tokens, cfg, max_new, ticks)
+    cpu_engine = Engine(cfg, tree_map(lambda t: t.cpu(), served), scfg,
+                        device="cpu")
+    _, _, cpu_margins = recording_engine(cpu_engine)
+    cpu_tokens, cpu_rids, _, _, _ = serve(cpu_engine, prompts, max_new)
+    flips = compare_cpu("train (e)", tokens, cpu_tokens, cpu_margins,
+                        cpu_rids)
+    tps_random, rparams, rtokens = paged_run
+
+    def served_sparsity(params, toks):
+        seqs = [np.concatenate([p, np.asarray(t, np.int32)])
+                for p, t in zip(prompts, toks)]
+        fr = [ffn_sparsity(model, params,
+                           torch.as_tensor(s[None]).to(dev)) for s in seqs]
+        return float(np.mean(fr))
+    spars = {"trained": served_sparsity(served, tokens),
+             "random": served_sparsity(rparams, rtokens)}
+    out["serve"] = dict(summary, wall_s=wall, steps=steps,
+                        launches=slaunches, flips=flips,
+                        tokens_per_s_random=tps_random,
+                        ffn_sparsity=spars)
+    print_serve("train (e) trained checkpoint", len(prompts), summary, wall,
+                steps, slaunches)
+    print(f"train (e): {len(prompts) - len(flips)}/{len(prompts)} requests "
+          f"token-identical card against CPU, near-tie flips {flips}; "
+          f"{summary['tokens_per_s']:.1f} tok/s against "
+          f"{tps_random:.1f} for the random weights (phase 5, same "
+          f"prompts); FFN ReLU sparsity over the served sequences "
+          f"{spars['trained']:.4f} trained, {spars['random']:.4f} random")
+
+    # (f) llama3.2-1b at full width, f32: 2 of 16 layers card against CPU,
+    # then the full depth on the card alone with 8-bit Adam
+    lfull = dataclasses.replace(get_config("llama3.2-1b"), dtype="float32")
+    lcut = dataclasses.replace(lfull, n_layers=2)
+    lsrc = data.TinyStoriesSynth(data.DataConfig(seq_len=64, batch_size=2,
+                                                 vocab_size=lfull.vocab))
+    lb = {k: torch.as_tensor(v) for k, v in lsrc.batch_at(0).items()}
+    lp = Model(lcut).init(torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)
+    loss, _, lg = value_and_grad(lp, lcut, {k: v.to(dev)
+                                           for k, v in lb.items()})
+    lg = tree_map(lambda t: t.cpu(), lg)
+    t0 = time.perf_counter()
+    closs, _, cg = value_and_grad(tree_map(lambda t: t.cpu(), lp), lcut, lb)
+    lcpu_s = time.perf_counter() - t0
+    gerr = max(rel_err(c, g) for c, g in zip(leaves(cg), leaves(lg)))
+    lerr = abs(float(loss) - float(closs))
+    check(lerr <= 1e-4 and gerr <= 1e-3,
+          f"train (f): llama3.2-1b (2 layers) loss {float(loss)} against "
+          f"the CPU's {float(closs)}, worst gradient leaf {gerr}")
+    del lp, lg, cg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # lr 1e-5: Adam's first updates move every weight by about lr at once,
+    # and from random weights the 16-layer stack overshot at the second
+    # step on an H100 (ce 12.08 -> 9.48 -> 14.11 at 1e-3, 12.08 -> 9.06 ->
+    # 16.77 at 3e-4 after a 3-step warm-up; fp32 Adam alike)
+    fcfg = TrainConfig(lr=1e-5, warmup_steps=0, total_steps=3, seed=0,
+                       adam_8bit=True)
+    ltimed = TimedSource(lsrc)
+    t0 = time.perf_counter()
+    lparams = Model(lfull).init(torch.Generator(device=dev).manual_seed(SEED),
+                                device=dev)
+    init_s = time.perf_counter() - t0
+    _, lstate, linfo = run_training(Model(lfull), lfull, fcfg, ltimed,
+                                    steps=3, params=lparams, log_every=1,
+                                    device=dev)
+    lms = step_times_ms(ltimed, time.perf_counter())
+    peak = torch.cuda.max_memory_allocated(dev)
+    lce = [m["ce"] for _, m in linfo["history"]]
+    check(all(np.isfinite(lce)) and lce[-1] < lce[0],
+          f"train (f): llama3.2-1b full depth, 8-bit Adam: ce {lce}, "
+          f"expected finite and falling")
+    n_params = Model(lfull).param_count(lparams)
+    out["llama"] = {"cut_loss": float(loss), "cut_loss_cpu": float(closs),
+                    "cut_loss_err": lerr, "cut_grad_rel_err": gerr,
+                    "cut_cpu_s": lcpu_s, "ce": lce, "step_ms": lms,
+                    "peak_bytes": peak, "params": n_params,
+                    "init_s": init_s,
+                    "adam8_state_bytes": opt.state_bytes(lstate)}
+    del lparams, lstate
+    torch.cuda.empty_cache()
+    print(f"train (f): llama3.2-1b f32 at full width, 2 of 16 layers, B 2 S "
+          f"64: loss {float(loss):.6f}, {lerr:.3g} from the CPU's, worst "
+          f"gradient leaf {gerr:.3g} relative (CPU {lcpu_s:.1f} s); 16 "
+          f"layers ({n_params} params), 3 steps of 8-bit Adam: ce "
+          + " -> ".join(f"{x:.4f}" for x in lce)
+          + f", step ms " + ", ".join(f"{x:.1f}" for x in lms)
+          + f", peak memory {peak / 2 ** 30:.2f} GiB, optimizer state "
+          f"{out['llama']['adam8_state_bytes'] / 2 ** 30:.2f} GiB")
+    return out, launches
+
+
 def main():
     details = {}
     clock = [time.perf_counter()]
@@ -3460,6 +3897,16 @@ def main():
         for M in (200, 8)]
     rows["relu_ffn"] += [run_relu_ffn(dev, krng, "llama3.2-1b M=32", M=32,
                                       d=2048, f=8192, dead_blocks=(5,))]
+    # phase 21 (a): kernel 3 at nectar's training rows (B 8 x S 64), and
+    # the device time of its autograd rule's backward, from a stream of
+    # their own (measured here, where every kernel row is)
+    trng = np.random.default_rng(SEED + 21)
+    rows["relu_ffn"].append(run_relu_ffn(
+        dev, trng, f"nectar training M={TRAIN_ROWS}", M=TRAIN_ROWS,
+        d=cfg.d_model, f=cfg.d_ff, dead_blocks=()))
+    train_ffn = (rows["relu_ffn"][-1],
+                 relu_ffn_backward_ms(dev, trng, TRAIN_ROWS, cfg.d_model,
+                                      cfg.d_ff))
     nmce_sites = [("nectar up", 8, cfg.d_model, cfg.d_ff),
                   ("nectar down", 8, cfg.d_ff, cfg.d_model),
                   ("nectar logits", 8, cfg.d_model, cfg.vocab),
@@ -4085,14 +4532,23 @@ def main():
 
     lap(clock, "13) profiled serves")
 
+    # ---- 21) training (runs after phase 13, whose profiler windows keep
+    # their deadline; its kernel-3 row (a) is in phase 3) -------------------
+    details["training"], training_launches = training_phase(
+        dev, cfg, scfg, prompts, max_new,
+        (summary["tokens_per_s"], params, gpu_tokens), train_ffn)
+    lap(clock, "21) training")
+
     # ---- report --------------------------------------------------------------
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     # each kernel's launches on the paths that run it (paged attention:
     # the paged, prefix, greedy spec, async, obs, disagg, phase-18 bf16
-    # and drafter serves and the phase-19 and phase-20 paged serves; the
-    # gather: those, the slot serve and the phase-19 dispatcher; decode
+    # and drafter serves, the phase-19 and phase-20 paged serves and the
+    # phase-21 serve of the trained checkpoint; the gather: those, the
+    # slot serve and the phase-19 dispatcher; kernel 3: the slot serve's
+    # prefills and phase 21's training runs; decode
     # attention: the slot serve, the model and self-spec drafters, the
     # phase-18 zamba2 serves and recurrent drafter and the phase-20 slot
     # serves; nmce_matmul: the ops phase and the
@@ -4109,7 +4565,8 @@ def main():
         + disagg_launches["paged_attention"]
         + recurrent_launches["paged_attention"]
         + families_launches["paged_attention"]
-        + frontends_launches["paged_attention"],
+        + frontends_launches["paged_attention"]
+        + training_launches["paged_attention"],
         "sparse_gather_matvec": launches["sparse_gather_matvec"]
         + slot_launches["sparse_gather_matvec"]
         + pre_launches["sparse_gather_matvec"]
@@ -4118,12 +4575,14 @@ def main():
         + obs_launches["sparse_gather_matvec"]
         + disagg_launches["sparse_gather_matvec"]
         + recurrent_launches["sparse_gather_matvec"]
-        + families_launches["sparse_gather_matvec"],
+        + families_launches["sparse_gather_matvec"]
+        + training_launches["sparse_gather_matvec"],
         "decode_attention": slot_launches["decode_attention"]
         + spec_launches["decode_attention"]
         + recurrent_launches["decode_attention"]
         + frontends_launches["decode_attention"],
-        "relu_ffn": slot_launches["relu_ffn"],
+        "relu_ffn": slot_launches["relu_ffn"]
+        + training_launches["relu_ffn"],
         "nmce_matmul": ops_launches["nmce_matmul"]
         + families_launches["nmce_matmul"]}
     main_case = {"paged_attention": rows["paged_attention"][0],

@@ -1,7 +1,8 @@
 """Config dataclasses: the port's own copy of ``repro.configs.base``.
 
-``ModelConfig``, ``ServeConfig`` and ``SpecConfig`` keep the reference's
-fields and defaults so one set of values configures both packages.
+``ModelConfig``, ``TrainConfig``, ``ServeConfig`` and ``SpecConfig`` keep
+the reference's fields and defaults so one set of values configures both
+packages.
 ``ObsConfig``, ``MeshConfig`` and ``AsyncConfig`` are here only so that a
 ``ServeConfig`` constructs as it does in the reference; the port's engine
 raises ``NotImplementedError`` when any of them is switched on.
@@ -129,6 +130,23 @@ class ModelConfig:
     def _ffn_params(self) -> int:
         return (2 if self.glu else 1) * self.d_model * self.d_ff \
             + self.d_ff * self.d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatch: int = 0             # 0 = no accumulation
+    adam_8bit: bool = False         # int8 moments (blockwise scales)
+    grad_compression: str = "none"  # none | int8_ef (cross-pod)
+    checkpoint_every: int = 200
+    keep_checkpoints: int = 3
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

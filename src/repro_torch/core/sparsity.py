@@ -1,20 +1,30 @@
 """Activation sparsity — the ReLU-Llama technique (paper §V-A).
 
 After ReLU most FFN hidden activations are exactly zero, so the rows of
-W_down for those units never need to be read. The subset the serving path
-needs: the shared hidden activation, the dense and the top-k gathered
+W_down for those units never need to be read. The serving side: the
+shared hidden activation, the dense and the top-k gathered
 down-projections, the k the config asks for, and the Deja-Vu-style
-low-rank predictor that self-speculation drafts with.
+low-rank predictor that self-speculation drafts with. The training side:
+ReLU-fication, the sparsity measures (``sparsity_fraction``, the per-layer
+EMA of ``SparsityStats``), the threshold mask and the masked-dense FFN
+that the tests hold the sparse paths against, and the byte accounting.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+
+
+def relufy_act(act_name: str) -> str:
+    """ReLU Strikes Back: replace the smooth activation with ReLU to
+    induce activation sparsity (fine-tuning recovers quality)."""
+    return "relu"
 
 
 def apply_act(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -31,6 +41,49 @@ def apply_act(x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {act!r}")
 
 
+# ---------------------------------------------------------------------------
+# Sparsity measurement
+
+
+def sparsity_fraction(h: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Fraction of activations with |h| <= eps (exact zeros for ReLU), an
+    f32 scalar."""
+    return (h.abs() <= eps).float().mean()
+
+
+@dataclasses.dataclass
+class SparsityStats:
+    """EMA tracker of per-layer activation sparsity: ``ema`` f32[n_layers],
+    ``count`` i32[]. The reference registers it as a pytree; here it is a
+    plain dataclass whose ``update`` returns a new one."""
+
+    ema: torch.Tensor
+    count: torch.Tensor
+    decay: float = 0.99
+
+    @classmethod
+    def init(cls, n_layers: int, decay: float = 0.99,
+             device: Optional[Union[str, torch.device]] = None
+             ) -> "SparsityStats":
+        """Zeros on ``device`` (default CUDA, see ``resolve_device``)."""
+        device = resolve_device(device)
+        return cls(ema=torch.zeros(n_layers, dtype=torch.float32,
+                                   device=device),
+                   count=torch.zeros((), dtype=torch.int32, device=device),
+                   decay=decay)
+
+    def update(self, layer_fracs: torch.Tensor) -> "SparsityStats":
+        new = torch.where(self.count == 0, layer_fracs,
+                          self.decay * self.ema
+                          + (1 - self.decay) * layer_fracs)
+        return SparsityStats(ema=new, count=self.count + 1,
+                             decay=self.decay)
+
+
+# ---------------------------------------------------------------------------
+# Active-set selection
+
+
 def topk_indices(h: torch.Tensor, k: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Indices of the k largest |h| along the last dim: (idx i32[..., k],
@@ -38,6 +91,12 @@ def topk_indices(h: torch.Tensor, k: int
     mag = h.abs()
     top, idx = torch.topk(mag, k, dim=-1)
     return idx.to(torch.int32), top > 0
+
+
+def threshold_mask(h: torch.Tensor, tau: float = 0.0) -> torch.Tensor:
+    """Boolean mask of the active units (|h| > tau). Its count depends on
+    the data, so only the masked-dense path uses it, not the gather."""
+    return h.abs() > tau
 
 
 def active_fraction_to_k(d_ff: int, frac: float, multiple: int = 128) -> int:
@@ -76,6 +135,18 @@ def down_sparse(h: torch.Tensor, w_down: torch.Tensor, k: int
 
 def dense_ffn(x, w_up, w_down, act="relu", w_gate=None):
     return down_dense(ffn_hidden(x, w_up, act, w_gate), w_down)
+
+
+def masked_dense_ffn(x, w_up, w_down, act="relu", w_gate=None, tau=0.0):
+    """Sparsity applied as a mask (no traffic saved; the correctness
+    reference, equal to the dense FFN for ReLU at tau = 0)."""
+    if w_gate is not None:
+        g = apply_act(x @ w_gate, act)
+        h = torch.where(threshold_mask(g, tau), g, 0.0) * (x @ w_up)
+    else:
+        h = apply_act(x @ w_up, act)
+        h = torch.where(threshold_mask(h, tau), h, 0.0)
+    return h @ w_down
 
 
 def gathered_sparse_ffn(x, w_up, w_down, k, act="relu", w_gate=None):
@@ -157,6 +228,15 @@ def train_predictor(pred: SparsityPredictor, xs: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # Traffic accounting (the unit the paper argues in)
+
+
+def ffn_weight_bytes(d_model: int, d_ff: int, bytes_per_el: float,
+                     glu: bool, active_frac: float = 1.0) -> float:
+    """Off-chip weight bytes of one FFN application at an active fraction:
+    up (and gate) streamed whole, the W_down rows at ``active_frac``."""
+    up = d_model * d_ff * bytes_per_el * (2.0 if glu else 1.0)
+    down = d_model * d_ff * bytes_per_el * active_frac
+    return up + down
 
 
 def ffn_weight_bytes_predicted(d_model: int, d_ff: int, bytes_per_el: float,

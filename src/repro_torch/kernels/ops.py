@@ -36,13 +36,53 @@ def sparse_gather_matvec(h: torch.Tensor, idx: torch.Tensor,
     return sparse_ffn.sparse_gather_matvec(h, idx, w_down)
 
 
-def relu_ffn_fused(x: torch.Tensor, w_up: torch.Tensor,
-                   w_down: torch.Tensor) -> torch.Tensor:
-    """Fused ReLU-FFN with dead-block skip (kernel 3). x f[M, d]; returns
-    f32[M, d]."""
+def _relu_ffn(x: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.relu_ffn_plain(x, w_up, w_down)
     return relu_ffn.relu_ffn(x, w_up, w_down)
+
+
+class ReluFFN(torch.autograd.Function):
+    """Kernel 3 with a gradient. The forward is ``_relu_ffn``, dispatched
+    by the device as every entry point here (a CUDA tensor launches the
+    kernel, so training counts its launches), and saves only x, W_up and
+    W_down. The backward, shared by both devices, recomputes h = relu(x @
+    W_up), as the reference's remat would, and runs four products:
+    dW_down = h^T dy, dh = (dy W_down^T) * [h > 0], dW_up = x^T dh and
+    dx = dh W_up^T. The reference has no backward kernel: XLA transposes
+    its plain products, so these are plain ``torch.matmul`` calls.
+
+    A hidden unit whose pre-activation lies within rounding of 0 may be
+    live in the kernel's 3xTF32 forward and dead in the f32 recompute (or
+    the other way round); its terms are of the size of that rounding."""
+
+    @staticmethod
+    def forward(ctx, x, w_up, w_down):
+        ctx.save_for_backward(x, w_up, w_down)
+        return _relu_ffn(x, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_up, w_down = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        h = torch.relu(torch.matmul(x, w_up))
+        dh = torch.matmul(dy, w_down.t()) * (h > 0)
+        need = ctx.needs_input_grad
+        return (torch.matmul(dh, w_up.t()) if need[0] else None,
+                torch.matmul(x.t(), dh) if need[1] else None,
+                torch.matmul(h.t(), dy) if need[2] else None)
+
+
+def relu_ffn_fused(x: torch.Tensor, w_up: torch.Tensor,
+                   w_down: torch.Tensor) -> torch.Tensor:
+    """Fused ReLU-FFN with dead-block skip (kernel 3). x f[M, d]; returns
+    f32[M, d]. Where an input requires a gradient the call goes through
+    ``ReluFFN``, on either device; elsewhere straight to ``_relu_ffn``."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_up, w_down)):
+        return ReluFFN.apply(x, w_up, w_down)
+    return _relu_ffn(x, w_up, w_down)
 
 
 def nmce_matmul(x: torch.Tensor, w_q: quant.QuantizedTensor,

@@ -92,10 +92,12 @@ def sparse_gather_matvec_plain(h: torch.Tensor, idx: torch.Tensor,
 def relu_ffn_plain(x: torch.Tensor, w_up: torch.Tensor,
                    w_down: torch.Tensor) -> torch.Tensor:
     """Fused ReLU-FFN (non-GLU): relu(x @ w_up) @ w_down. x f[M, d];
-    w_up f[d, f]; w_down f[f, d]. Returns f32[M, d]. A d_ff block whose
-    hidden values are all <= 0 adds exactly zero, so the kernel's skip of
-    such blocks needs no counterpart here."""
-    return (torch.relu(x @ w_up) @ w_down).float()
+    w_up f[d, f]; w_down f[f, d]. Returns f32[M, d] (f64 for f64 inputs,
+    which the gradient checks use; the kernel takes f32 alone). A d_ff
+    block whose hidden values are all <= 0 adds exactly zero, so the
+    kernel's skip of such blocks needs no counterpart here."""
+    out = torch.relu(x @ w_up) @ w_down
+    return out.to(torch.promote_types(out.dtype, torch.float32))
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,

@@ -1,6 +1,7 @@
 """Serving entry point of the port: the continuous-batching engine with
 the NeCTAr decode paths (sparse FFN gather through the CUDA kernels),
-random weights from a seeded generator.
+the params of the latest checkpoint in ``--ckpt-dir`` or random weights
+from a seeded generator.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch nectar-relu-llama-1.7m --requests 8 --max-new 16 \\
@@ -10,7 +11,7 @@ random weights from a seeded generator.
         [--obs] [--trace-out PREFIX] [--metrics-port PORT] [--profile] \\
         [--disagg [--disagg-prefill-batch N] [--disagg-prefill-blocks N] \\
          [--direct-max-suffix N]] [--replicas N --router-policy affinity] \\
-        [--temperature 0.7 --seed 0] [--device cpu]
+        [--temperature 0.7 --seed 0] [--ckpt-dir CKPT] [--device cpu]
 
 ``--model`` is another name for ``--arch``. The recurrent families
 (``--model zamba2-smoke``, ``--model xlstm-smoke``) serve through the slot
@@ -30,9 +31,9 @@ decode engine with the KV block handoff; the summary adds
 router (``--router-policy``), each replica a disagg pool under
 ``--disagg``; the requests come in sessions of two, and the summary is
 the fleet's (``--metrics-port`` then serves the router's registry). The
-reference CLI's flags of features this port does not have yet
-(checkpoints, sharded serving) are accepted by name and refused with the
-ROADMAP item that brings them.
+reference CLI's flags of features this port does not have yet (sharded
+serving) are accepted by name and refused with the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -58,11 +59,11 @@ from repro_torch.serve.engine import Engine
 from repro_torch.serve.router import POLICIES, build_fleet
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import Request
+from repro_torch.train import checkpoint
 
 # flags of the reference CLI whose features come with later slices:
 # (flags, argparse keywords, the ROADMAP queue-1 item that brings them)
 LATER = (
-    (("--ckpt-dir",), {"default": None}, "item 9 (training, checkpoints)"),
     (("--mesh",), {"type": int, "default": 1},
      "item 9 (multi-device, sharded serving)"),
     (("--shard-kv-seq",), {"action": "store_true"},
@@ -157,6 +158,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the plain "
                          "versions of the kernels)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the latest checkpoint there "
+                         "(python -m repro_torch.launch.train writes them); "
+                         "random weights when it holds none")
     for flags, kw, _ in LATER:
         ap.add_argument(*flags, help=argparse.SUPPRESS, **kw)
     return ap
@@ -173,8 +178,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
                      f"{item}")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = Model(cfg).init(gen, device=device)
+    latest = None if args.ckpt_dir is None \
+        else checkpoint.latest_step(args.ckpt_dir)
+    if latest is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = Model(cfg).init(gen, device=device)
+    else:
+        params = checkpoint.restore_params(
+            args.ckpt_dir, latest,
+            Model(cfg).init(torch.Generator(), device="meta"), device=device)
+        print(f"[serve] loaded checkpoint step {latest}", file=sys.stderr)
     fleet = args.replicas > 1
     paged = args.paged or args.prefix_cache or args.kv_quant \
         or args.spec is not None or args.async_ or args.profile \
@@ -241,7 +254,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
            else torch.cuda.get_device_name(device),
            "requests": len(done), "tokens": n_tok,
            "tokens_per_s": n_tok / dt,
-           "weight_bytes_saved_frac": savings / max(total_w, 1)}
+           "weight_bytes_saved_frac": savings / max(total_w, 1),
+           "ckpt_step": latest}
     if paged:
         s = eng.metrics.summary()
         out.update({"ttft_p99_ms": s["ttft_p99_ms"],

@@ -1,5 +1,5 @@
-"""Public model API of the port: init / forward / slot cache, prefill and
-decode / paged cache and serving step."""
+"""Public model API of the port: init / loss / forward / slot cache,
+prefill and decode / paged cache and serving step."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
+from repro_torch.tree import leaves
 
 
 class Model:
@@ -24,7 +25,13 @@ class Model:
 
     def param_count(self, params: dict) -> int:
         """The number of parameters in ``params``, every leaf counted."""
-        return sum(t.numel() for t in transformer.tree_leaves(params))
+        return sum(t.numel() for t in leaves(params))
+
+    def loss(self, params: dict, batch: dict):
+        """(loss, {"ce", "aux", "ppl"}) of a batch dict of tensors:
+        ``tokens``, ``labels``, an optional ``mask`` and the frontend inputs
+        ``forward`` takes (see transformer.loss_fn)."""
+        return transformer.loss_fn(params, self.cfg, batch)
 
     def forward(self, params: dict, tokens: torch.Tensor,
                 vision_embeds: Optional[torch.Tensor] = None,

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.models import layers, rope
+from repro_torch.models import flash, layers, rope
 from repro_torch.serve import kv_cache
 
 
@@ -81,32 +81,18 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     return q, k, v
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal GQA attention, softmax in f32: query i sees keys
-    [0, i]. q [B, S, Hq, Dh]; k, v [B, S, Kv, Dh]. Returns f32[B, S, Hq, Dh].
-
-    The reference computes this with ``models/flash.blockwise_attention``,
-    an online softmax in pure JAX (no Pallas kernel); one masked softmax
-    over all keys is the same function."""
-    B, S, Hq, Dh = q.shape
-    Kv = k.shape[2]
-    qg = q.reshape(B, S, Kv, Hq // Kv, Dh).float() * Dh ** -0.5
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
-    pos = torch.arange(S, device=q.device)
-    s = s.masked_fill(pos[None, :] > pos[:, None], ref.NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, S, Hq, Dh)
-
-
 def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  cos: torch.Tensor, sin: torch.Tensor,
-                 cache: Optional[dict] = None) -> torch.Tensor:
-    """Attention for a prefill (full sequence, causal, starting at
-    position 0). x: [B, S, d]; cos/sin: [B, S, dh//2]. With ``cache`` the
-    segment's K/V are written at [0, S) of it in place (the reference
-    returns the updated cache instead). Returns [B, S, d]."""
+                 cache: Optional[dict] = None,
+                 block_kv: int = 512) -> torch.Tensor:
+    """Attention for training and prefill (full sequence, causal, starting
+    at position 0). x: [B, S, d]; cos/sin: [B, S, dh//2]. With ``cache``
+    the segment's K/V are written at [0, S) of it in place (the reference
+    returns the updated cache instead). The read is the reference's
+    blockwise flash attention (``flash.blockwise_attention``, with its
+    recompute-per-block backward), or its lower-triangle schedule
+    (``flash.block_causal_attention``) under ``cfg.block_causal`` when S
+    is longer than a block. Returns [B, S, d]."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x)
     q = rope.apply_rope(q, cos, sin)
@@ -114,7 +100,14 @@ def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if cache is not None:
         cache["k"][:, :S] = k.to(cache["k"].dtype)
         cache["v"][:, :S] = v.to(cache["v"].dtype)
-    o = causal_attention(q, k, v).to(x.dtype)
+    qg = q.reshape(B, S, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                   cfg.d_head)
+    if cfg.block_causal and S > block_kv:
+        o = flash.block_causal_attention(qg, k, v, block_q=block_kv,
+                                         block_kv=block_kv)
+    else:
+        o = flash.blockwise_attention(qg, k, v, causal=True,
+                                      block_kv=block_kv)
     return o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"]
 
 

@@ -60,3 +60,19 @@ def sinusoidal_positions(positions: torch.Tensor, d: int,
                       / torch.full((), float(half), **f32))
     ang = positions.float()[..., None] * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean next-token CE in fp32. labels: i32[...], logits: [..., V]; a
+    ``mask`` weighs each position and the sum is divided by max(sum of the
+    mask, 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.mean()

@@ -1,5 +1,6 @@
-"""The decoder stack: slot-cache prefill and decode over blocks of every
-kind the port serves, and the paged serving step.
+"""The decoder stack: the training forward and its chunked loss,
+slot-cache prefill and decode over blocks of every kind the port serves,
+and the paged serving step.
 
 Parameters keep the reference's stacked layout: a config's
 ``pattern_unit()`` (nectar: one attention block; moonshot: one MoE block;
@@ -27,6 +28,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -83,12 +85,6 @@ def _stack(trees: List[dict]) -> dict:
     return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
             else torch.stack([t[k] for t in trees])
             for k, v in trees[0].items()}
-
-
-def tree_leaves(tree: dict) -> List[torch.Tensor]:
-    """Every tensor of a nested dict."""
-    return [x for v in tree.values()
-            for x in (tree_leaves(v) if isinstance(v, dict) else [v])]
 
 
 def _index(tree: dict, i: int) -> dict:
@@ -401,14 +397,16 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             vision_embeds: Optional[torch.Tensor] = None,
             audio_embeds: Optional[torch.Tensor] = None,
             mrope_positions: Optional[torch.Tensor] = None):
-    """Full-sequence forward (prefill) of tokens i32[B, S] (a codebook
-    model's [B, S, nc]) at positions [0, S), M-RoPE's ``mrope_positions``
-    [3, B, S] where given; the frontend stubs' embeddings are added to the
-    first positions (``_embed_inputs``). With ``cache`` each attention
-    block's K/V land at [0, S) of it and each recurrent block's final
-    state in it, in place, and the returned cache has lens = S. Returns
-    (hidden [B, S, d], the aux loss f32[] summed over the blocks (the MoE
-    load-balance term; 0 without MoE blocks), cache or None)."""
+    """Full-sequence forward (training, prefill) of tokens i32[B, S] (a
+    codebook model's [B, S, nc]) at positions [0, S), M-RoPE's
+    ``mrope_positions`` [3, B, S] where given; the frontend stubs'
+    embeddings are added to the first positions (``_embed_inputs``).
+    With ``cache`` each attention block's K/V land at [0, S) of it and
+    each recurrent block's final state in it, in place, and the returned
+    cache has lens = S. Returns (hidden [B, S, d], the aux loss f32[]
+    summed over the blocks (the MoE load-balance term; 0 without MoE
+    blocks), cache or None). Under ``cfg.remat``, with autograd recording
+    and no cache, each unit runs under ``torch.utils.checkpoint``."""
     B, S = tokens.shape[:2]
     check_prompt_len(cfg, S)
     x = _embed_inputs(params, cfg, tokens, vision_embeds, audio_embeds)
@@ -419,10 +417,21 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = _add_positions(cfg, x, positions)
     ctx = {"cos": cos, "sin": sin, "shared_params": params.get("shared")}
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i in range(cfg.n_units):
+
+    def unit(x, aux, i):
         for kind, p, c in _unit_blocks(params, cfg, cache, i):
             x, a = block_forward(kind, p, cfg, x, ctx, c)
             aux = aux + a
+        return x, aux
+
+    # the reference's jax.checkpoint(nothing_saveable) of the unit body:
+    # the backward recomputes each unit's activations (values unchanged)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    for i in range(cfg.n_units):
+        if remat:
+            x, aux = checkpoint(unit, x, aux, i, use_reentrant=False)
+        else:
+            x, aux = unit(x, aux, i)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cache is None:
         return x, aux, None
@@ -500,6 +509,54 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     step = max(1, _LOGIT_SLICE // w.shape[0])
     return torch.cat([xf @ w[:, c:c + step].float()
                       for c in range(0, w.shape[1], step)], dim=-1)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
+            token_chunk: int = 0):
+    """Next-token CE (+ the MoE aux loss) of a batch dict: ``tokens``,
+    ``labels`` (i32[B, S], a codebook model's [B, S, nc]), an optional
+    ``mask`` f32[B, S] and the inputs ``forward`` takes
+    (``vision_embeds``, ``audio_embeds``, ``mrope_positions``).
+
+    The loss is chunked over tokens so the [*, V] logits never exist for
+    the whole sequence (vocab up to 202k): chunks of 2**26 // vocab tokens
+    (cut to divide S), each under ``torch.utils.checkpoint`` while autograd
+    records, so its logits are recomputed in the backward. A codebook
+    model's mask counts once per codebook. Returns (ce + 0.01 * aux,
+    {"ce", "aux", "ppl"})."""
+    hidden, aux, _ = forward(
+        params, cfg, batch["tokens"],
+        vision_embeds=batch.get("vision_embeds"),
+        audio_embeds=batch.get("audio_embeds"),
+        mrope_positions=batch.get("mrope_positions"))
+    labels, mask = batch["labels"], batch.get("mask")
+    B, S, _ = hidden.shape
+    if token_chunk <= 0:
+        token_chunk = max(1, min(S, int(2 ** 26 // max(cfg.vocab, 1)) or 1))
+    n_chunks = max(1, S // token_chunk)
+    while S % n_chunks:
+        n_chunks -= 1
+    tc = S // n_chunks
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+
+    def chunk_loss(h, y, m):
+        logits = project_logits(params, cfg, h)
+        if cfg.n_codebooks:
+            m = m[..., None] * torch.ones(cfg.n_codebooks, device=m.device)
+        return layers.softmax_cross_entropy(logits, y, m), m.sum()
+
+    ces, ws = [], []
+    for c in range(n_chunks):
+        args = (hidden[:, c * tc:(c + 1) * tc], labels[:, c * tc:(c + 1) * tc],
+                mask[:, c * tc:(c + 1) * tc])
+        ce, w = (checkpoint(chunk_loss, *args, use_reentrant=False)
+                 if torch.is_grad_enabled() else chunk_loss(*args))
+        ces.append(ce)
+        ws.append(w)
+    ces, ws = torch.stack(ces), torch.stack(ws)
+    ce = (ces * ws).sum() / torch.clamp(ws.sum(), min=1.0)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux, "ppl": torch.exp(ce)}
 
 
 def forward_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

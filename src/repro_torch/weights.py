@@ -4,8 +4,10 @@
 returns, with its leaves already converted to numpy arrays by the caller,
 and gives the port's parameter tree: the same keys, the same stacked
 layout, each array on ``device``. ``from_jax_predictors`` does the same
-for the reference's stacked sparsity predictors (self-speculation). This
-module imports no JAX.
+for the reference's stacked sparsity predictors (self-speculation), and
+``from_jax_opt_state`` for its optimizer state (an ``AdamState`` or
+``Adam8State``), so a reference run resumes in the port. This module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparsity import SparsityPredictor
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.train import optimizer as opt
 
 
 def _leaves(tree: dict, prefix: str = "") -> Dict[str, object]:
@@ -86,3 +89,38 @@ def from_jax_predictors(np_pred, cfg: ModelConfig,
     return SparsityPredictor(
         torch.tensor(w_in, dtype=torch.float32, device=device),
         torch.tensor(w_out, dtype=torch.float32, device=device))
+
+
+def from_jax_opt_state(np_state, cfg: ModelConfig,
+                       device: Optional[Union[str, torch.device]] = None):
+    """Convert the reference's optimizer state (its ``AdamState`` or
+    ``Adam8State`` with numpy leaves, e.g. ``jax.tree.map(np.asarray,
+    state)``) into the port's, on ``device``: the same fields, each tree
+    keyed as the params. Raises when the fields, keys, shapes or dtypes
+    differ from what the port's optimizer keeps for ``cfg``."""
+    device = resolve_device(device)
+    params = transformer.init_params(cfg, torch.Generator(), device="meta")
+    fields = getattr(np_state, "_fields", None)
+    kinds = {opt.AdamState._fields: opt.adam_init,
+             opt.Adam8State._fields: opt.adam8_init}
+    if fields not in kinds:
+        raise TypeError(f"not an AdamState or Adam8State: fields {fields}")
+    like = kinds[fields](params)
+    out = []
+    for name, mine, theirs in zip(fields, like, np_state):
+        if name == "step":
+            step = np.asarray(theirs)
+            if step.shape != () or step.dtype != np.int32:
+                raise ValueError(f"{cfg.name}: step {step.dtype}"
+                                 f"{list(step.shape)}, want int32[]")
+            out.append(torch.tensor(int(step), dtype=torch.int32,
+                                    device=device))
+            continue
+        want, got = _layout(mine), _layout(theirs)
+        if got != want:
+            diff = sorted(set(got.items()) ^ set(want.items()))
+            raise ValueError(f"{cfg.name}: optimizer field {name!r} does not "
+                             f"match the port's layout; differing (key, "
+                             f"(shape, dtype)): {diff}")
+        out.append(_convert(theirs, mine, device))
+    return type(like)(*out)

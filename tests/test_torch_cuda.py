@@ -8,6 +8,8 @@ terms in another order (bf16 K/V too: both widen the same bf16 values
 exactly to f32; 1e-4 for the fused FFN's two chained products, which its
 kernel runs as 3xTF32 on the tensor cores: ~2e-5 at d 2048). The W8A8
 matmul is exact: its kernel must equal its plain version bit for bit.
+Training: kernel 3's autograd rule at nectar's training shape, and three
+nectar train steps on the card against the CPU.
 """
 
 import numpy as np
@@ -15,8 +17,8 @@ import pytest
 import torch
 
 from repro_torch.core import quant
-from repro_torch.kernels import (decode_attn, nmce_matvec, ref, relu_ffn,
-                                 sparse_ffn)
+from repro_torch.kernels import (decode_attn, nmce_matvec, ops, ref,
+                                 relu_ffn, sparse_ffn)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -1086,3 +1088,63 @@ def test_mrope_model_decode_iteration_captures(cuda):
     assert eng.runner.graph_captures == 2
     assert eng.async_stats()["loop_bursts"] > 0
     assert out[0] == out[1]
+
+
+def _rel(want, got):
+    return float(torch.linalg.norm((got - want).double())
+                 / torch.linalg.norm(want.double()))
+
+
+@pytest.mark.cuda
+def test_relu_ffn_function_at_the_training_shape(cuda):
+    """Kernel 3 with a gradient at nectar's training rows (B 8 x S 64):
+    one launch a forward and none in the backward; the output within
+    1.5e-5 of the plain version, dx, dW_up and dW_down within 1e-4
+    relative of autograd through the plain version."""
+    rng = np.random.default_rng(21)
+    M, d, f = 512, 128, 640
+    arrays = [rng.standard_normal((M, d)), rng.standard_normal((d, f))
+              * d ** -0.5, rng.standard_normal((f, d)) * f ** -0.5]
+    mine = [torch.tensor(a, dtype=torch.float32, device=cuda,
+                         requires_grad=True) for a in arrays]
+    plain = [torch.tensor(a, dtype=torch.float32, device=cuda,
+                          requires_grad=True) for a in arrays]
+    dy = torch.tensor(rng.standard_normal((M, d)), dtype=torch.float32,
+                      device=cuda)
+    n0 = ops.LAUNCHES["relu_ffn"]
+    out = ops.relu_ffn_fused(*mine)
+    assert ops.LAUNCHES["relu_ffn"] == n0 + 1
+    assert type(out.grad_fn).__name__ == "ReluFFNBackward"
+    got = torch.autograd.grad(out, mine, dy)
+    assert ops.LAUNCHES["relu_ffn"] == n0 + 1
+    want_out = ref.relu_ffn_plain(*plain)
+    want = torch.autograd.grad(want_out, plain, dy)
+    torch.cuda.synchronize()
+    assert float((out - want_out).detach().abs().max()) <= 1.5e-5
+    for w, g in zip(want, got):
+        assert _rel(w, g) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_nectar_trains_on_the_card_as_on_the_cpu(cuda):
+    """3 steps of nectar-relu-llama-1.7m (B 8, S 64, lr 3e-3, warm-up 5)
+    from the same params on the card and on the CPU: kernel 3 launches 6
+    times a step, and ``ce`` agrees within 1e-3 at every step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import Model
+    from repro_torch.train import data
+    from repro_torch.train.loop import run_training
+    cfg = get_config("nectar-relu-llama-1.7m")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=5, total_steps=60, seed=0)
+    src = data.TinyStoriesSynth(data.DataConfig(seq_len=64, batch_size=8,
+                                                vocab_size=cfg.vocab))
+    n0 = ops.LAUNCHES["relu_ffn"]
+    _, _, card = run_training(Model(cfg), cfg, tcfg, src, steps=3,
+                              params=params, log_every=1, device=cuda)
+    assert ops.LAUNCHES["relu_ffn"] - n0 == 3 * cfg.n_layers
+    _, _, cpu = run_training(Model(cfg), cfg, tcfg, src, steps=3,
+                             params=params, log_every=1, device="cpu")
+    for (s, a), (t, b) in zip(card["history"], cpu["history"]):
+        assert s == t and abs(a["ce"] - b["ce"]) <= 1e-3

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, and every entry point
-defaults to CUDA and raises on a host without a card."""
+(serving and training) defaults to CUDA and raises on a host without a
+card."""
 
 import ast
 import pathlib
@@ -60,8 +61,15 @@ FAMILY_FILES = ("core/heterogeneous.py", "core/prefetch.py", "models/moe.py",
                 "configs/llama4_maverick_400b_a17b.py")
 
 
+# the modules of the training slice
+TRAIN_FILES = ("train/__init__.py", "train/optimizer.py", "train/data.py",
+               "train/checkpoint.py", "train/fault.py", "train/loop.py",
+               "dist/compression.py", "models/flash.py", "launch/train.py",
+               "tree.py")
+
+
 @pytest.mark.parametrize("name", SLICE_FILES + RECURRENT_FILES
-                         + FAMILY_FILES)
+                         + FAMILY_FILES + TRAIN_FILES)
 def test_disagg_and_fleet_modules_import_no_jax(name):
     path = ROOT / "src" / "repro_torch" / name
     assert path in PORT_FILES
@@ -97,6 +105,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
         Engine(cfg, params, ServeConfig())
     with pytest.raises(RuntimeError, match='device="cpu"'):
         from_jax_params({}, cfg)
+    # the training slice's: the loop, the CLI, restore, the optimizer state
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import checkpoint, data
+    from repro_torch.train.loop import run_training
+    from repro_torch.weights import from_jax_opt_state
+    src = data.TinyStoriesSynth(data.DataConfig(seq_len=8, batch_size=1))
+    for call in (lambda: run_training(Model(cfg), cfg, TrainConfig(), src,
+                                      steps=1),
+                 lambda: train_cli.main(["--steps", "1"]),
+                 lambda: checkpoint.restore("unread", 1, {}),
+                 lambda: from_jax_opt_state(None, cfg)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
     Engine(cfg, params, ServeConfig(paged=True), device="cpu")
 
 
@@ -116,6 +138,36 @@ def test_disagg_and_fleet_entry_points_raise_without_a_card(no_card):
         .device.type == "cpu"
     assert build_fleet(cfg, params, scfg, n_replicas=1, device="cpu") \
         .fleet.live()[0].engine.device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_a_card(no_card, tmp_path):
+    """run_training, the train CLI, checkpoint.restore and
+    from_jax_opt_state default to CUDA and raise without a card; with
+    device="cpu" they run."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import checkpoint, data, optimizer
+    from repro_torch.train.loop import run_training
+    from repro_torch.weights import from_jax_opt_state
+    cfg = get_config("nectar-relu-llama-smoke")
+    src = data.TinyStoriesSynth(data.DataConfig(seq_len=8, batch_size=1))
+    tcfg = TrainConfig(warmup_steps=1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        run_training(Model(cfg), cfg, tcfg, src, steps=1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train_cli.main(["--arch", cfg.name, "--steps", "1",
+                        "--ckpt-dir", str(tmp_path)])
+    params, state, info = run_training(Model(cfg), cfg, tcfg, src, steps=1,
+                                       device="cpu")
+    assert info["steps_done"] == 1
+    checkpoint.save(str(tmp_path), 1, {"params": params})
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        checkpoint.restore(str(tmp_path), 1, {"params": params})
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        from_jax_opt_state(optimizer.adam_init(params), cfg)
+    from repro_torch.core.sparsity import SparsityStats
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SparsityStats.init(cfg.n_layers)
 
 
 def test_active_chip_defaults_to_cuda_and_raises_without_it(no_card):

@@ -1,8 +1,9 @@
 """The port's serve CLI and the metrics summary it prints, on the CPU.
 
 ``python -m repro_torch.launch.serve --device cpu`` serves a SMOKE config
-end to end; the reference CLI's flags of later slices are refused with
-the ROADMAP item that brings them; ``--spec ngram|selfspec`` serves
+end to end; ``--ckpt-dir`` serves the latest checkpoint's params; the
+reference CLI's flags of later slices are refused with the ROADMAP item
+that brings them; ``--spec ngram|selfspec`` serves
 speculatively and ``--async`` through the async engine; ``--obs``,
 ``--trace-out``, ``--metrics-port`` and ``--profile`` add the reference
 CLI's output keys, and so do ``--disagg*``, ``--direct-max-suffix``,
@@ -22,6 +23,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config
 from repro.configs.base import ServeConfig as JaxServeConfig
@@ -31,6 +33,7 @@ from repro.serve.scheduler import Request as JaxRequest
 from repro_torch.configs import get_config as torch_get_config
 from repro_torch.configs.base import ServeConfig
 from repro_torch.launch import serve as cli
+from repro_torch.models import Model
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.scheduler import Request
 from repro_torch.weights import from_jax_params
@@ -69,8 +72,7 @@ def test_cli_main_in_process(argv):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ckpt-dir", "/nonexistent"], "item 9"), (["--mesh", "2"], "item 9"),
-    (["--shard-kv-seq"], "item 9"),
+    (["--mesh", "2"], "item 9"), (["--shard-kv-seq"], "item 9"),
 ])
 def test_cli_refuses_flags_of_later_slices(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -78,6 +80,41 @@ def test_cli_refuses_flags_of_later_slices(flags, item, capsys):
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert flags[0] in err and f"ROADMAP queue 1 {item}" in err
+
+
+def test_cli_serves_the_latest_checkpoint(tmp_path, capsys, monkeypatch):
+    """``--ckpt-dir`` (refused until the training slice) serves the
+    params of the newest checkpoint there, a training run's {"params",
+    "opt"} with either optimizer's state: the engine gets them bit for
+    bit; an empty directory serves the seeded random weights."""
+    from repro_torch.train import checkpoint
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import leaves
+    cfg = torch_get_config("nectar-relu-llama-smoke")
+    params = Model(cfg).init(torch.Generator().manual_seed(5), device="cpu")
+    old = Model(cfg).init(torch.Generator().manual_seed(6), device="cpu")
+    ckpt = str(tmp_path / "ckpt")
+    checkpoint.save(ckpt, 3, {"params": old, "opt": opt.adam_init(old)})
+    checkpoint.save(ckpt, 7, {"params": params,
+                              "opt": opt.adam8_init(params)})
+    seen = []
+
+    def spy(cfg, p, *a, **kw):
+        seen.append(p)
+        return Engine(cfg, p, *a, **kw)
+
+    monkeypatch.setattr(cli, "Engine", spy)
+    argv = ["--device", "cpu", "--arch", "nectar-relu-llama-smoke",
+            "--requests", "2", "--max-new", "3", "--max-batch", "2"]
+    s = cli.main(argv + ["--ckpt-dir", ckpt])
+    assert s["ckpt_step"] == 7 and s["tokens"] == 6
+    assert "[serve] loaded checkpoint step 7" in capsys.readouterr().err
+    assert all(torch.equal(a, b) for a, b in zip(leaves(seen[0]),
+                                                  leaves(params)))
+    empty = cli.main(argv + ["--ckpt-dir", str(tmp_path / "none")])
+    assert empty["ckpt_step"] is None and empty["tokens"] == 6
+    assert not torch.equal(seen[1]["embed"], params["embed"])
+
 
 
 @pytest.mark.parametrize("flags", [
