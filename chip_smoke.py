@@ -137,8 +137,9 @@ Phases, each reporting on lines of its own:
                (b) zamba2-smoke and xlstm-smoke, f32, 16 prompts of
                8-128 tokens on the slot engine, card against CPU (kernel
                5 once per shared-attention invocation a decode step,
-               xlstm no kernel); (c) zamba2-2.7b at full width and depth
-               in bf16 (seeded weights made on the card), 4 prompts of
+               xlstm no kernel); (c) zamba2-2.7b at full width cut to
+               18 of 54 layers (3 of its 9 units) in bf16 (seeded
+               weights made on the card), 4 prompts of
                32-128 tokens, 16 new tokens each, teacher-forced on the
                CPU through the card's tokens and held to ROADMAP §3's
                bf16 rule at every generated token (logits within the bf16
@@ -147,7 +148,7 @@ Phases, each reporting on lines of its own:
                choice only where the CPU margin is within it), with two
                control faults of the recurrent state (rounded to bf16;
                a lost write, which must fail the bound), kernel 5
-               nine times a decode step at Dh 80; tokens/s and TPOT from
+               three times a decode step at Dh 80; tokens/s and TPOT from
                a plain serve, which runs again under torch.profiler
                (busy share, kernel 5's device ms a call); (d) xlstm-125m
                in bf16 the same way; (e) llama3.2-1b-smoke in
@@ -191,9 +192,10 @@ Phases, each reporting on lines of its own:
                flash and slot engines, card against CPU teacher-forced
                (near-tie rule, codebook by codebook), qwen2-vl-smoke also
                through the async engine at K = 8 with the sync serve's
-               tokens; (b) musicgen-medium at full size in bf16 (48
-               layers, 4 codebooks), 4 prompts of 32-128 frames, 16 new
-               tokens, paged flash and slot, held to phase 18's bf16 rule;
+               tokens; (b) musicgen-medium at full width in bf16, cut to
+               12 of 48 layers (4 codebooks), 4 prompts of 32-128
+               frames, 16 new tokens, paged flash and slot, held to
+               phase 18's bf16 rule;
                (c) qwen2-vl-72b at full width cut to 2 layers, bf16, 4
                prompts of 16-64 tokens, paged flash under phase 19's
                judge="f32", and one Model.forward
@@ -231,6 +233,37 @@ Phases, each reporting on lines of its own:
                full width in f32: 2 of 16 layers, one step's loss and
                gradients against the CPU, then 16 layers for 3 steps of
                8-bit Adam, peak memory and step ms.
+ 22. mesh    — multi-device (runs after phase 21): meshes of n shards on
+               the one card (``["cuda:0"] * n``, one controller); (a)
+               nectar paged with the naive read at model 2, model 4,
+               model 4 with shard_kv_seq (the LSE-combine decode),
+               model 2 with int8 KV and model 4 with the n-gram drafter
+               and the prefix cache on phase 9's prompts: each
+               token-identical (near-tie rule) to the unsharded card
+               serve of its settings and to the CPU's unsharded serve
+               (phases 6, 11, 9), kernel 2 n x the unsharded launches
+               (once a shard, on its [640, 128 / n] column block of
+               W_down), the per-shard pool bytes tiling the pool,
+               tok/s, TPOT p50 and (model 4) the busy share beside the
+               unsharded naive serve's (both profiled among phase 13's
+               windows, where the profiler has its slack); kernel 2 at
+               the shards' [640,
+               64] and [640, 32] blocks are phase-3 rows; (b)
+               llama3.2-1b in f32 at full width cut to 2 of 16 layers
+               at model 4 (2 KV heads a shard) against its unsharded
+               serve, bytes a shard; (c) lse_combine_decode_attention
+               and ring_attention at model 4 against
+               flash.reference_attention (2e-5, 3e-5); (d) the sharded
+               train step, nectar on (data 2, model 2), 3 steps
+               against the unsharded step: ce within 1e-4, params within
+               1e-4 but for the w_up columns and w_down rows of the FFN
+               units whose ReLU mask (kernel 3's backward recompute,
+               recorded in both runs) differs between the runs (within
+               2 x the steps' lr; printed with their pre-activation over
+               its rounding scale), kernel 3 6 launches a
+               data shard, w_up in 2 slices of [6, 128, 320];
+               reshard_params (2, 2) -> (1, 2) bit-equal; a fleet of two
+               model-2 engines scaled down, reaped and resharded.
 It exits non-zero, printing no result, when there is no CUDA device or a
 check fails. Its last line is the result JSON; the line before it holds
 the per-kernel JSON. Details go to build/chip_smoke.json.
@@ -277,12 +310,14 @@ F32_FLOPS_PER_S = 67e12       # H100 SXM f32 rate outside the tensor cores
 TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 PROFILE_ITERS = 20
-PROFILE_TRIES = 8             # windows a profiled measurement may take
-PROFILE_PAUSE_S = 0.2         # before a window runs again (see ``profiled``)
+PROFILE_TRIES = 12            # windows a profiled measurement may take
+PROFILE_PAUSE_S = 0.2         # before a window runs again, times the
+#                               windows lost so far (see ``profiled``)
 PROFILE_DEADLINE_S = 1000     # no window runs again after this: the
-#                               script ends by about 700 s and must by
-#                               1200 s; past this a lossy window fails
-#                               the check that reads it
+#                               last windows (phase 13's) end by about
+#                               750 s, the script by about 800-970 s and
+#                               must by 1200 s; past this a lossy window
+#                               fails the check that reads it
 BLIND = []                    # set once the profiler proved blind
 TOP_DEVICE = 6                # device-time leaders listed per profiled serve
 DRAFT_NAME = "nectar-relu-llama-draft"
@@ -358,7 +393,8 @@ def profiled(fn, complete=None, setup=None):
     kernels ran in it, or one that lacks some of them (about one window in
     a hundred on an H100; several in a row on some machines). A window
     that shows no device activity, or that ``complete`` (a test of the
-    averages) rejects, runs again after a short pause, up to PROFILE_TRIES
+    averages) rejects, runs again after a pause that grows with each
+    window lost (the losses come in streaks), up to PROFILE_TRIES
     times in all while the script is younger than PROFILE_DEADLINE_S. If
     no try showed device activity the averages are None: the profiler is
     blind here and the caller reports its device times as not measured
@@ -375,7 +411,7 @@ def profiled(fn, complete=None, setup=None):
         if attempt:
             print(f"profiler: window {attempt} of {PROFILE_TRIES} {fault}; "
                   f"running it again")
-            time.sleep(PROFILE_PAUSE_S)
+            time.sleep(PROFILE_PAUSE_S * attempt)
         args = () if setup is None else (setup(),)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1137,6 +1173,14 @@ def serve(engine, prompts, max_new, sps=None, forced=None):
     tokens = [[np.asarray(t).tolist() for t in finished[rid].tokens_out]
               for rid in rids]
     return tokens, rids, wall, engine.metrics.summary(), launches
+
+
+def shard_devices(scfg, dev):
+    """An engine's ``device`` for ``scfg``: one entry a shard of its mesh
+    (``[dev] * n``, n shards on one card), else ``dev``."""
+    mesh = scfg.mesh
+    return [dev] * mesh.n_devices \
+        if mesh is not None and mesh.n_devices > 1 else dev
 
 
 def profile_serve(label, make_engine, prompts, max_new, tokens, launches,
@@ -2586,7 +2630,7 @@ def recurrent_phase(dev, cfg, params, scfg, prompts, max_new, paged_run,
     """Phase 18 ((a), kernel 5 at zamba2-2.7b's decode shape, is a phase-3
     row): (b) zamba2-smoke and xlstm-smoke, f32,
     on the slot engine, card against CPU teacher-forced; (c) zamba2-2.7b
-    at full width and depth in bf16, 4 requests, card against CPU
+    at full width, 18 of 54 layers, in bf16, 4 requests, card against CPU
     teacher-forced under the bf16 rule with the state control faults,
     then a plain serve for the times and once more under torch.profiler;
     (d) xlstm-125m in bf16 the same way, unprofiled; (e)
@@ -2603,7 +2647,9 @@ def recurrent_phase(dev, cfg, params, scfg, prompts, max_new, paged_run,
     from repro_torch.spec.drafter import ModelDrafter
     details, total = {}, dict.fromkeys(KERNELS, 0)
     rrng = np.random.default_rng(SEED + 12)
-    zcfg = get_config(big[0])
+    # zamba2-2.7b at 18 of its 54 layers (3 of its 9 units): the CPU's
+    # bf16 and f32 runs of the full depth took 60-105 s of the script
+    zcfg = dataclasses.replace(get_config(big[0]), n_layers=18)
 
     def add(launches):
         for key in KERNELS:
@@ -2631,7 +2677,7 @@ def recurrent_phase(dev, cfg, params, scfg, prompts, max_new, paged_run,
         details[name] = r["record"]
         add(r["launches"])
 
-    # (c) zamba2-2.7b, full width and depth, bf16: 4 requests of 32-128
+    # (c) zamba2-2.7b, full width, 18 layers, bf16: 4 requests of 32-128
     # prompt tokens, 16 new tokens each
     big_sc = ServeConfig(paged=False, max_batch=4, max_seq=512)
     t0 = time.perf_counter()
@@ -2652,7 +2698,7 @@ def recurrent_phase(dev, cfg, params, scfg, prompts, max_new, paged_run,
     r = card_vs_cpu(f"recurrent {zcfg.name}", zcfg, zparams, big_sc, dev,
                     zprompts, 16, bf16=True, plain=True, control=True)
     n_attn = zcfg.pattern_unit().count("shared_attn") * zcfg.n_units
-    check(n_attn == 9 and r["steps"] > 0,
+    check(n_attn == 3 and r["steps"] > 0,
           f"recurrent {zcfg.name}: {n_attn} shared attention invocations a "
           f"step, {r['steps']} decode steps")
     check_launches(f"recurrent {zcfg.name}", r["launches"],
@@ -3009,7 +3055,9 @@ def families_phase(dev, scfg, prompts, max_new):
         big_sc = dataclasses.replace(scfg, max_batch=4, max_seq=512)
         frng = np.random.default_rng(SEED + 20)
         # qwen3-4b at 12 of its 36 layers since phase 20 joined: the CPU
-        # runs of the full depth took ~110 s of the script's time
+        # runs of the full depth took ~110 s of the script's time (at 4
+        # layers the card's bf16 error passed the CPU's bound: PERF.md
+        # §7)
         for name, cut, seed in (("qwen3-4b", 12, SEED + 21),
                                 ("moonshot-v1-16b-a3b", 2, SEED + 22)):
             c = get_config(name)
@@ -3153,10 +3201,11 @@ def frontends_phase(dev, scfg, slot_scfg, prompts, max_new):
     lengths, from the same seed) through the paged flash and the slot
     engines, card against CPU teacher-forced (the near-tie rule, codebook
     by codebook), and qwen2-vl-smoke through the async engine at K = 8
-    with the sync serve's tokens; (b) musicgen-medium at full size in bf16
-    (seeded weights made on the card), 4 prompts of 32-128 frames x 4
-    codebooks, 16 new tokens each, paged flash and slot, held to phase
-    18's bf16 rule under teacher forcing, times from a plain serve and a
+    with the sync serve's tokens; (b) musicgen-medium at full width in
+    bf16, cut to 12 of 48 layers (seeded weights made on the card), 4
+    prompts of 32-128 frames x 4 codebooks, 16 new tokens each, paged
+    flash and slot, held to phase 18's bf16 rule under teacher forcing,
+    times from a plain serve and a
     profiled one; (c) qwen2-vl-72b at full width cut to 2 layers in bf16,
     the same through the paged flash engine under phase 19's
     ``judge="f32"`` on 4 prompts of 16-64 tokens, and one
@@ -3223,13 +3272,14 @@ def frontends_phase(dev, scfg, slot_scfg, prompts, max_new):
             del eng
     lap_ = time.perf_counter()
 
-    # (b) musicgen-medium at full size, 4 prompts of 32-128 frames x 4
-    # codebooks, and (c) qwen2-vl-72b cut to 2 layers, 4 prompts of 16-64
+    # (b) musicgen-medium at full width cut to 12 of 48 layers (the CPU's
+    # runs of the full depth took 100-145 s), 4 prompts of 32-128 frames x
+    # 4 codebooks, and (c) qwen2-vl-72b cut to 2 layers, 4 prompts of 16-64
     # tokens (its CPU runs project every position to 152,064 logits),
     # bf16, 16 new tokens each
     frng = np.random.default_rng(SEED + 26)
     for name, cut, seed, engines, judge, (lo, hi) in (
-            ("musicgen-medium", None, SEED + 28,
+            ("musicgen-medium", 12, SEED + 28,
              (("paged flash", scfg), ("slot", slot_scfg)), "cpu", (32, 128)),
             ("qwen2-vl-72b", 2, SEED + 29, (("paged flash", scfg),), "f32",
              (16, 64))):
@@ -3713,6 +3763,454 @@ def training_phase(dev, cfg, scfg, prompts, max_new, paged_run, train_ffn):
     return out, launches
 
 
+def pool_shard_bytes(engine):
+    """Bytes of each shard's slice of the engine's block pools (the pools
+    proper, not the trash blocks behind them), in shard order; one entry
+    for a meshless engine."""
+    from repro_torch.dist.sharding import Sharded
+    n = engine.mesh.size if engine.mesh is not None else 1
+    out = [0] * n
+    for pools in engine.runner.cache["units"].values():
+        for leaf in pools.values():
+            parts = leaf.shards if isinstance(leaf, Sharded) else [leaf]
+            for i, t in enumerate(parts):
+                out[i] += t.numel() * t.element_size()
+    return out
+
+
+def param_shard_bytes(params, n):
+    """Bytes of each shard's block of a placed param tree; a replicated
+    leaf counts on the home shard (0), where it lives."""
+    from repro_torch.dist.sharding import Sharded
+    from repro_torch.tree import leaves
+    out = [0] * n
+    for leaf in leaves(params):
+        if isinstance(leaf, Sharded):
+            for i, t in enumerate(leaf.shards):
+                out[i] += t.numel() * t.element_size()
+        else:
+            out[0] += leaf.numel() * leaf.element_size()
+    return out
+
+
+def mesh_train_check(dev, smi, cfg, add):
+    """Phase 22 (d): three steps of ``compile_train_step`` for nectar on a
+    (data 2, model 2) mesh of ``dev`` against the unsharded step from the
+    same params. The ce agrees within 1e-4 at each step and kernel 3 runs
+    n_layers times a data shard. The params agree within 1e-4 but for the
+    FFN units that flipped: a unit whose pre-activation x . w_up (the
+    f32 product kernel 3's backward recomputes for its ReLU mask, each
+    call recorded here at its own shape: 256 rows a data shard, 512
+    unsharded) is > 0 in one run and not in the other for some row at
+    some step. Such a unit's dh differs by a whole dy . w_down term, and
+    Adam's first updates, ~lr * sign(g), part by up to 2 lr a step, so
+    its column of w_up and row of w_down are held to 2 x the steps'
+    summed lr. The flipped units are printed with their largest |x .
+    w_up| at the rows that flipped, over that entry's sum |x| . |w_up|
+    (the rounding scale). ``add`` takes the sharded runs' launches.
+    Returns (details, the sharded params, their gathered tree)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import data, loop
+    from repro_torch.train import optimizer as opt
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=5, total_steps=60, seed=0)
+    src = data.TinyStoriesSynth(data.DataConfig(seq_len=64, batch_size=8,
+                                                vocab_size=cfg.vocab))
+    tparams = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED),
+                              device=dev)
+    state = opt.adam_init(tparams)
+    batches = [{k: torch.as_tensor(v).to(dev)
+                for k, v in src.batch_at(i).items()} for i in range(3)]
+    mesh22 = make_mesh((2, 2), ("data", "model"), [dev] * 4)
+    fn, (p_sh, o_sh, x_sh) = loop.compile_train_step(
+        cfg, tcfg, mesh22, tparams, state, batches[0])
+    P = shd.shard_tree(tparams, p_sh, mesh22)
+    O = shd.shard_tree(state, o_sh, mesh22)
+    up = P["units"]["b0"]["ffn"]["w_up"]
+    slices = {id(t): tuple(t.shape) for t in up.shards}
+    check(sorted(slices.values()) == [(cfg.n_units, 128, 320)] * 2,
+          f"mesh train: w_up stored as {sorted(slices.values())}")
+    step = loop.make_train_step(cfg, tcfg)
+    p1, s1 = tparams, state
+    ce_diff, k3 = [], []
+    t_sharded = t_plain = 0.0
+    real = ops.relu_ffn_fused
+    calls = []
+
+    def recording(x, w_up, w_down):
+        with torch.no_grad():
+            xd, wd = x.detach(), w_up.detach()
+            calls.append((torch.matmul(xd, wd),
+                          torch.matmul(xd.abs(), wd.abs())))
+        return real(x, w_up, w_down)
+    L = cfg.n_layers
+    flipped = torch.zeros(L, cfg.d_ff, dtype=torch.bool, device=dev)
+    rel = torch.zeros(L, cfg.d_ff, device=dev)
+    ops.relu_ffn_fused = recording
+    try:
+        for batch in batches:
+            X = shd.shard_tree(batch, x_sh, mesh22)
+            for key in ops.LAUNCHES:
+                ops.LAUNCHES[key] = 0
+            calls.clear()
+            t0 = time.perf_counter()
+            P, O, m = fn(P, O, X)
+            sync()
+            t_sharded += time.perf_counter() - t0
+            got = dict(ops.LAUNCHES)
+            add(got)
+            k3.append(got["relu_ffn"])
+            sharded = list(calls)
+            calls.clear()
+            t0 = time.perf_counter()
+            p1, s1, m1 = step(p1, s1, batch)
+            sync()
+            t_plain += time.perf_counter() - t0
+            ce_diff.append(abs(float(m["ce"]) - float(m1["ce"])))
+            # the data shards run one after the other, layers in order:
+            # shard 0's rows are the first half of the unsharded step's
+            check(len(sharded) == 2 * L and len(calls) == L,
+                  f"mesh train: {len(sharded)} and {len(calls)} FFN calls")
+            for layer in range(L):
+                hs = torch.cat([sharded[layer][0], sharded[L + layer][0]])
+                ss = torch.cat([sharded[layer][1], sharded[L + layer][1]])
+                hp, sp = calls[layer]
+                flip = (hs > 0) != (hp > 0)
+                size = torch.maximum(hs.abs(), hp.abs()) \
+                    / torch.maximum(ss, sp).clamp_min(1e-30)
+                flipped[layer] |= flip.any(dim=0)
+                rel[layer] = torch.maximum(
+                    rel[layer], torch.where(flip, size, 0).amax(dim=0))
+    finally:
+        ops.relu_ffn_fused = real
+    check(max(ce_diff) <= 1e-4, f"mesh train: ce differs by {ce_diff}")
+    check(k3 == [2 * L] * 3,
+          f"mesh train: kernel 3 launched {k3} times a step, expected "
+          f"{L} a data shard")
+    whole = shd.gather_tree(P)
+    lr_sum = sum(float(opt.lr_schedule(tcfg, torch.tensor(t)))
+                 for t in (1, 2, 3))
+    units = [(int(i), int(j), float(rel[i, j]))
+             for i, j in flipped.nonzero().tolist()]
+    p_err = exempt_err = 0.0
+    n_exempt = n_all = 0
+    over = []
+    pairs = []
+    shd.map_with(lambda a, b: pairs.append((a, b)), whole, p1)
+    names = []
+    shd.map_with_path(lambda path, leaf: names.append("/".join(path)),
+                      whole)
+    for name, (a, b) in zip(names, pairs):
+        d = (a - b).abs()
+        ex = torch.zeros_like(d, dtype=torch.bool)
+        if name.endswith("ffn/w_up"):            # [U, d, d_ff]
+            ex |= flipped[:, None, :]
+        elif name.endswith("ffn/w_down"):        # [U, d_ff, d]
+            ex |= flipped[:, :, None]
+        n_exempt += int(ex.sum())
+        n_all += d.numel()
+        p_err = max(p_err, float(d[~ex].max()))
+        if ex.any():
+            exempt_err = max(exempt_err, float(d[ex].max()))
+        for idx in (d > 1e-4).nonzero().tolist()[:8]:
+            over.append((name, idx, float(d[tuple(idx)]),
+                         bool(ex[tuple(idx)])))
+    print(f"mesh train: nectar on (data 2, model 2), B 8 x S 64, 3 steps: ce "
+          f"within {max(ce_diff):.3g} of the unsharded card step; FFN units "
+          f"whose ReLU mask differs between the runs (layer, unit, largest "
+          f"|x . w_up| at a flipped row over its sum |x| . |w_up|): "
+          f"{units}; params within {p_err:.3g} outside those units' w_up "
+          f"columns and w_down rows ({n_exempt} of {n_all} elements), "
+          f"within {exempt_err:.3g} inside (2 x the steps' lr "
+          f"{2 * lr_sum:.3g}); elements past 1e-4 (leaf, index, diff, in a "
+          f"flipped unit): {over}; kernel 3 {k3} launches a step; step "
+          f"{1e3 * t_sharded / 3:.2f} ms (unsharded {1e3 * t_plain / 3:.2f}"
+          f" ms) [{smi}]")
+    check(p_err <= 1e-4 and exempt_err <= 2 * lr_sum,
+          f"mesh train: params differ by {p_err} outside the flipped units "
+          f"{units}, by {exempt_err} inside")
+    return dict(ce_diff=ce_diff, param_err=p_err,
+                flipped_units=units, flipped_unit_err=exempt_err,
+                flipped_unit_elements=n_exempt, n_params=n_all,
+                past_1e4=over, kernel3_launches=k3,
+                step_ms=1e3 * t_sharded / 3,
+                unsharded_step_ms=1e3 * t_plain / 3), P, whole
+
+
+def mesh_phase(dev, smi, cfg, params, scfg, prompts, max_new, prefix_prompts,
+               int8_run, cpu_runs, rows, profs):
+    """Phase 22: sharded serving and training, every mesh ``[dev] * n``
+    (one controller, n shards on the card). ``int8_run``: phase 11's
+    (scfg, card tokens, card rids, card margins, launches) of the
+    unsharded int8 naive serve; ``cpu_runs``: the CPU's unsharded serves
+    each sharded serve is held to, (tokens, margins, rids) by setting:
+    "naive" phase 6's paged serve, "int8" phase 11's, "spec" phase 9's
+    prefix-cache serve (greedy speculation commits the tokens of plain
+    greedy decoding); ``rows``: phase 3's rows (kernel 2's at the shards'
+    shapes are printed here); ``profs``: phase 13's profiled serves of
+    the unsharded naive setting ("naive") and of the model-4 mesh (4),
+    whose busy shares are printed beside the serves here. Returns
+    (details, the launches of the phase's sharded runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MeshConfig, SpecConfig
+    from repro_torch.dist import collectives, elastic
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.ring import ring_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model, flash
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.fleet import Fleet
+    from repro_torch.tree import leaves
+    out, total = {}, {key: 0 for key in KERNELS}
+    clock = [time.perf_counter()]
+
+    def add(launches):
+        for key in KERNELS:
+            total[key] += launches[key]
+
+    def part(name):
+        now = time.perf_counter()
+        print(f"time: 22 {name} {now - clock[-1]:.1f} s")
+        clock.append(now)
+
+    # (a) nectar at full width, paged, the naive read: the unsharded card
+    # serve of each setting, then the sharded ones
+    naive = dataclasses.replace(scfg, attn_backend="naive")
+    spec_pre = dataclasses.replace(
+        naive, prefix_cache=True,
+        spec=SpecConfig(drafter="ngram", k=4, k_max=8))
+    q8_scfg, q8_tokens, q8_rids, q8_margins, q8_launches = int8_run
+
+    def baseline(sc, ps):
+        """(tokens, rids, margins, launches, summary, wall) of the
+        unsharded card serve of ``sc``."""
+        eng = Engine(cfg, params, sc, device=dev)
+        margins = (recording_spec_engine(eng)[1] if sc.spec is not None
+                   else recording_engine(eng)[2])
+        toks, rids, wall, summ, launches = serve(eng, ps, max_new)
+        return toks, rids, margins, launches, summ, wall
+
+    base = {"naive": baseline(naive, prompts),
+            "spec": baseline(spec_pre, prefix_prompts),
+            "int8": (q8_tokens, q8_rids, q8_margins, q8_launches, None,
+                     None)}
+    b = base["naive"]
+    flips = compare_cpu("mesh: naive card vs CPU", b[0], *cpu_runs["naive"])
+    print(f"mesh: unsharded naive serve {b[4]['tokens_per_s']:.1f} tok/s, "
+          f"TPOT p50 {b[4]['tpot_p50_ms']:.3f} ms, {b[5]:.3f} s [{smi}]; "
+          f"against the CPU near-tie flips {flips}")
+    base_prof = profs["naive"]
+    cases = (("model 2", 2, False, naive, prompts, "naive"),
+             ("model 4", 4, False, naive, prompts, "naive"),
+             ("model 4 kv_seq", 4, True, naive, prompts, "naive"),
+             ("model 2 int8", 2, False, q8_scfg, prompts, "int8"),
+             ("model 4 ngram prefix", 4, False, spec_pre, prefix_prompts,
+              "spec"))
+    out["serves"] = {}
+    for label, n, kv_seq, sc, ps, key in cases:
+        msc = dataclasses.replace(sc, mesh=MeshConfig(
+            model=n, shard_kv_seq=kv_seq))
+        eng = Engine(cfg, params, msc, device=[dev] * n)
+        toks, rids, wall, summ, launches = serve(eng, ps, max_new)
+        add(launches)
+        steps = eng.runner.n_steps
+        bt, brids, bm, bl, _, _ = base[key]
+        check(launches["sparse_gather_matvec"]
+              == n * cfg.n_layers * steps > 0
+              and launches["paged_attention"] == 0,
+              f"mesh {label}: launches {launches} in {steps} steps, "
+              f"expected kernel 2 {n} x {cfg.n_layers} a step")
+        card_flips = compare_cpu(f"mesh {label} vs unsharded card", toks,
+                                 bt, bm, brids)
+        cpu_flips = compare_cpu(f"mesh {label} vs CPU", toks,
+                                *cpu_runs[key])
+        if toks == bt:
+            check(launches["sparse_gather_matvec"]
+                  == n * bl["sparse_gather_matvec"],
+                  f"mesh {label}: kernel 2 launched "
+                  f"{launches['sparse_gather_matvec']} times, the "
+                  f"unsharded serve {bl['sparse_gather_matvec']}")
+        pool = summ["kv_pool"]
+        shard_bytes = pool_shard_bytes(eng)
+        check(pool["model_shards"] == n
+              and pool["per_shard_capacity_bytes"] * n
+              == pool["capacity_bytes"]
+              and pool["per_shard_used_bytes"] * n == pool["used_bytes"]
+              and shard_bytes == [shard_bytes[0]] * n
+              and sum(shard_bytes) == sum(pool_shard_bytes(
+                  Engine(cfg, params, sc, device=dev))),
+              f"mesh {label}: the per-shard pool bytes {shard_bytes} "
+              f"({pool}) do not tile the pool")
+        check(summ["mesh"]["shape"] == {"data": 1, "model": n}
+              and summ["mesh"]["kv_pool_shards"] == n
+              and summ["mesh"]["shard_kv_seq"] == kv_seq,
+              f"mesh {label}: summary mesh {summ['mesh']}")
+        prof = profs[4] if label == "model 4" else None
+        busy = None if prof is None else prof["busy_share"]
+        k2_ms = None if prof is None \
+            else prof["kernel_device_ms"].get("sparse_gather_matvec")
+        print(f"mesh {label}: {summ['tokens_per_s']:.1f} tok/s (unsharded "
+              f"naive {b[4]['tokens_per_s']:.1f}), TPOT p50 "
+              f"{summ['tpot_p50_ms']:.3f} ms ({b[4]['tpot_p50_ms']:.3f}), "
+              f"busy share {busy} ({base_prof['busy_share']}; phase 13's "
+              f"windows), {steps} "
+              f"steps, kernel 2 {launches['sparse_gather_matvec']} "
+              f"launches (device ms a launch {k2_ms}), pool bytes a "
+              f"shard {shard_bytes[0]} [{smi}]; "
+              f"flips against the unsharded card {card_flips}, against "
+              f"the CPU {cpu_flips}")
+        out["serves"][label] = dict(
+            tokens_per_s=summ["tokens_per_s"], tpot_p50_ms=summ["tpot_p50_ms"],
+            wall_s=wall, steps=steps, launches=launches, busy_share=busy,
+            kernel2_device_ms=k2_ms,
+            pool_bytes_per_shard=shard_bytes[0], card_flips=card_flips,
+            cpu_flips=cpu_flips, mesh=summ["mesh"])
+    out["unsharded_naive"] = dict(
+        tokens_per_s=b[4]["tokens_per_s"], tpot_p50_ms=b[4]["tpot_p50_ms"],
+        wall_s=b[5], busy_share=base_prof["busy_share"], launches=b[3],
+        kernel2_device_ms=base_prof["kernel_device_ms"].get(
+            "sparse_gather_matvec"))
+
+    part("(a) nectar serves")
+
+    # (b) llama3.2-1b at full width in f32, cut to 2 of 16 layers, model 4
+    lcfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
+                               dtype="float32")
+    lparams = Model(lcfg).init(torch.Generator(device=dev).manual_seed(
+        SEED + 23), device=dev)
+    lrng = np.random.default_rng(SEED + 23)
+    lprompts = [lrng.integers(0, lcfg.vocab, int(n), dtype=np.int32)
+                for n in lrng.integers(16, 65, 4)]
+    lsc = dataclasses.replace(naive, max_batch=4, max_seq=128)
+    lbase = Engine(lcfg, lparams, lsc, device=dev)
+    _, _, lmargins = recording_engine(lbase)
+    ltoks, lrids, lwall, lsum, _ = serve(lbase, lprompts, 16)
+    del lbase
+    leng = Engine(lcfg, lparams, dataclasses.replace(
+        lsc, mesh=MeshConfig(model=4)), device=[dev] * 4)
+    ltoks4, _, lwall4, lsum4, l4_launches = serve(leng, lprompts, 16)
+    add(l4_launches)
+    lflips = compare_cpu("mesh llama3.2-1b model 4 vs unsharded card",
+                         ltoks4, ltoks, lmargins, lrids)
+    # the tied head's layouts side by side in this run, alternated: split
+    # on its vocab rows (the serving layout) against split on d and
+    # gathered whole for every step's logits (the layout it replaced)
+    lold = Engine(lcfg, lparams, leng.scfg, device=[dev] * 4)
+    lold.runner.params["embed"] = shd.place(
+        lparams["embed"], (None, "model"), lold.runner.mesh)
+    tied_tpot = {"rows": [lsum4["tpot_p50_ms"]], "gathered": []}
+    for layout, e in (("gathered", lold), ("gathered", lold),
+                      ("rows", leng)):
+        t, _, _, sm, _ = serve(e, lprompts, 16)
+        compare_cpu(f"mesh llama3.2-1b model 4 ({layout} tied head) vs "
+                    f"unsharded card", t, ltoks, lmargins, lrids)
+        tied_tpot[layout].append(sm["tpot_p50_ms"])
+    del lold
+    print(f"mesh llama3.2-1b model 4, the tied head split on its vocab rows"
+          f" / on d and gathered a step, alternated: TPOT p50 "
+          f"{tied_tpot['rows']} / {tied_tpot['gathered']} ms [{smi}]")
+    pbytes = param_shard_bytes(leng.runner.params, 4)
+    kbytes = pool_shard_bytes(leng)
+    check(leng.pool.model_shards == 4 and kbytes == [kbytes[0]] * 4,
+          f"mesh llama3.2-1b: pool shards {kbytes}")
+    print(f"mesh llama3.2-1b (f32, d 2048, 32/8 heads, d_ff 8192, vocab "
+          f"128256, 2 of 16 layers) at model 4: {lsum4['tokens_per_s']:.1f}"
+          f" tok/s (unsharded {lsum['tokens_per_s']:.1f}), TPOT p50 "
+          f"{lsum4['tpot_p50_ms']:.3f} ms ({lsum['tpot_p50_ms']:.3f}) "
+          f"[{smi}]; param bytes a shard {pbytes} (replicated leaves on "
+          f"shard 0), pool bytes a shard {kbytes[0]}; flips against the "
+          f"unsharded card {lflips}")
+    out["llama"] = dict(tokens_per_s=lsum4["tokens_per_s"],
+                        unsharded_tokens_per_s=lsum["tokens_per_s"],
+                        tpot_p50_ms=lsum4["tpot_p50_ms"],
+                        tied_head_tpot_p50_ms=tied_tpot,
+                        param_bytes_per_shard=pbytes,
+                        pool_bytes_per_shard=kbytes[0], flips=lflips)
+    del leng, lparams
+    torch.cuda.empty_cache()
+
+    part("(b) llama3.2-1b")
+
+    # (c) the collectives on the card against the plain attention
+    mesh4 = make_mesh((4,), ("model",), [dev] * 4)
+    crng = np.random.default_rng(SEED + 24)
+
+    def card(*shape):
+        return torch.tensor(crng.standard_normal(shape), dtype=torch.float32,
+                            device=dev)
+    B, Kv, G, Dh, S = 4, 8, 4, 64, 4096
+    q, k, v = card(B, Kv, G, Dh), card(B, S, Kv, Dh), card(B, S, Kv, Dh)
+    kv_len = torch.tensor(crng.integers(1, S + 1, B), dtype=torch.int32,
+                          device=dev)
+    got = collectives.lse_combine_decode_attention(mesh4, q, k, v, kv_len)
+    want = flash.reference_attention(q[:, None], k, v, causal=False,
+                                      kv_len=kv_len)[:, 0]
+    lse_err = (got - want).abs().max().item()
+    check(lse_err <= 2e-5, f"mesh: lse_combine differs by {lse_err}")
+    lse_ms = time_ms(lambda: collectives.lse_combine_decode_attention(
+        mesh4, q, k, v, kv_len), iters=10, warmup=1)
+    rq, rk, rv = card(1, 2048, 8, 4, 64), card(1, 2048, 8, 64), \
+        card(1, 2048, 8, 64)
+    ring_err, ring_ms = {}, {}
+    for causal in (True, False):
+        got = ring_attention(mesh4, rq, rk, rv, causal=causal)
+        want = flash.reference_attention(rq, rk, rv, causal=causal)
+        ring_err[causal] = (got - want).abs().max().item()
+        check(ring_err[causal] <= 3e-5,
+              f"mesh: ring attention (causal {causal}) differs by "
+              f"{ring_err[causal]}")
+        ring_ms[causal] = time_ms(lambda c=causal: ring_attention(
+            mesh4, rq, rk, rv, causal=c), iters=5, warmup=1)
+    print(f"mesh: lse_combine at model 4 (B 4, Kv 8, G 4, Dh 64, S 4096) "
+          f"max_abs_err {lse_err:.3g}, {lse_ms:.3f} ms; ring attention at "
+          f"model 4 (S 2048) causal {ring_err[True]:.3g} "
+          f"{ring_ms[True]:.3f} ms, non-causal {ring_err[False]:.3g} "
+          f"{ring_ms[False]:.3f} ms [{smi}]")
+    out["collectives"] = dict(lse_err=lse_err, lse_ms=lse_ms,
+                              ring_err=ring_err, ring_ms=ring_ms)
+    del q, k, v, rq, rk, rv
+
+    part("(c) collectives")
+
+    # (d) the sharded train step: nectar on a (data 2, model 2) mesh
+    out["train"], P, whole = mesh_train_check(dev, smi, cfg, add)
+    back = elastic.reshard_params(P, cfg, make_mesh(
+        (1, 2), ("data", "model"), [dev] * 2))
+    check(all(torch.equal(a, b) for a, b in zip(
+        leaves(shd.gather_tree(back)), leaves(whole))),
+          "mesh train: reshard_params (2, 2) -> (1, 2) changed a value")
+    print("mesh train: reshard_params (2, 2) -> (1, 2) bit-equal")
+    fsc = dataclasses.replace(naive, max_batch=2, mesh=MeshConfig(model=2))
+    fleet = Fleet(cfg, params, fsc, n_replicas=2, device=[dev] * 2)
+    victims = fleet.scale_down(1)
+    reaped = [r.id for r in fleet.reap()]
+    n_resharded = fleet.reshard_surviving()
+    check(victims == [1] and reaped == [1] and n_resharded == 1,
+          f"mesh fleet: scale_down {victims}, reaped {reaped}, "
+          f"reshard_surviving {n_resharded}")
+    print(f"mesh fleet: two model-2 replicas, scale_down(1) drained "
+          f"{victims}, reap retired {reaped}, reshard_surviving() = "
+          f"{n_resharded}")
+
+    part("(d) training, elastic, fleet")
+    for r in rows["sparse_gather_matvec"]:
+        if "shard of model" in r["case"]:
+            print(f"mesh: kernel 2 {r['case']} (phase 3): device "
+                  f"{r['device_ms']} ms, bound {r['bound_ms']:.3g} ms "
+                  f"({r['bound_by']}), embedding_bag "
+                  f"{r['library_device_ms']} ms, max_abs_err "
+                  f"{r['max_abs_err']:.3g} [{smi}]")
+    out["launches"] = dict(total)
+    return out, total
+
+
 def main():
     details = {}
     clock = [time.perf_counter()]
@@ -3891,6 +4389,13 @@ def main():
              cfg.d_ff, cfg.d_model),
             ("draft model rows=8", 8, 128, dcfg.d_ff, dcfg.d_model),
             ("selfspec predicted rows=8", 8, 32, cfg.d_ff, cfg.d_model))]
+    # phase 22: kernel 2 on a shard's column block of W_down ([640, 64] at
+    # model 2, [640, 32] at model 4), from a stream of its own
+    mrng = np.random.default_rng(SEED + 25)
+    rows["sparse_gather_matvec"] += [
+        run_sparse(dev, mrng, f"nectar shard of model {n} rows=8",
+                   B=scfg.max_batch, k=k_nectar, d_ff=cfg.d_ff,
+                   d=cfg.d_model // n, empty_frac=0.1) for n in (2, 4)]
     rows["relu_ffn"] = [
         run_relu_ffn(dev, krng, f"nectar prefill M={M}", M=M, d=cfg.d_model,
                      f=cfg.d_ff, dead_blocks=(1, 3))
@@ -4164,9 +4669,9 @@ def main():
     # ---- 11) int8 KV pools (naive read), card against CPU ---------------------
     q8_scfg = dataclasses.replace(scfg, attn_backend="naive", kv_quant=True)
     q8 = Engine(cfg, params, q8_scfg, device=dev)
-    q8_ticks, _, _ = recording_engine(q8)
-    q8_tokens, _, q8_wall, q8_summary, q8_launches = serve(q8, prompts,
-                                                           max_new)
+    q8_ticks, _, q8_card_margins = recording_engine(q8)
+    q8_tokens, q8_rids, q8_wall, q8_summary, q8_launches = serve(
+        q8, prompts, max_new)
     q8_steps = q8.runner.n_steps
     print_serve("int8kv", len(prompts), q8_summary, q8_wall, q8_steps,
                 q8_launches)
@@ -4481,8 +4986,20 @@ def main():
     lap(clock, "17) disagg and fleet")
 
     # ---- 13) the serves again, under torch.profiler ---------------------------
+    from repro_torch.configs.base import MeshConfig
     from repro_torch.serve.disagg import DisaggCoordinator
     profiles = {}
+    # phase 22's busy shares: the unsharded naive serve's and the model-4
+    # mesh serve's windows run here, where the profiler has its slack
+    naive_scfg = dataclasses.replace(scfg, attn_backend="naive")
+    mesh4_scfg = dataclasses.replace(naive_scfg, mesh=MeshConfig(model=4))
+    mesh_first = {}
+    for label, sc in (("mesh naive", naive_scfg),
+                      ("mesh model 4", mesh4_scfg)):
+        m_toks, _, m_wall, _, m_lnch = serve(
+            Engine(cfg, params, sc, device=shard_devices(sc, dev)),
+            prompts, max_new)
+        mesh_first[label] = (sc, m_toks, m_lnch, m_wall)
     for label, sc, pr_prompts, pr_sps, toks, lnch, w, pr_new in (
             ("paged", scfg, prompts, None, gpu_tokens, launches, wall,
              max_new),
@@ -4498,10 +5015,14 @@ def main():
                  *spec_runs[d][1:], max_new) for d in ("ngram", "model")) \
             + (("async K8 heavy", heavy_runs["K8"][0], heavy, None,
                 *heavy_runs["K8"][1:], heavy_new),
-               ("disagg", None, prompts, None, *disagg_run, max_new)):
+               ("disagg", None, prompts, None, *disagg_run, max_new)) \
+            + tuple((label, m_sc, prompts, None, *rest, max_new)
+                    for label, (m_sc, *rest) in mesh_first.items()):
         pr = profile_serve(f"profile {label}",
-                           lambda sc=sc: Engine(cfg, params, sc, device=dev,
-                                                draft_params=dparams)
+                           lambda sc=sc: Engine(
+                               cfg, params, sc,
+                               device=shard_devices(sc, dev),
+                               draft_params=dparams)
                            if sc is not None else
                            DisaggCoordinator(cfg, params, scfg, device=dev),
                            pr_prompts, pr_new, toks, lnch, w, pr_sps)
@@ -4538,6 +5059,17 @@ def main():
         dev, cfg, scfg, prompts, max_new,
         (summary["tokens_per_s"], params, gpu_tokens), train_ffn)
     lap(clock, "21) training")
+
+    # ---- 22) multi-device: meshes of shards on the card (runs after phase
+    # 21; its kernel-2 rows at the shards' shapes join phase 3's table) ------
+    details["mesh"], mesh_launches = mesh_phase(
+        dev, smi, cfg, params, scfg, prompts, max_new, prefix_prompts,
+        (q8_scfg, q8_tokens, q8_rids, q8_card_margins, q8_launches),
+        {"naive": (cpu_tokens, margins, cpu_rids),
+         "int8": (q8_cpu_tokens, q8_margins, q8_cpu_rids),
+         "spec": (pre_cpu_tokens, pre_margins, pre_cpu_rids)}, rows,
+        {"naive": profiles["mesh naive"], 4: profiles["mesh model 4"]})
+    lap(clock, "22) multi-device")
 
     # ---- report --------------------------------------------------------------
     out_dir = ROOT / "build"
@@ -4576,13 +5108,14 @@ def main():
         + disagg_launches["sparse_gather_matvec"]
         + recurrent_launches["sparse_gather_matvec"]
         + families_launches["sparse_gather_matvec"]
-        + training_launches["sparse_gather_matvec"],
+        + training_launches["sparse_gather_matvec"]
+        + mesh_launches["sparse_gather_matvec"],
         "decode_attention": slot_launches["decode_attention"]
         + spec_launches["decode_attention"]
         + recurrent_launches["decode_attention"]
         + frontends_launches["decode_attention"],
         "relu_ffn": slot_launches["relu_ffn"]
-        + training_launches["relu_ffn"],
+        + training_launches["relu_ffn"] + mesh_launches["relu_ffn"],
         "nmce_matmul": ops_launches["nmce_matmul"]
         + families_launches["nmce_matmul"]}
     main_case = {"paged_attention": rows["paged_attention"][0],
@@ -4607,7 +5140,8 @@ def main():
                 if key in pr["kernel_device_ms"]} or None,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "library_device_ms": r["library_device_ms"]})
+            "library_device_ms": r["library_device_ms"],
+            "mesh_launches": mesh_launches[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

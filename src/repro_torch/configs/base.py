@@ -3,9 +3,8 @@
 ``ModelConfig``, ``TrainConfig``, ``ServeConfig`` and ``SpecConfig`` keep
 the reference's fields and defaults so one set of values configures both
 packages.
-``ObsConfig``, ``MeshConfig`` and ``AsyncConfig`` are here only so that a
-``ServeConfig`` constructs as it does in the reference; the port's engine
-raises ``NotImplementedError`` when any of them is switched on.
+``ObsConfig``, ``MeshConfig`` and ``AsyncConfig`` configure tracing,
+sharded serving and the async engine, as in the reference.
 """
 
 from __future__ import annotations
@@ -200,8 +199,34 @@ class ObsConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    model: int = 1
-    data: int = 1
+    """Device mesh for sharded serving (paged engine only).
+
+    ``model`` is the tensor-parallel axis: transformer weights shard over
+    it (dist.sharding.params_shardings) and the paged KV block pool
+    partitions its KV-head axis over it (dist.sharding.cache_shardings
+    with paged=True) — each shard holds n_kv_heads/model heads of every
+    physical block, so the pool's host-side bookkeeping (block tables,
+    refcounts, COW, truncate, defrag, the radix prefix index) is
+    completely shard-agnostic.
+
+    ``shard_kv_seq`` additionally shards the gathered per-row KV
+    *sequence* over ``model`` inside single-token decode attention and
+    merges the per-shard partial softmaxes with the LSE-combine
+    collective (dist.collectives.lse_combine_decode_attention) — the
+    long-context layout where one device cannot hold a row's KV.
+
+    ``data`` > 1 is reserved for batch-parallel replicas and is rejected
+    by the engine until the runner actually batch-shards step inputs —
+    accepting it today would silently replicate identical work across
+    the extra devices.
+
+    Declarative and torch-free: the engine materializes the actual mesh
+    via launch.mesh.make_serving_mesh, so configs can be built before any
+    device is chosen."""
+
+    model: int = 1                  # tensor-parallel shards
+    data: int = 1                   # batch-parallel replicas (reserved)
+    shard_kv_seq: bool = False      # LSE-combine decode over seq shards
 
     @property
     def n_devices(self) -> int:

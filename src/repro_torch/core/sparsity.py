@@ -124,13 +124,20 @@ def down_sparse(h: torch.Tensor, w_down: torch.Tensor, k: int
     """Gathered down-projection (the paper's C2): contract only the top-k
     active units' rows of W_down. Inactive slots carry the sentinel index
     d_ff, which the gather kernel skips. h: [..., d_ff] -> [..., d]."""
+    hk, idx = active_slots(h, k, w_down.shape[0])
+    out = ops.sparse_gather_matvec(hk, idx, w_down)
+    return out.reshape(*h.shape[:-1], w_down.shape[1]).to(h.dtype)
+
+
+def active_slots(h: torch.Tensor, k: int, d_ff: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gathered down-projection's operands for h [..., d_ff]: the
+    top-k values (hk f[rows, k], zero in empty slots) and their row
+    indices (idx i32[rows, k], the sentinel d_ff in empty slots)."""
     idx, valid = topk_indices(h, k)
     hk = torch.where(valid, torch.gather(h, -1, idx.long()), 0.0)
-    idx = torch.where(valid, idx, w_down.shape[0])
-    lead = h.shape[:-1]
-    out = ops.sparse_gather_matvec(hk.reshape(-1, k).contiguous(),
-                                   idx.reshape(-1, k).contiguous(), w_down)
-    return out.reshape(*lead, w_down.shape[1]).to(h.dtype)
+    idx = torch.where(valid, idx, d_ff)
+    return hk.reshape(-1, k).contiguous(), idx.reshape(-1, k).contiguous()
 
 
 def dense_ffn(x, w_up, w_down, act="relu", w_gate=None):

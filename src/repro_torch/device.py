@@ -2,9 +2,12 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
+
+# one device, or under a mesh (launch.mesh) a sequence of them, one a shard
+Devices = Union[None, str, torch.device, Sequence[Union[str, torch.device]]]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

@@ -30,10 +30,16 @@ decode engine with the KV block handoff; the summary adds
 ``--replicas N`` (N > 1) serves through a fleet of N replicas behind the
 router (``--router-policy``), each replica a disagg pool under
 ``--disagg``; the requests come in sessions of two, and the summary is
-the fleet's (``--metrics-port`` then serves the router's registry). The
-reference CLI's flags of features this port does not have yet (sharded
-serving) are accepted by name and refused with the ROADMAP item that
-brings them.
+the fleet's (``--metrics-port`` then serves the router's registry).
+
+``--mesh N`` (N > 1, with ``--paged``) serves through a tensor-parallel
+mesh of N shards (weights and the KV-head-sharded block pool, the naive
+read); ``--shard-kv-seq`` also splits a decode step's gathered KV
+sequence over the shards and merges them with the LSE-combine
+collective. Without ``--device`` the shards are the first N visible CUDA
+devices (fewer raise make_serving_mesh's ValueError); with it, N shards
+on that one device (``--device cuda:0 --mesh 4``, ``--device cpu --mesh
+4``). The summary then adds ``mesh`` and ``kv_pool_per_shard_bytes``.
 """
 
 from __future__ import annotations
@@ -48,9 +54,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import (AsyncConfig, DisaggConfig, ObsConfig,
-                                      ServeConfig, SpecConfig)
+from repro_torch.configs.base import (AsyncConfig, DisaggConfig,
+                                      MeshConfig, ObsConfig, ServeConfig,
+                                      SpecConfig)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import Model
 from repro_torch.obs import (attainment_table, start_metrics_server,
                              write_jsonl, write_perfetto)
@@ -60,16 +68,6 @@ from repro_torch.serve.router import POLICIES, build_fleet
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import Request
 from repro_torch.train import checkpoint
-
-# flags of the reference CLI whose features come with later slices:
-# (flags, argparse keywords, the ROADMAP queue-1 item that brings them)
-LATER = (
-    (("--mesh",), {"type": int, "default": 1},
-     "item 9 (multi-device, sharded serving)"),
-    (("--shard-kv-seq",), {"action": "store_true"},
-     "item 9 (multi-device, sharded serving)"),
-)
-
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
@@ -162,21 +160,30 @@ def parser() -> argparse.ArgumentParser:
                     help="serve the params of the latest checkpoint there "
                          "(python -m repro_torch.launch.train writes them); "
                          "random weights when it holds none")
-    for flags, kw, _ in LATER:
-        ap.add_argument(*flags, help=argparse.SUPPRESS, **kw)
+    ap.add_argument("--mesh", type=int, default=1,
+                    help="model-axis shards for sharded serving (paged "
+                         "engine, naive read): the first N visible CUDA "
+                         "devices, or N shards on --device")
+    ap.add_argument("--shard-kv-seq", action="store_true",
+                    help="with --mesh: also shard the gathered decode KV "
+                         "sequence over 'model' and merge via the "
+                         "LSE-combine collective")
     return ap
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = parser()
     args = ap.parse_args(argv)
-    for flags, kw, item in LATER:
-        dest = kw.get("dest", flags[0].lstrip("-").replace("-", "_"))
-        if getattr(args, dest) != kw.get("default",
-                                         kw.get("action") == "store_false"):
-            ap.error(f"{flags[0]} is not in the port yet: ROADMAP queue 1 "
-                     f"{item}")
-    device = resolve_device(args.device)
+    mesh = None if args.mesh <= 1 else MeshConfig(
+        model=args.mesh, shard_kv_seq=args.shard_kv_seq)
+    if mesh is not None:
+        # the shards: N visible cards (fewer raise), or N on --device
+        shards = make_serving_mesh(mesh, None if args.device is None
+                                   else [args.device] * args.mesh).devices
+        device = resolve_device(shards[0])
+    else:
+        shards = None
+        device = resolve_device(args.device)
     cfg = get_config(args.arch)
     latest = None if args.ckpt_dir is None \
         else checkpoint.latest_step(args.ckpt_dir)
@@ -209,7 +216,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                        block_size=args.block_size,
                        prefill_chunk=args.prefill_chunk, policy=args.policy,
                        attn_backend=args.attn_backend, async_cfg=async_cfg,
-                       obs=obs)
+                       obs=obs, mesh=mesh)
     dcfg = None if not args.disagg else DisaggConfig(
         prefill_batch=args.disagg_prefill_batch,
         prefill_blocks=args.disagg_prefill_blocks,
@@ -219,11 +226,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         repetition_penalty=args.repetition_penalty,
                         seed=args.seed)
     if fleet:
-        return _serve_fleet(args, cfg, params, scfg, dcfg, sp, device)
+        return _serve_fleet(args, cfg, params, scfg, dcfg, sp, device,
+                            shards)
     if dcfg is not None:
-        eng = DisaggCoordinator(cfg, params, scfg, dcfg=dcfg, device=device)
+        eng = DisaggCoordinator(cfg, params, scfg, dcfg=dcfg,
+                                device=list(shards) if shards else device)
     else:
-        eng = Engine(cfg, params, scfg, device=device)
+        eng = Engine(cfg, params, scfg,
+                     device=list(shards) if shards else device)
     server = None
     if args.metrics_port:
         server = _metrics_server(lambda: eng.metrics.registry,
@@ -272,6 +282,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 "tpot_p99_steady_ms": s["tpot_p99_steady_ms"],
                 "tpot_p99_prefill_overlap_ms":
                     s["tpot_p99_prefill_overlap_ms"]})
+        if mesh is not None:
+            out["mesh"] = s["mesh"]
+            out["kv_pool_per_shard_bytes"] = \
+                s["kv_pool"]["per_shard_capacity_bytes"]
         if spec is not None:
             out.update({
                 "spec_steps": s["spec_steps"],
@@ -302,13 +316,14 @@ def _metrics_server(registry_fn, port: int):
     return server
 
 
-def _serve_fleet(args, cfg, params, scfg, dcfg, sp, device) -> dict:
+def _serve_fleet(args, cfg, params, scfg, dcfg, sp, device,
+                 shards=None) -> dict:
     """``--replicas N``: N replicas (disagg pools under ``--disagg``)
     behind the router; request i joins session ``demo-{i % (n // 2)}``.
     Prints and returns the fleet's summary."""
     router = build_fleet(cfg, params, scfg, n_replicas=args.replicas,
                          policy=args.router_policy, disagg=dcfg,
-                         device=device)
+                         device=list(shards) if shards else device)
     server = None
     if args.metrics_port:
         server = _metrics_server(lambda: router.registry, args.metrics_port)

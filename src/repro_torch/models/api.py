@@ -99,12 +99,14 @@ class Model:
                          dtype: torch.dtype = torch.float32,
                          device: Optional[Union[str, torch.device]] = None,
                          int8_kv: bool = False,
-                         max_width: Optional[int] = None) -> dict:
+                         max_width: Optional[int] = None,
+                         kv_heads: Optional[int] = None) -> dict:
         return transformer.init_paged_cache(self.cfg, batch, n_blocks,
                                             block_size, max_blocks_per_seq,
                                             dtype=dtype, device=device,
                                             int8_kv=int8_kv,
-                                            max_width=max_width)
+                                            max_width=max_width,
+                                            kv_heads=kv_heads)
 
     def forward_step(self, params, tokens, cache, n_valid, is_prefill,
                      block_size: int, backend: str = "naive",

@@ -1,6 +1,9 @@
 """Multi-head attention (MHA/GQA) with a KV cache: the contiguous slot
 cache (prefill and single-token decode) and the paged serving step; the
-projections take qwen2.5's QKV bias and qwen3's per-head qk-norm."""
+projections take qwen2.5's QKV bias and qwen3's per-head qk-norm. Under
+an activation-sharding scope (dist.sharding) the paged step runs tensor
+parallel: each shard computes its own heads against its head slice of
+the block pool."""
 
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding
 from repro_torch.kernels import ops, ref
 from repro_torch.models import flash, layers, rope
 from repro_torch.serve import kv_cache
@@ -41,7 +45,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def init_paged_kv_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
                         dtype: torch.dtype, device: torch.device,
-                        int8_kv: bool = False) -> dict:
+                        int8_kv: bool = False,
+                        kv_heads: Optional[int] = None) -> dict:
     """Block-pool KV storage: requests own scattered fixed-size token
     blocks. Block index ``n_blocks`` is the invalid sentinel — writes
     through it drop, reads through it see nothing. (The serving cache
@@ -50,8 +55,9 @@ def init_paged_kv_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
 
     ``int8_kv``: 1 byte per element plus one f32 scale per (token, head)
     for each of K and V (the ``kv_cache.quantize_kv`` layout), as
-    ``paged_kv.kv_bytes_per_token`` counts it."""
-    shape = (n_blocks, block_size, cfg.n_kv_heads, cfg.d_head)
+    ``paged_kv.kv_bytes_per_token`` counts it. ``kv_heads`` (default the
+    config's) is a shard's head slice of a KV-head-sharded pool."""
+    shape = (n_blocks, block_size, kv_heads or cfg.n_kv_heads, cfg.d_head)
     if not int8_kv:
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -67,17 +73,22 @@ def init_paged_kv_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """The q, k, v projections of x [B, S, d] per head, before RoPE: the
     bias (``qkv_bias``) after the products, the per-head RMS norm
-    (``qk_norm``) after the reshape."""
+    (``qk_norm``) after the reshape. Under an activation-sharding scope a
+    column-sharded projection runs once per shard and its blocks are
+    gathered on the home device (``sharding.colwise``); off-scope that is
+    ``x @ w + b``."""
     B, S, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = sharding.colwise(x, p["wq"], p.get("bq"))
+    k = sharding.colwise(x, p["wk"], p.get("bk"))
+    v = sharding.colwise(x, p["wv"], p.get("bv"))
     q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
-        q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = layers.head_rms_norm(q, sharding.whole(p["q_norm"]),
+                                 cfg.norm_eps)
+        k = layers.head_rms_norm(k, sharding.whole(p["k_norm"]),
+                                 cfg.norm_eps)
     return q, k, v
 
 
@@ -211,20 +222,16 @@ def attn_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     all-sentinel). Writes ``cache["k"]``/``cache["v"]`` in place (their
     trash size ``cache["trash_rows"]``) and returns the attention output
     [B, S, d]."""
+    scope = sharding.current_scope()
+    if scope is not None:
+        return _attn_step_paged_mesh(p, cfg, x, cos, sin, cache, lens,
+                                     n_valid, tables, block_size, scope[0],
+                                     scope[1])
     B, S, _ = x.shape
-    n_blocks = cache["k"].shape[0]
-    MB = tables.shape[1]
     q, k, v = _qkv(p, cfg, x)
     q = rope.apply_rope(q, cos, sin)
     k = rope.apply_rope(k, cos, sin)
-    j = torch.arange(S, device=x.device)
-    gpos = lens[:, None].long() + j[None, :]                 # [B, S]
-    col = (gpos // block_size).clamp(max=MB - 1)
-    blk = torch.gather(tables, 1, col)
-    blk = torch.where((j[None, :] < n_valid[:, None])
-                      & (gpos // block_size < MB), blk, n_blocks)
-    off = gpos % block_size
-    dst = _write_rows(blk, off, n_blocks, block_size, cache["trash_rows"])
+    dst = _step_rows(cache, lens, n_valid, tables, block_size, S)
     _store_paged(cache, "k", dst, k)
     _store_paged(cache, "v", dst, v)
     if backend == "flash":
@@ -237,3 +244,131 @@ def attn_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
                                    _read_paged(cache, "v", tables), lens)
     o = o.reshape(B, S, cfg.n_heads * cfg.d_head).to(x.dtype)
     return o @ p["wo"]
+
+
+def _step_rows(cache: dict, lens: torch.Tensor, n_valid: torch.Tensor,
+               tables: torch.Tensor, block_size: int, S: int
+               ) -> torch.Tensor:
+    """The slab rows (``_write_rows``) where a step's S positions a row
+    write their K/V: row b's position j at lens[b]+j through its table,
+    the padding past n_valid[b] and positions past the table at the
+    sentinel (the trash blocks)."""
+    n_blocks = cache["k"].shape[0]
+    MB = tables.shape[1]
+    j = torch.arange(S, device=lens.device)
+    gpos = lens[:, None].long() + j[None, :]                 # [B, S]
+    col = (gpos // block_size).clamp(max=MB - 1)
+    blk = torch.gather(tables, 1, col)
+    blk = torch.where((j[None, :] < n_valid[:, None])
+                      & (gpos // block_size < MB), blk, n_blocks)
+    off = gpos % block_size
+    return _write_rows(blk, off, n_blocks, block_size, cache["trash_rows"])
+
+
+def _kv_seq_mesh(seq_len: int, mesh, policy):
+    """The mesh where a single-token step's attention should run through
+    the LSE-combine collective: ``policy.shard_kv_seq``, a real 'model'
+    axis, and a gathered sequence that divides across it (the
+    reference's ``_kv_seq_scope``); None otherwise."""
+    if not policy.shard_kv_seq or "model" not in mesh.axis_names:
+        return None
+    msize = mesh.shape["model"]
+    if msize <= 1 or seq_len % msize != 0:
+        return None
+    return mesh
+
+
+def _shard_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, i: int, n: int):
+    """Shard i's q, k, v heads [B, S, H/n, Dh] before RoPE, from its
+    column blocks of wq/wk/wv (heads are contiguous columns, so with GQA
+    its q heads read its own KV heads); the bias contributes its block
+    of the columns, the per-head qk-norm weights are whole."""
+    B, S, _ = x.shape
+    out = []
+    for w, b, heads in (("wq", "bq", cfg.n_heads), ("wk", "bk", cfg.n_kv_heads),
+                        ("wv", "bv", cfg.n_kv_heads)):
+        wi = p[w].shards[i]
+        y = x.to(wi.device) @ wi
+        if cfg.qkv_bias:
+            c = wi.shape[-1]
+            y = y + sharding.column_block(p[b], i, i * c, (i + 1) * c
+                                          ).to(wi.device)
+        out.append(y.reshape(B, S, heads // n, cfg.d_head))
+    q, k, v = out
+    if cfg.qk_norm:
+        dev = q.device
+        q = layers.head_rms_norm(q, sharding.whole(p["q_norm"]).to(dev),
+                                 cfg.norm_eps)
+        k = layers.head_rms_norm(k, sharding.whole(p["k_norm"]).to(dev),
+                                 cfg.norm_eps)
+    return q, k, v
+
+
+def _attn_step_paged_mesh(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                          cos: torch.Tensor, sin: torch.Tensor, cache: dict,
+                          lens: torch.Tensor, n_valid: torch.Tensor,
+                          tables: torch.Tensor, block_size: int, mesh,
+                          policy) -> torch.Tensor:
+    """``attn_step_paged`` under an activation-sharding scope (the naive
+    read; the runner refuses the flash backend under a mesh, as the
+    reference does).
+
+    With a KV-head-sharded pool (its K/V leaves ``Sharded`` on axis 3),
+    shard i computes its contiguous heads from its column blocks of
+    wq/wk/wv, writes and reads only its head slice of every block, and
+    attends on its device; the heads' outputs are gathered on the home
+    device. A replicated pool (KV heads that do not divide) takes the
+    gathered q/k/v and attends once on the home device. With
+    ``shard_kv_seq`` a single-token step's gathered logical sequence
+    goes through ``lse_combine_decode_attention`` instead. Then o is
+    multiplied by the column-sharded wo and gathered again
+    (``constrain_tp_exact``), as the reference's
+    ``attention.attn_step_paged`` under exact_tp: no sum of partial
+    products anywhere."""
+    B, S, _ = x.shape
+    home = mesh.home
+    dst = _step_rows(cache, lens, n_valid, tables, block_size, S)
+    if isinstance(cache["k"], sharding.Sharded):
+        n = len(cache["k"].shards)
+        qs, kgs, vgs = [], [], []
+        for i in range(n):
+            q, k, v = _shard_qkv(p, cfg, x, i, n)
+            dev = q.device
+            c, s = cos.to(dev), sin.to(dev)
+            q, k = rope.apply_rope(q, c, s), rope.apply_rope(k, c, s)
+            part = {name: leaf.shards[i] for name, leaf in cache.items()
+                    if isinstance(leaf, sharding.Sharded)}
+            part["trash_rows"] = cache["trash_rows"]
+            d = dst.to(dev)
+            _store_paged(part, "k", d, k)
+            _store_paged(part, "v", d, v)
+            t = tables.to(dev)
+            qs.append(q)
+            kgs.append(_read_paged(part, "k", t))
+            vgs.append(_read_paged(part, "v", t))
+    else:
+        q, k, v = _qkv(p, cfg, x)
+        q = rope.apply_rope(q, cos, sin)
+        k = rope.apply_rope(k, cos, sin)
+        _store_paged(cache, "k", dst, k)
+        _store_paged(cache, "v", dst, v)
+        qs, kgs, vgs = [q], [_read_paged(cache, "k", tables)], \
+            [_read_paged(cache, "v", tables)]
+    kv_mesh = _kv_seq_mesh(kgs[0].shape[1], mesh, policy) if S == 1 \
+        else None
+    if kv_mesh is not None:
+        from repro_torch.dist.collectives import lse_combine_decode_attention
+        q = torch.cat([t.to(home) for t in qs], dim=2)
+        kg = torch.cat([t.to(home) for t in kgs], dim=2)
+        vg = torch.cat([t.to(home) for t in vgs], dim=2)
+        qg = q.reshape(B, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                       cfg.d_head)
+        o = lse_combine_decode_attention(kv_mesh, qg[:, 0], kg, vg,
+                                         lens + 1)[:, None]
+    else:
+        o = torch.cat([ref.gathered_attention(q, kg, vg, lens.to(q.device))
+                       .to(home) for q, kg, vg in zip(qs, kgs, vgs)], dim=2)
+    o = sharding.constrain_tp_exact(
+        o.reshape(B, S, cfg.n_heads * cfg.d_head).to(x.dtype))
+    return sharding.colwise(o, p["wo"])
+

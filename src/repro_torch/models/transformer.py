@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.models import attention, ffn, layers, moe, rope, ssm, xlstm
 
 ATTN_KINDS = ("attn", "shared_attn")
@@ -190,7 +191,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
                      dtype: torch.dtype = torch.float32,
                      device: Optional[Union[str, torch.device]] = None,
                      int8_kv: bool = False,
-                     max_width: Optional[int] = None) -> dict:
+                     max_width: Optional[int] = None,
+                     kv_heads: Optional[int] = None) -> dict:
     """Paged decode cache: one block pool per layer, stacked over units,
     plus per-slot block tables (sentinel-filled; serve.paged_kv assigns
     blocks). ``int8_kv`` stores int8 K/V with f32 per-(token, head)
@@ -206,7 +208,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
     ``cache["trash_rows"]`` is the trash's size in tokens: at least
     ``batch * max_width``, the entries of the widest step the caller
     makes (default: a step as wide as a sequence, ``max_blocks_per_seq *
-    block_size``). A wider step raises."""
+    block_size``). A wider step raises. ``kv_heads`` (default the
+    config's) makes one shard's head slice of a KV-head-sharded pool."""
     device = resolve_device(device)
     check_supported(cfg)
     unit = cfg.pattern_unit()
@@ -222,7 +225,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
     def pools():
         slabs = _stack([attention.init_paged_kv_cache(
             cfg, n_blocks + n_trash, block_size, dtype, device,
-            int8_kv=int8_kv) for _ in range(cfg.n_units)])
+            int8_kv=int8_kv, kv_heads=kv_heads)
+            for _ in range(cfg.n_units)])
         return {k: v[:, :n_blocks] for k, v in slabs.items()}
     return {"lens": torch.zeros(batch, dtype=torch.int32, device=device),
             "block_tables": torch.full((batch, max_blocks_per_seq), n_blocks,
@@ -240,7 +244,44 @@ def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     table and sum over nc), plus the frontend stub's embeddings where the
     config has that frontend and the caller gives them: [B, S', d] added
     to the first S' positions."""
-    emb = params["embed"]
+    parts = sharding.column_parts(params["embed"])
+    rows = sharding.row_parts(params["embed"])
+    if parts is not None:
+        # embed sharded on d: each shard gathers its columns
+        x = sharding.constrain_tp_exact([
+            _embed_tokens(e, cfg, tokens.to(e.device)) for e in parts])
+    elif rows is not None:
+        x = _embed_rows(rows, tokens)
+    else:
+        x = _embed_tokens(sharding.whole(params["embed"]), cfg, tokens)
+    stub = {"vision_stub": vision_embeds,
+            "audio_stub": audio_embeds}.get(cfg.frontend)
+    if stub is not None:
+        pad = x.shape[1] - stub.shape[1]
+        x = x + torch.nn.functional.pad(stub.to(x.dtype), (0, 0, 0, pad))
+    return x
+
+
+def _embed_rows(parts, tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup in a table split on its vocab rows (a tied embedding
+    under the serving layout), on the tokens' device: each shard looks up
+    every token in its block (clamped), and each token keeps the row of
+    the shard whose block holds it. A selection, so exact."""
+    x, lo = None, 0
+    t = tokens.long()
+    for e in parts:
+        n = e.shape[0]
+        y = e[(t.to(e.device) - lo).clamp(0, n - 1)].to(tokens.device)
+        x = y if x is None else torch.where(
+            ((t >= lo) & (t < lo + n))[..., None], y, x)
+        lo += n
+    return x
+
+
+def _embed_tokens(emb: torch.Tensor, cfg: ModelConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The token embedding of ``tokens`` from the table ``emb`` (or a
+    block of its columns)."""
     if cfg.n_codebooks:
         nc, V, d = emb.shape
         if tokens.dim() != 3 or tokens.shape[-1] != nc:
@@ -248,15 +289,8 @@ def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError(f"{cfg.name}: a codebook model takes tokens "
                              f"[B, S, {nc}], got {tuple(tokens.shape)}")
         idx = tokens.long() + V * torch.arange(nc, device=tokens.device)
-        x = emb.reshape(nc * V, d)[idx].sum(dim=2)
-    else:
-        x = emb[tokens.long()]
-    stub = {"vision_stub": vision_embeds,
-            "audio_stub": audio_embeds}.get(cfg.frontend)
-    if stub is not None:
-        pad = x.shape[1] - stub.shape[1]
-        x = x + torch.nn.functional.pad(stub.to(x.dtype), (0, 0, 0, pad))
-    return x
+        return emb.reshape(nc * V, d)[idx].sum(dim=2)
+    return emb[tokens.long()]
 
 
 def _positions(cfg: ModelConfig, lens: torch.Tensor, S: int,
@@ -470,12 +504,14 @@ def block_step_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
     rows, sparse gather for decode and verify rows), for an MoE block the
     routed experts over every row of the step, idle and padding rows
     included (so ``moe.capacity`` counts them, as the reference's)."""
-    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+    h = sharding.constrain_tp_exact(
+        layers.rms_norm(x, sharding.whole(p["norm1"]), cfg.norm_eps))
     x = x + attention.attn_step_paged(
         p["attn"], cfg, h, ctx["cos"], ctx["sin"], cache, ctx["lens"],
         ctx["n_valid"], ctx["tables"], ctx["block_size"],
         backend=ctx["backend"])
-    h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
+    h = sharding.constrain_tp_exact(
+        layers.rms_norm(x, sharding.whole(p["norm2"]), cfg.norm_eps))
     return x + _ffn_or_moe(
         p, cfg, h, lambda fp, c, y: ffn.ffn_step(
             fp, c, y, ctx["is_prefill"], has_prefill=ctx["has_prefill"]))
@@ -494,10 +530,27 @@ def project_logits(params: dict, cfg: ModelConfig,
     matrix is widened to f32 one slice of columns at a time (exact), so
     the logits are never rounded to bf16 and no f32 copy of the matrix
     outlives the call."""
+    if cfg.n_codebooks or not cfg.tie_embeddings:
+        parts = sharding.column_parts(params["head"])
+        if parts is not None:
+            # the vocab-sharded head: each shard's logits, concatenated
+            return sharding.constrain_tp_exact(
+                [_project_head(x.to(h.device), h, cfg) for h in parts])
+        return _project_head(x, sharding.whole(params["head"]), cfg)
+    rows = sharding.row_parts(params["embed"])
+    if rows is not None:
+        # a tied embedding split on its vocab rows: each shard's logits,
+        # concatenated
+        return sharding.constrain_tp_exact(
+            [_project(x.to(e.device), e.t()) for e in rows])
+    return _project(x, sharding.whole(params["embed"]).t())
+
+
+def _project_head(x: torch.Tensor, head: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
     if cfg.n_codebooks:
-        return torch.stack([_project(x, w) for w in params["head"]], dim=2)
-    return _project(x, params["embed"].t() if cfg.tie_embeddings
-                    else params["head"])
+        return torch.stack([_project(x, w) for w in head], dim=2)
+    return _project(x, head)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -576,7 +629,11 @@ def forward_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     A codebook model's tokens are [B, S, nc]. M-RoPE positions are text
     only (three equal channels), as the reference's step sets them.
     Returns logits f32[B, S, V] (or [B, S, nc, V])."""
-    x = _embed_inputs(params, cfg, tokens)
+    if sharding.current_scope() is not None and "moe" in cfg.pattern_unit():
+        raise NotImplementedError(
+            f"{cfg.name}: sharded MoE (expert parallel) is not in the port: "
+            f"ROADMAP item 9b serves attention + FFN stacks under a mesh")
+    x = sharding.constrain_tp_exact(_embed_inputs(params, cfg, tokens))
     S = tokens.shape[1]
     lens = cache["lens"]
     positions = _positions(cfg, lens, S)
@@ -597,8 +654,10 @@ def forward_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 else _index(params["units"][f"b{j}"], i)
             layer = dict(_index(cache["units"][f"b{j}"], i),
                          trash_rows=cache["trash_rows"])
-            x = block_step_paged(p, cfg, x, ctx, layer)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x = sharding.constrain_residual(
+                block_step_paged(p, cfg, x, ctx, layer))
+    x = sharding.constrain_tp_exact(
+        layers.rms_norm(x, params["final_norm"], cfg.norm_eps))
     return project_logits(params, cfg, x)
 
 

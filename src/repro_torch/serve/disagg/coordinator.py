@@ -43,13 +43,12 @@ set.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.configs.base import DisaggConfig, ModelConfig, ServeConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import Devices, resolve_device
 from repro_torch.obs import make_tracer
 from repro_torch.serve.engine import Engine, _to
 from repro_torch.serve.metrics import _ms, percentile
@@ -207,8 +206,11 @@ class DisaggCoordinator:
     def __init__(self, cfg: ModelConfig, params: dict, scfg: ServeConfig,
                  dcfg: Optional[DisaggConfig] = None, drafter=None,
                  draft_params: Optional[dict] = None,
-                 device: Optional[Union[str, torch.device]] = None):
-        self.device = resolve_device(device)
+                 device: Devices = None):
+        # under scfg.mesh ``device`` is the shards' sequence, which both
+        # engines take; the params move to its first (home) device
+        shards = list(device) if isinstance(device, (list, tuple)) else None
+        self.device = resolve_device(shards[0] if shards else device)
         if not scfg.paged:
             raise ValueError("disaggregated serving requires the paged "
                              "engine (ServeConfig.paged=True): the handoff "
@@ -229,9 +231,10 @@ class DisaggCoordinator:
             scfg, spec=None,
             max_batch=self.dcfg.prefill_batch or scfg.max_batch,
             n_kv_blocks=self.dcfg.prefill_blocks or scfg.n_kv_blocks)
-        self.prefill = Engine(cfg, params, pre_scfg, device=self.device,
+        self.prefill = Engine(cfg, params, pre_scfg,
+                              device=shards or self.device,
                               tracer=self.tracer)
-        self.decode = Engine(cfg, params, scfg, device=self.device,
+        self.decode = Engine(cfg, params, scfg, device=shards or self.device,
                              drafter=drafter, draft_params=draft_params,
                              tracer=self.tracer)
         self._requests: Dict[int, Request] = {}

@@ -45,23 +45,28 @@ The paged engine also carries the disagg handoff seam (serve.disagg):
 ``adopt_handoff`` (on the decode engine) and ``release_handoff`` move it,
 its KV blocks copied in place by ``ModelRunner.import_blocks_from``.
 
-Sharded serving is a later slice of the port: asking for it raises
-``NotImplementedError`` (or ``ValueError`` where the reference's slot
-mode refuses it too).
+Sharded serving (``ServeConfig.mesh``, paged mode): the weights and the
+KV-head-sharded block pool live on a mesh of shards (launch.mesh), one
+``torch.device`` a shard, devices given by the ``device`` argument as a
+sequence or the visible CUDA devices. The runner is the mesh-aware
+boundary; everything host-side (scheduler, pool, prefix index) never sees
+the mesh. The slot engine refuses a mesh, as the reference's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import spec as spec_mod
 from repro_torch.configs.base import ModelConfig, ServeConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import Devices, resolve_device
+from repro_torch.dist.sharding import ShardingPolicy
+from repro_torch.launch.mesh import make_serving_mesh, mesh_info
 from repro_torch.models import Model
 from repro_torch.obs import ServingProfiler, make_tracer
 from repro_torch.serve import (kv_cache, metrics as metrics_mod, paged_kv,
@@ -108,13 +113,6 @@ def _paged_only(scfg: ServeConfig) -> List[str]:
          scfg.mesh is not None and scfg.mesh.n_devices > 1)) if on]
 
 
-def _unsupported(scfg: ServeConfig) -> List[str]:
-    """The ServeConfig features outside this slice that ``scfg`` asks
-    for."""
-    return [name for name, on in (
-        ("mesh", scfg.mesh is not None and scfg.mesh.n_devices > 1),) if on]
-
-
 class Engine:
     """The serving front door: host-side policy over one ModelRunner
     (paged mode) or over the slot cache (slot mode, the default).
@@ -123,10 +121,15 @@ class Engine:
     work with ``add_request(Request)`` (or the batch loop ``run``),
     advance with ``step()`` — one tick = at most one batched device step
     — and read results off ``Request.tokens_out`` / ``metrics.summary()``.
-    ``device`` defaults to CUDA; the params move there."""
+    ``device`` defaults to CUDA; the params move there. Under
+    ``scfg.mesh`` (more than one device) ``device`` is a sequence of
+    devices, one a shard (repeats allowed: ``["cuda:0"] * 4``), or None
+    for the visible CUDA devices (``launch.mesh.make_serving_mesh``,
+    which raises when there are fewer); the whole params live on the
+    mesh's home device and the runner places its shards."""
 
     def __init__(self, cfg: ModelConfig, params: dict, scfg: ServeConfig,
-                 device: Optional[Union[str, torch.device]] = None,
+                 device: Devices = None,
                  drafter=None, draft_params: Optional[dict] = None,
                  tracer=None):
         """``scfg.spec`` turns on speculative decoding (paged mode only).
@@ -135,15 +138,14 @@ class Engine:
         the small model for spec.drafter='model'; they move to
         ``device``). ``tracer`` injects a shared obs.Tracer; otherwise one
         is made from ``scfg.obs`` (the no-op NULL_TRACER by default)."""
-        self.device = resolve_device(device)
         paged_only = [] if scfg.paged else _paged_only(scfg)
         if paged_only:
             raise ValueError(f"{', '.join(paged_only)} requires the paged "
                              f"engine (paged=True)")
-        missing = _unsupported(scfg)
-        if missing:
-            raise NotImplementedError(
-                f"not in this slice of the port: {', '.join(missing)}")
+        self.scfg = scfg
+        self.mesh = self._make_mesh(device)
+        self.device = resolve_device(device) if self.mesh is None \
+            else self.mesh.home
         if scfg.spec is not None and (cfg.n_codebooks or cfg.mrope):
             raise ValueError(
                 f"{cfg.name}: speculative decode supports plain token "
@@ -153,7 +155,6 @@ class Engine:
                 f"{cfg.name}: prefix caching keys on plain token-id "
                 f"streams (no codebooks / M-RoPE)")
         self.cfg = cfg
-        self.scfg = scfg
         self.model = Model(cfg)
         self.params = _to(params, self.device)
         # tracing (repro_torch.obs): the instrumented tick path calls
@@ -237,6 +238,7 @@ class Engine:
             self.metrics.pool = self.pool
             self.metrics.prefix = self.prefix
             self.pool.reset_counters()
+            self.metrics.mesh = self._mesh_summary()
             if self.prefix is not None:
                 self.prefix.reset_counters()
 
@@ -404,10 +406,19 @@ class Engine:
         self.prefix = RadixPrefixCache(self.pool) if scfg.prefix_cache \
             else None                          # registers as pool.index
         self.sched = Scheduler(scfg, self.pool, prefix=self.prefix)
+        if self.mesh is not None:
+            # KV heads shard over 'model' only when they divide; weights
+            # shard independently, so an indivisible head count degrades
+            # the POOL to replicated without turning sharded serving off
+            msize = self.mesh.shape["model"]
+            self.pool.model_shards = \
+                msize if self.cfg.n_kv_heads % msize == 0 else 1
         self.metrics.pool = self.pool
         self.metrics.prefix = self.prefix
+        self.metrics.mesh = self._mesh_summary()
         self.runner = ModelRunner(self.model, self.params, scfg,
-                                  self.device, tracer=self.tracer)
+                                  self.device, tracer=self.tracer,
+                                  mesh=self.mesh, policy=self._policy)
         if scfg.obs.profile:
             # roofline attainment (obs.profile): the static cost per
             # bucket, from shapes, joins the ticks' device time
@@ -432,6 +443,46 @@ class Engine:
             self._draft_w_per_step = self.drafter.weight_bytes_per_step(
                 scfg)
             self._draft_steps_seen = 0
+        if self.mesh is not None:
+            # the runner's shards are the weights: no whole copy stays on
+            # the home device (a self-speculative drafter holds its own)
+            self.params = None
+
+    def _make_mesh(self, device):
+        """Materialize ServeConfig.mesh into a launch.mesh.Mesh and the
+        exact_tp ShardingPolicy (None and None when unsharded). The mesh
+        threads engine -> runner; everything host-side never sees it."""
+        self._policy = None
+        mcfg = self.scfg.mesh
+        if mcfg is None or mcfg.n_devices <= 1:
+            return None
+        if mcfg.data > 1:
+            raise ValueError(
+                "MeshConfig.data > 1 is reserved: the serving runner "
+                "does not batch-shard step inputs yet, so extra data-"
+                "axis devices would only replicate identical work")
+        if isinstance(device, (str, torch.device)):
+            raise ValueError(
+                f"ServeConfig.mesh asks for {mcfg.n_devices} devices: pass "
+                f"device as a sequence of {mcfg.n_devices} devices (repeats "
+                f"allowed), or None for the visible CUDA devices")
+        # exact_tp: the bit-reproducible layout (every collective a
+        # concatenation)
+        self._policy = ShardingPolicy(shard_kv_seq=mcfg.shard_kv_seq,
+                                      exact_tp=True)
+        mesh = make_serving_mesh(mcfg, device)
+        for dev in mesh.devices:
+            resolve_device(dev)        # a CUDA shard without a card raises
+        return mesh
+
+    def _mesh_summary(self) -> dict:
+        if getattr(self, "mesh", None) is None:
+            return {}
+        info = mesh_info(self.mesh)
+        info["kv_pool_shards"] = self.pool.model_shards
+        info["shard_kv_seq"] = bool(self._policy
+                                    and self._policy.shard_kv_seq)
+        return info
 
     def _accept_rng(self, rid: int, sp: sampling.SamplingParams
                     ) -> np.random.Generator:
@@ -913,11 +964,10 @@ class Engine:
             fin = self._reconcile_pending()
             self._async_stats["sync_ticks"] += 1
             return pre + fin + self._tick_paged()
-        if acfg.max_device_ticks > 1:
+        if acfg.max_device_ticks > 1 and self.mesh is None:
             # loop mode wants committed state: flush the pending overlap
-            # tick, drop rows it finished, then burst on the device (the
-            # reference also keeps sharded engines out of loop mode: the
-            # port has no mesh yet)
+            # tick, drop rows it finished, then burst on the device (a
+            # sharded engine keeps loop mode off, as the reference's)
             fin = self._reconcile_pending()
             rows = [e for e in rows
                     if self.sched.active.get(e.req.rid) is e]

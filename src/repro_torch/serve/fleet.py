@@ -30,12 +30,11 @@ serve.router; the two touch only through the small Replica surface
 from __future__ import annotations
 
 import enum
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
-import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import Devices, resolve_device
 from repro_torch.dist import elastic
 from repro_torch.serve.api import StreamingServer
 from repro_torch.serve.engine import Engine, _to
@@ -126,13 +125,16 @@ class Fleet:
     can serve any request and the router's admissibility check holds
     fleet-wide. ``device`` defaults to CUDA (every replica's engine lives
     there; without a card it raises, asking for ``device="cpu"``); the
-    params move there once. ``engine_factory`` builds a replica's backend
-    instead (build_fleet passes a disagg coordinator's)."""
+    params move there once. Replicas of a ``scfg.mesh`` take ``device``
+    as a sequence of devices, one a shard, the first the home device.
+    ``engine_factory`` builds a replica's backend instead (build_fleet
+    passes a disagg coordinator's)."""
 
     def __init__(self, cfg, params, scfg, n_replicas: int = 1,
                  engine_factory: Optional[Callable[[], Engine]] = None,
-                 device: Optional[Union[str, torch.device]] = None):
-        self.device = resolve_device(device)
+                 device: Devices = None):
+        shards = list(device) if isinstance(device, (list, tuple)) else None
+        self.device = resolve_device(shards[0] if shards else device)
         if not scfg.paged:
             raise ValueError("the serving fleet routes over paged engines "
                              "(ServeConfig.paged=True): the slot engine "
@@ -142,7 +144,8 @@ class Fleet:
         self.params = _to(params, self.device)
         self.scfg = scfg
         self._factory = engine_factory or (
-            lambda: Engine(cfg, self.params, scfg, device=self.device))
+            lambda: Engine(cfg, self.params, scfg,
+                           device=shards or self.device))
         self.replicas: Dict[int, Replica] = {}
         self.stopped: Dict[int, Replica] = {}
         self._next_id = 0
@@ -221,12 +224,21 @@ class Fleet:
         return victims
 
     def reshard_surviving(self) -> int:
-        """Re-pin each surviving mesh-sharded replica's params; returns the
-        replicas resharded. The port's engines serve one device and carry
-        no mesh, so there is nothing to move: 0, as the reference returns
-        for meshless replicas (resharding comes with multi-device
-        serving)."""
-        return 0
+        """Re-place each surviving mesh-sharded replica's weights with
+        ``dist.elastic.reshard_params`` (pure data movement; values kept
+        exactly) under the engine's own policy: the runner's placed params
+        are replaced, the engine's whole ones stay. Meshless replicas
+        have nothing to move. Returns the replicas resharded."""
+        n = 0
+        for rep in self.live():
+            mesh = getattr(rep.engine, "mesh", None)
+            if mesh is None:
+                continue
+            runner = rep.engine.runner
+            runner.params = elastic.reshard_params(
+                runner.params, self.cfg, mesh, policy=rep.engine._policy)
+            n += 1
+        return n
 
     # --- introspection -----------------------------------------------------
     def health(self) -> Dict[int, dict]:

@@ -223,6 +223,7 @@ class MetricsCollector:
         self._c_savings = r.counter("traffic_sparse_savings_bytes_total")
         self._pool = None            # PagedKVCache (paged engine)
         self._prefix = None          # RadixPrefixCache (prefix_cache)
+        self._mesh: dict = {}        # sharded serving: launch.mesh info
         self._profiler = None        # obs.ServingProfiler (obs.profile)
         self.tracer = None           # obs.Tracer, set by the engine
         self._t0: Optional[float] = None
@@ -254,6 +255,19 @@ class MetricsCollector:
         self._prefix = prefix
         if prefix is not None:
             self.registry.gauge_group("prefix_index", prefix.stats)
+
+    @property
+    def mesh(self) -> dict:
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, info: dict) -> None:
+        """Sharded serving's ``launch.mesh.mesh_info`` plus
+        ``kv_pool_shards`` and ``shard_kv_seq`` (the engine's); a
+        non-empty one joins the registry as the "mesh" gauge group."""
+        self._mesh = info
+        if info:
+            self.registry.gauge_group("mesh", lambda: self._mesh)
 
     @property
     def profiler(self):
@@ -498,8 +512,9 @@ class MetricsCollector:
             "kv_pool": self.pool.stats() if self.pool is not None else {},
             "prefix_index": (self.prefix.stats()
                              if self.prefix is not None else {}),
-            # sharded serving is a later slice: one device, no mesh
-            "mesh": {},
+            # sharded serving (ServeConfig.mesh): axes, shard count, the
+            # pool's KV-head shards; {} without a mesh
+            "mesh": self.mesh,
         }
         if self.tracer is not None and self.tracer.enabled:
             out["ticks"] = self.tracer.tick_summary()

@@ -54,12 +54,11 @@ import itertools
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import Devices, resolve_device
 from repro_torch.obs.registry import Registry
 from repro_torch.serve.engine import _to
 from repro_torch.serve.fleet import Fleet, Replica
@@ -483,15 +482,16 @@ class Router:
 
 def build_fleet(cfg, params, scfg, n_replicas: int = 2,
                 policy: str = "affinity", disagg=None,
-                device: Optional[Union[str, torch.device]] = None,
-                **router_kw) -> Router:
+                device: Devices = None, **router_kw) -> Router:
     """Fleet + Router in one call (what ``launch.serve --replicas N``
     uses). ``disagg`` (a configs.base.DisaggConfig) makes every replica a
     disaggregated prefill/decode pool (serve.disagg.DisaggCoordinator)
     instead of a single Engine: the coordinator has the Engine surface
     the Replica wraps, so routing, stickiness and drain work unchanged.
-    ``device`` defaults to CUDA, as Fleet's."""
-    device = resolve_device(device)
+    ``device`` defaults to CUDA, as Fleet's (a sequence of devices, one
+    a shard, for mesh replicas)."""
+    shards = list(device) if isinstance(device, (list, tuple)) else None
+    device = resolve_device(shards[0] if shards else device)
     params = _to(params, device)
     factory = None
     if disagg is not None:
@@ -499,7 +499,7 @@ def build_fleet(cfg, params, scfg, n_replicas: int = 2,
         factory = lambda: DisaggCoordinator(  # noqa: E731
             cfg, params, scfg, dcfg=disagg, device=device)
     return Router(Fleet(cfg, params, scfg, n_replicas=n_replicas,
-                        engine_factory=factory, device=device),
+                        engine_factory=factory, device=shards or device),
                   policy=policy, **router_kw)
 
 

@@ -26,6 +26,18 @@ for the hundreds of small launches of an eager step, as one jitted
 dispatch does in the reference. On the CPU the same iteration runs
 eagerly.
 
+Sharded serving (``mesh`` + ``policy``): the runner is the mesh-aware
+boundary. Weights are placed per ``dist.sharding.params_shardings`` and
+the block pool per ``cache_shardings(paged=True)``: its KV-head axis
+splits over 'model', each shard's slice a slab of its own (with trash
+blocks behind it) on its device. ``step`` runs ``forward_step`` under
+the activation-sharding scope. Everything above (engine, scheduler,
+paged_kv, prefix cache) sees the same host-side world as on one device:
+block ids, refcounts, COW pairs and tables are global, only the device
+bytes behind them are partitioned, so ``copy_blocks``, ``apply_perm`` and
+``import_blocks_from`` act on every shard's slice alike. A mesh runner
+runs its async ticks eagerly (no CUDA graph) and has no decode bursts.
+
 Under tracing (``tracer``, repro_torch.obs) every dispatch runs in a
 ``device_dispatch`` span and every wait for the device in a
 ``device_wait`` span, and a ``DeviceClock`` measures each step's device
@@ -37,6 +49,7 @@ wait is added.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ServeConfig
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import build
 from repro_torch.models import transformer
 from repro_torch.obs.trace import NULL_TRACER
@@ -184,10 +198,35 @@ class StepOutput:
 
 def _pool_leaves(cache: dict) -> Dict[str, torch.Tensor]:
     """Every block pool leaf of a paged cache, "b{j}/name" -> [n_units,
-    n_blocks, ...]: each block position of the pattern unit has its own
-    pools (an attention block and an MoE block in llama4-maverick's)."""
+    n_blocks, ...] (a tensor, or ``Sharded`` on the KV-head axis): each
+    block position of the pattern unit has its own pools (an attention
+    block and an MoE block in llama4-maverick's)."""
     return {f"{pos}/{name}": leaf for pos, pools in cache["units"].items()
             for name, leaf in pools.items()}
+
+
+def _pool_tensors(leaf) -> Tuple[torch.Tensor, ...]:
+    """The tensors behind a pool leaf: its shards, or the leaf itself."""
+    return leaf.shards if isinstance(leaf, shd.Sharded) else (leaf,)
+
+
+def _head_rows(leaf, idx: torch.Tensor, home: torch.device) -> torch.Tensor:
+    """Storage rows ``idx`` of pool leaf ``leaf`` ([U, n, bs, Kv, ...]),
+    every KV head, on ``home``: a sharded leaf's head slices
+    concatenated."""
+    return torch.cat([t[:, idx.to(t.device)].to(home)
+                      for t in _pool_tensors(leaf)], dim=3)
+
+
+def _set_head_rows(leaf, idx: torch.Tensor, rows: torch.Tensor) -> None:
+    """Write ``rows`` (every KV head) into storage rows ``idx`` of
+    ``leaf``, each shard its head slice."""
+    h0 = 0
+    for t in _pool_tensors(leaf):
+        h = t.shape[3]
+        t[:, idx.to(t.device)] = rows[:, :, :, h0:h0 + h].to(t.device,
+                                                             t.dtype)
+        h0 += h
 
 class ModelRunner:
     """Owns the device-side paged cache; the engine builds a StepBatch
@@ -196,7 +235,11 @@ class ModelRunner:
 
     def __init__(self, model, params: dict, scfg: ServeConfig,
                  device: torch.device, dtype: torch.dtype = torch.float32,
-                 tracer=None):
+                 tracer=None, mesh=None, policy=None):
+        """``mesh``/``policy`` (a launch.mesh.Mesh and a
+        dist.sharding.ShardingPolicy) turn on sharded serving: the params
+        and the block pool are placed on the mesh here, and ``device`` is
+        its home device. Single-device serving passes neither."""
         if scfg.attn_backend not in BACKENDS:
             raise ValueError(f"unknown attn_backend "
                              f"{scfg.attn_backend!r}; known: {BACKENDS}")
@@ -204,19 +247,25 @@ class ModelRunner:
             raise ValueError(
                 "attn_backend='flash' reads fp block pools; int8 KV "
                 "(kv_quant) needs the naive dequantizing gather")
+        if mesh is not None and scfg.attn_backend != "naive":
+            raise ValueError(
+                "sharded serving (ServeConfig.mesh) needs the shardable "
+                "attn_backend='naive' read path; the paged-attention "
+                "kernel addresses one device's pool")
         self.model = model
         self.cfg = model.cfg
-        self.params = params
         self.scfg = scfg
-        self.device = device
+        self.mesh = mesh
+        self.policy = policy if policy is not None else shd.ShardingPolicy()
+        self.device = device if mesh is None else mesh.home
+        self.params = params if mesh is None else shd.shard_tree(
+            params, shd.params_shardings(params, self.cfg, mesh,
+                                         self.policy), mesh)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.buckets = sorted({1, scfg.prefill_chunk}
                               | ({scfg.spec.k_max + 1}
                                  if scfg.spec is not None else set()))
-        self.cache = model.init_paged_cache(
-            scfg.max_batch, scfg.pool_blocks, scfg.block_size,
-            scfg.blocks_per_seq, dtype=dtype, device=device,
-            int8_kv=scfg.kv_quant, max_width=max(self.buckets))
+        self.cache = self._init_cache(model, dtype)
         self.n_steps = 0            # device steps dispatched (async
         #                             engines add burst iterations on top)
         self._layouts: Dict[int, _Layout] = {}
@@ -224,13 +273,70 @@ class ModelRunner:
         self.graph_captures = 0
         self.graph_replays = 0
         acfg = scfg.async_cfg
-        if acfg is not None and acfg.enabled and device.type == "cuda" \
-                and not self.cfg.n_codebooks:
+        if acfg is not None and acfg.enabled and self.device.type == "cuda" \
+                and mesh is None and not self.cfg.n_codebooks:
             # capture both graphs now, so their warm-up launches happen
             # before the engine serves (a codebook model's ticks are all
             # synchronous: the engine's async gate refuses them)
             for sampled in (False, True):
                 self._burst(sampled, acfg.max_device_ticks)
+
+    def _init_cache(self, model, dtype: torch.dtype) -> dict:
+        """The paged cache on the device, or under a mesh placed per
+        ``cache_shardings(paged=True)``: a KV-head-sharded pool is made
+        shard by shard (each shard's slice a slab with its trash blocks,
+        on its device); lens and tables stay on the home device."""
+        scfg = self.scfg
+        args = (scfg.max_batch, scfg.pool_blocks, scfg.block_size,
+                scfg.blocks_per_seq)
+        kw = dict(dtype=dtype, int8_kv=scfg.kv_quant,
+                  max_width=max(self.buckets))
+        mesh = self.mesh
+        if mesh is None:
+            return model.init_paged_cache(*args, device=self.device, **kw)
+        fn = shd.cache_shardings(self.cfg, mesh, scfg.max_batch,
+                                 policy=self.policy, paged=True)
+        specs = shd.map_with_path(fn, model.init_paged_cache(
+            *args, device="meta", **kw))
+        head_sharded = any(shd.MODEL_AXIS in spec
+                           for pools in specs["units"].values()
+                           for spec in pools.values())
+        if not head_sharded:
+            return model.init_paged_cache(*args, device=self.device, **kw)
+        n = mesh.size
+        parts = [model.init_paged_cache(
+            *args, device=dev, kv_heads=self.cfg.n_kv_heads // n, **kw)
+            for dev in mesh.devices]
+        cache = parts[0]
+        cache["units"] = {pos: {name: shd.Sharded(
+            [p["units"][pos][name] for p in parts], specs["units"][pos][name],
+            leaf.shape[:3] + (self.cfg.n_kv_heads,) + leaf.shape[4:], mesh)
+            for name, leaf in pools.items()}
+            for pos, pools in parts[0]["units"].items()}
+        return cache
+
+    def check_cache_layout(self) -> None:
+        """Under a mesh, every shard of every pool leaf stays on its
+        device at its slice's shape (the reference re-pins its sharding
+        after an eager block op; here the ops write in place, so this
+        checks that nothing rebound a shard)."""
+        if self.mesh is None:
+            return
+        for name, leaf in _pool_leaves(self.cache).items():
+            if not isinstance(leaf, shd.Sharded):
+                continue
+            for i, t in enumerate(leaf.shards):
+                want = tuple(s.stop - s.start for s in leaf.slices(i))
+                if t.device != self.mesh.devices[i] or tuple(t.shape) != want:
+                    raise AssertionError(
+                        f"pool leaf {name} shard {i}: {tuple(t.shape)} on "
+                        f"{t.device}, want {want} on {self.mesh.devices[i]}")
+
+    def _scope(self):
+        """The activation-sharding scope of a mesh runner's steps."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return shd.activation_sharding_scope(self.mesh, self.policy)
 
     def width_for(self, max_valid: int) -> int:
         """Smallest bucket covering ``max_valid`` tokens per row."""
@@ -318,7 +424,7 @@ class ModelRunner:
             self.cache["lens"] = t["lens"]
             self.cache["block_tables"] = t["tables"]
             n_valid = t["n_valid"]
-            with torch.no_grad():
+            with torch.no_grad(), self._scope():
                 logits = self.model.forward_step(
                     self.params, t["tokens"], self.cache, n_valid,
                     t["is_prefill"], self.scfg.block_size,
@@ -378,12 +484,12 @@ class ModelRunner:
                 return sampler.device_call(last, None, None, None, None,
                                            None, None, greedy_only=True)
         st = self._bursts[key] = _Burst(layout, buf, state, sample_fn)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.mesh is None:
             self._capture(st)
         return st
 
     def _iteration(self, st: _Burst) -> None:
-        with torch.no_grad():
+        with torch.no_grad(), self._scope():
             transformer.decode_iteration(
                 self.params, self.cfg, st.state, st.sample_fn,
                 self.scfg.block_size, self.scfg.attn_backend)
@@ -458,6 +564,9 @@ class ModelRunner:
         replays (an iteration after every row is dead changes nothing).
         Returns the host copy, in flight, of (emitted i32[B, k_max], lp
         f32[B, k_max], n_emit i32[B])."""
+        assert self.mesh is None, \
+            "decode_burst is single-device (the async engine keeps loop " \
+            "mode off under ServeConfig.mesh)"
         st = self._burst(sampled, k_max)
         self._stage_burst(st, tables, tok0, lens0, alive0, budget, stops,
                           stop_len, hist0, keys, temp, top_k, top_p)
@@ -504,7 +613,9 @@ class ModelRunner:
         p = self._stage(_Layout((("perm", torch.int64, perm.shape),)),
                         {"perm": perm})["perm"]
         for leaf in _pool_leaves(self.cache).values():
-            leaf.copy_(leaf.index_select(1, p))
+            for t in _pool_tensors(leaf):
+                t.copy_(t.index_select(1, p.to(t.device)))
+        self.check_cache_layout()
 
     def copy_blocks(self, pairs: List[Tuple[int, int]]) -> None:
         """Copy-on-write: duplicate pool storage rows src -> dst across
@@ -520,7 +631,9 @@ class ModelRunner:
             _Layout((("src", torch.int64, (n,)), ("dst", torch.int64, (n,)))),
             {"src": [a for a, _ in pairs], "dst": [b for _, b in pairs]})
         for leaf in _pool_leaves(self.cache).values():
-            leaf[:, idx["dst"]] = leaf[:, idx["src"]]
+            for t in _pool_tensors(leaf):
+                t[:, idx["dst"].to(t.device)] = t[:, idx["src"].to(t.device)]
+        self.check_cache_layout()
 
     def import_blocks_from(self, src: "ModelRunner", src_ids: Sequence[int],
                            dst_ids: Sequence[int]) -> None:
@@ -531,11 +644,13 @@ class ModelRunner:
         matters: an async engine's captured decode graph holds this pool's
         addresses, so a rebound pool would be a stale read at the next
         replay. Both ids lie in the pools proper, never in the trash
-        blocks behind them. Both runners must be on one device (peer
-        copies between cards come with multi-device serving)."""
+        blocks behind them. Two meshless runners must be on one device; a
+        handoff between runners with different meshes (or one with and
+        one without) reslices: the source's rows are gathered over its
+        KV heads and cut again for this pool's shards."""
         mine, theirs = _pool_leaves(self.cache), _pool_leaves(src.cache)
         at = [next(iter(pool.values())).device for pool in (theirs, mine)]
-        if at[0] != at[1]:
+        if self.mesh is None and src.mesh is None and at[0] != at[1]:
             raise ValueError(f"import_blocks_from: source pool on {at[0]}, "
                              f"this pool on {at[1]}; both engines must "
                              f"share one device")
@@ -559,4 +674,11 @@ class ModelRunner:
             _Layout((("src", torch.int64, (n,)), ("dst", torch.int64, (n,)))),
             {"src": list(src_ids), "dst": list(dst_ids)})
         for name, leaf in mine.items():
-            leaf[:, idx["dst"]] = theirs[name][:, idx["src"]].to(leaf.dtype)
+            if isinstance(leaf, shd.Sharded) \
+                    or isinstance(theirs[name], shd.Sharded):
+                _set_head_rows(leaf, idx["dst"], _head_rows(
+                    theirs[name], idx["src"], self.device))
+            else:
+                leaf[:, idx["dst"]] = theirs[name][:, idx["src"]].to(
+                    leaf.dtype)
+        self.check_cache_layout()

@@ -98,18 +98,26 @@ def adam_init(params: Any) -> AdamState:
 
 
 @torch.no_grad()
+def adam_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+              v: torch.Tensor, lr: torch.Tensor, c1: torch.Tensor,
+              c2: torch.Tensor, cfg: TrainConfig):
+    """The fp32-moment AdamW step of one leaf (or of any block of it: the
+    step is elementwise) at the step's ``lr`` and bias corrections
+    (``_corrections``). Returns (p, m, v)."""
+    gf = g.float()
+    m2 = cfg.beta1 * m + (1 - cfg.beta1) * gf
+    v2 = cfg.beta2 * v + (1 - cfg.beta2) * gf * gf
+    return _apply(p, m2 / c1, v2 / c2, lr, cfg), m2, v2
+
+
+@torch.no_grad()
 def adam_update(params: Any, grads: Any, state: AdamState,
                 cfg: TrainConfig):
     step = state.step + 1
     lr, c1, c2 = _corrections(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
-    out = []
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
-                          leaves(state.v)):
-        gf = g.float()
-        m2 = b1 * m + (1 - b1) * gf
-        v2 = b2 * v + (1 - b2) * gf * gf
-        out.append((_apply(p, m2 / c1, v2 / c2, lr, cfg), m2, v2))
+    out = [adam_leaf(p, g, m, v, lr, c1, c2, cfg)
+           for p, g, m, v in zip(leaves(params), leaves(grads),
+                                 leaves(state.m), leaves(state.v))]
     return (unflatten(params, [o[0] for o in out]),
             AdamState(step=step, m=unflatten(params, [o[1] for o in out]),
                       v=unflatten(params, [o[2] for o in out])))

@@ -9,7 +9,9 @@ exactly to f32; 1e-4 for the fused FFN's two chained products, which its
 kernel runs as 3xTF32 on the tensor cores: ~2e-5 at d 2048). The W8A8
 matmul is exact: its kernel must equal its plain version bit for bit.
 Training: kernel 3's autograd rule at nectar's training shape, and three
-nectar train steps on the card against the CPU.
+nectar train steps on the card against the CPU. Multi-device: kernel 2
+on a shard's column block of W_down, and a model-2 mesh of shards on the
+card serving nectar's tokens.
 """
 
 import numpy as np
@@ -1148,3 +1150,63 @@ def test_nectar_trains_on_the_card_as_on_the_cpu(cuda):
                              params=params, log_every=1, device="cpu")
     for (s, a), (t, b) in zip(card["history"], cpu["history"]):
         assert s == t and abs(a["ce"] - b["ce"]) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_sparse_gather_kernel_at_a_shards_block(cuda, n):
+    """Kernel 2 on a model-n shard's contiguous [640, 128 / n] column
+    block of nectar's W_down (the sharded serve's call) against its plain
+    version, and the blocks' outputs concatenated equal to the whole
+    W_down's call."""
+    rng = np.random.default_rng(n)
+    B, k, d_ff, d = 8, 128, 640, 128
+    idx = np.stack([rng.permutation(d_ff)[:k] for _ in range(B)])
+    idx = np.where(rng.random((B, k)) < 0.1, d_ff, idx)
+    h = torch.tensor(rng.standard_normal((B, k)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.tensor(rng.standard_normal((d_ff, d)) * d_ff ** -0.5,
+                     dtype=torch.float32, device=cuda)
+    i = torch.tensor(idx, dtype=torch.int32, device=cuda)
+    c = d // n
+    parts = [w[:, j * c:(j + 1) * c].contiguous() for j in range(n)]
+    got = [sparse_ffn.sparse_gather_matvec(h, i, p) for p in parts]
+    want = [ref.sparse_gather_matvec_plain(h, i, p) for p in parts]
+    whole = sparse_ffn.sparse_gather_matvec(h, i, w)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(torch.cat(got, dim=1).cpu().numpy(),
+                               whole.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_model_2_mesh_serves_the_unsharded_tokens(cuda):
+    """nectar (seeded weights) through the paged engine's naive read,
+    unsharded and on a mesh of two shards on the card: the same greedy
+    tokens, and kernel 2 twice as many launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MeshConfig, ServeConfig
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import Request
+    cfg = get_config("nectar-relu-llama-1.7m")
+    params = Model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n), dtype=np.int32)
+               for n in (5, 23, 9, 14)]
+    out, launches = [], []
+    for mesh, device in ((None, cuda), (MeshConfig(model=2), [cuda] * 2)):
+        eng = Engine(cfg, params, ServeConfig(
+            paged=True, attn_backend="naive", max_batch=3, max_seq=64,
+            block_size=8, prefill_chunk=16, mesh=mesh), device=device)
+        n0 = ops.LAUNCHES["sparse_gather_matvec"]
+        done = eng.run([Request(rid=i, prompt=p, max_new=8)
+                        for i, p in enumerate(prompts)], max_steps=500)
+        torch.cuda.synchronize()
+        launches.append(ops.LAUNCHES["sparse_gather_matvec"] - n0)
+        out.append({i: [int(t) for t in r.tokens_out]
+                    for i, r in done.items()})
+    assert out[0] == out[1]
+    assert launches[1] == 2 * launches[0] > 0

@@ -68,8 +68,13 @@ TRAIN_FILES = ("train/__init__.py", "train/optimizer.py", "train/data.py",
                "tree.py")
 
 
+# the modules of the multi-device slice
+MESH_FILES = ("launch/mesh.py", "dist/sharding.py", "dist/collectives.py",
+              "dist/ring.py", "dist/elastic.py", "train/loop.py")
+
+
 @pytest.mark.parametrize("name", SLICE_FILES + RECURRENT_FILES
-                         + FAMILY_FILES + TRAIN_FILES)
+                         + FAMILY_FILES + TRAIN_FILES + MESH_FILES)
 def test_disagg_and_fleet_modules_import_no_jax(name):
     path = ROOT / "src" / "repro_torch" / name
     assert path in PORT_FILES
@@ -175,3 +180,30 @@ def test_active_chip_defaults_to_cuda_and_raises_without_it(no_card):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         hw.active_chip()
     assert hw.active_chip("cpu") is hw.CPU_HOST
+
+
+def test_mesh_entry_points_default_to_cuda_and_raise_without_it(no_card):
+    """make_serving_mesh, a sharded Engine with no device list, and a mesh
+    for compile_train_step made with no device list take the visible CUDA
+    devices and raise without a card; a device list runs them."""
+    from repro_torch.configs.base import MeshConfig, TrainConfig
+    from repro_torch.launch.mesh import make_mesh, make_serving_mesh
+    from repro_torch.train.loop import compile_train_step
+    cfg = get_config("nectar-relu-llama-smoke")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    mcfg = MeshConfig(model=2)
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        make_serving_mesh(mcfg)
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        Engine(cfg, params, ServeConfig(paged=True, mesh=mcfg))
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        make_mesh((1, 2), ("data", "model"))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Engine(cfg, params, ServeConfig(paged=True, mesh=mcfg),
+               device=["cuda:0"] * 2)
+    mesh = make_mesh((1, 2), ("data", "model"), ["cpu"] * 2)
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32)}
+    fn, _ = compile_train_step(cfg, TrainConfig(), mesh, params, None, batch)
+    assert callable(fn)
+    assert Engine(cfg, params, ServeConfig(paged=True, mesh=mcfg),
+                  device=["cpu"] * 2).mesh.devices[1].type == "cpu"

@@ -1,9 +1,10 @@
 """The port's serve CLI and the metrics summary it prints, on the CPU.
 
 ``python -m repro_torch.launch.serve --device cpu`` serves a SMOKE config
-end to end; ``--ckpt-dir`` serves the latest checkpoint's params; the
-reference CLI's flags of later slices are refused with the ROADMAP item
-that brings them; ``--spec ngram|selfspec`` serves
+end to end; ``--ckpt-dir`` serves the latest checkpoint's params;
+``--mesh`` without ``--paged`` is refused, as the reference's CLI
+refuses it (its serving is in tests/test_torch_mesh.py); ``--spec
+ngram|selfspec`` serves
 speculatively and ``--async`` through the async engine; ``--obs``,
 ``--trace-out``, ``--metrics-port`` and ``--profile`` add the reference
 CLI's output keys, and so do ``--disagg*``, ``--direct-max-suffix``,
@@ -71,15 +72,18 @@ def test_cli_main_in_process(argv):
     assert ("kv_pool_capacity_bytes" in s) == ("--kv-quant" in argv)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2"], "item 9"), (["--shard-kv-seq"], "item 9"),
+@pytest.mark.parametrize("flags,match", [
+    (["--mesh", "2"], "requires the paged engine"),
+    (["--mesh", "2", "--shard-kv-seq"], "requires the paged engine"),
 ])
-def test_cli_refuses_flags_of_later_slices(flags, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--device", "cpu", *flags])
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert flags[0] in err and f"ROADMAP queue 1 {item}" in err
+def test_cli_refuses_flags_of_later_slices(flags, match):
+    """``--mesh`` and ``--shard-kv-seq`` were refused as later slices'
+    flags before the multi-device slice. They are served now, through the
+    paged engine only: on the slot engine (no ``--paged``) a mesh is
+    refused with the engine's ValueError, as the reference's CLI does."""
+    with pytest.raises(ValueError, match=match):
+        cli.main(["--device", "cpu", "--arch", "nectar-relu-llama-smoke",
+                  *flags])
 
 
 def test_cli_serves_the_latest_checkpoint(tmp_path, capsys, monkeypatch):

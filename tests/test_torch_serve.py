@@ -173,8 +173,12 @@ def test_stop_sequences_and_max_tokens(nectar):
     dict(paged=True, mesh=MeshConfig(data=2)),
 ])
 def test_engine_raises_for_features_of_later_slices(nectar, scfg_kw):
+    """A mesh was refused here (NotImplementedError) before the
+    multi-device slice. Now a mesh of two shards needs a device per shard
+    (one device is refused), and data > 1 stays refused, as the
+    reference's engine refuses it."""
     _, _, tcfg, tparams = nectar
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="sequence of 2 devices|data > 1"):
         Engine(tcfg, tparams, ServeConfig(**scfg_kw), device="cpu")
 
 
