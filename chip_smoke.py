@@ -263,13 +263,32 @@ Phases, each reporting on lines of its own:
                its rounding scale), kernel 3 6 launches a
                data shard, w_up in 2 slices of [6, 128, 320];
                reshard_params (2, 2) -> (1, 2) bit-equal; a fleet of two
-               model-2 engines scaled down, reaped and resharded.
+               model-2 engines scaled down, reaped and resharded; (e)
+               the dry run of every (arch, shape) cell on the 256-chip
+               production mesh plan (launch.dryrun, counted from
+               shapes) and the analytic roofline (roofline.analysis
+               full_table) at the card's spec, on one "roofline:" line;
+               (f) moonshot-v1-smoke and llama4-maverick-smoke (phase
+               19's weights, the phase-5 prompts) f32 paged naive at
+               model 2 and model 4, each token-identical to the
+               unsharded card serve (so parting from the CPU where it
+               does), no kernel launched, the pool split where the KV
+               heads divide; (g) moonshot-v1-16b-a3b at full width, 2
+               layers, bf16 (phase 19 (e)'s weights and prompts) at
+               model 2 and model 4 against the unsharded naive card
+               serve: teacher-forced with its expert choices, logits
+               within phase 19's CPU-measured bf16 error and every
+               other choice a router near-tie; tokens its own, or
+               parting at a bf16 or router near-tie; tok/s and TPOT
+               p50 beside the unsharded serve's.
 It exits non-zero, printing no result, when there is no CUDA device or a
 check fails. Its last line is the result JSON; the line before it holds
 the per-kernel JSON. Details go to build/chip_smoke.json.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -2506,8 +2525,9 @@ def forced_route(logits, cfg, rec_logits, rec_table, rep):
     gates are this run's normalized top-k probabilities at those experts,
     the aux loss this run's. Adds to ``rep`` this run's k-th minus
     (k+1)-th logit wherever its own top-k differs from the forced
-    (``ties``), and the squared differences of the two runs' router
-    logits (``dsq`` over ``n``)."""
+    (``ties``; in ``call_ties`` each with the RMS of this call's
+    router-logit differences), and the squared differences of the two
+    runs' router logits (``dsq`` over ``n``)."""
     T, E = logits.shape
     k, dev = cfg.top_k, logits.device
     check(rec_logits.shape == (T, E) and rec_table.shape[0] == E,
@@ -2520,11 +2540,16 @@ def forced_route(logits, cfg, rec_logits, rec_table, rep):
     differ = (torch.sort(own, dim=-1).values
               != torch.sort(idx, dim=-1).values).any(-1).cpu().numpy()
     mine = logits.float().cpu().numpy()
-    rep["dsq"] += float(((mine - rec_logits) ** 2).sum())
+    dsq = float(((mine - rec_logits) ** 2).sum())
+    rep["dsq"] += dsq
     rep["n"] += mine.size
     if differ.any():
         z = np.sort(mine[differ], axis=-1)
-        rep["ties"].extend((z[:, -k] - z[:, -k - 1]).tolist())
+        gaps = (z[:, -k] - z[:, -k - 1]).tolist()
+        rep["ties"].extend(gaps)
+        call_rms = (dsq / mine.size) ** 0.5
+        rep.setdefault("call_ties", []).extend(
+            (gap, call_rms) for gap in gaps)
     vals = probs.gather(1, idx)
     vals = vals / vals.sum(-1, keepdim=True)
     full = torch.zeros((T + 1, E), dtype=torch.float32, device=dev)
@@ -2975,6 +3000,28 @@ def moe_device_share(make_engine, prompts, max_new):
     return moe_us / 1e3, total / 1e3
 
 
+# phase 19's full-width serves (name, layers kept, weight seed): qwen3-4b
+# at 12 of its 36 layers since phase 20 joined (the CPU runs of the full
+# depth took ~110 s of the script's time; at 4 layers the card's bf16
+# error passed the CPU's bound: PERF.md §7); phase 22 (g) serves
+# moonshot's weights and prompts again under a mesh
+FULL_WIDTH = (("qwen3-4b", 12, SEED + 21), ("moonshot-v1-16b-a3b", 2,
+                                            SEED + 22))
+
+
+def full_width_prompts():
+    """The prompts of FULL_WIDTH's serves, by name: 4 of 32-128 tokens
+    each, drawn in FULL_WIDTH's order from one seeded generator."""
+    from repro_torch.configs import get_config
+    frng = np.random.default_rng(SEED + 20)
+    out = {}
+    for name, _, _ in FULL_WIDTH:
+        vocab = get_config(name).vocab
+        out[name] = [frng.integers(0, vocab, int(n), dtype=np.int32)
+                     for n in frng.integers(32, 129, 4)]
+    return out
+
+
 def families_phase(dev, scfg, prompts, max_new):
     """Phase 19 ((b), kernel 1 at the new head groupings, is a phase-3
     row): (a) ``dispatch_phase``; (c) the four SMOKEs (qwen3-4b-smoke,
@@ -3053,13 +3100,8 @@ def families_phase(dev, scfg, prompts, max_new):
         # (d) qwen3-4b and (e) moonshot-v1-16b-a3b cut to 2 layers, bf16,
         # at full width: 4 prompts of 32-128 tokens, 16 new tokens each
         big_sc = dataclasses.replace(scfg, max_batch=4, max_seq=512)
-        frng = np.random.default_rng(SEED + 20)
-        # qwen3-4b at 12 of its 36 layers since phase 20 joined: the CPU
-        # runs of the full depth took ~110 s of the script's time (at 4
-        # layers the card's bf16 error passed the CPU's bound: PERF.md
-        # §7)
-        for name, cut, seed in (("qwen3-4b", 12, SEED + 21),
-                                ("moonshot-v1-16b-a3b", 2, SEED + 22)):
+        big = full_width_prompts()
+        for name, cut, seed in FULL_WIDTH:
             c = get_config(name)
             if cut:
                 c = dataclasses.replace(c, n_layers=cut)
@@ -3077,8 +3119,7 @@ def families_phase(dev, scfg, prompts, max_new):
                   f"{n_params} parameters (param_count() {c.param_count()}),"
                   f" {w_bytes} bytes of bf16 weights (the router f32) made "
                   f"on the card in {made_s:.1f} s")
-            big_prompts = [frng.integers(0, c.vocab, int(n), dtype=np.int32)
-                           for n in frng.integers(32, 129, 4)]
+            big_prompts = big[name]
             r = card_vs_cpu(label, c, params, big_sc, dev, big_prompts, 16,
                             bf16=True, plain=True, judge="f32")
             check_launches(label, r["launches"],
@@ -3944,8 +3985,247 @@ def mesh_train_check(dev, smi, cfg, add):
                 unsharded_step_ms=1e3 * t_plain / 3), P, whole
 
 
+def roofline_line(dev):
+    """Phase 22 (e): the port's dry run of every (arch, shape) cell on
+    the production mesh plan (records under build/dryrun, counted from
+    shapes on meta devices), then ``full_table`` at the card's own spec
+    (``hw.active_chip``), printed on one line. Returns the rows."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis, hw
+    chip = hw.active_chip(dev)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):   # a line a cell
+        recs = [dryrun.run_cell(arch, shape, force=True)
+                for arch, shape in dryrun.all_cells()]
+    rows = analysis.full_table(chip=chip)
+    secs = time.perf_counter() - t0
+    check(len(rows) == len(recs) and all(r["ok"] for r in rows),
+          f"roofline: {len(rows)} rows of {len(recs)} cells, not all ok")
+    print(f"roofline: {chip.name} (peak bf16 {chip.peak_flops:.4g} FLOP/s, "
+          f"HBM {chip.hbm_bw:.4g} B/s, {chip.hbm_gib} GiB), analytic, "
+          f"{len(rows)} cells on the 256-chip production mesh plan in "
+          f"{secs:.2f} s (arch shape: bound, step lower bound s, GiB a "
+          f"device, fits): "
+          + "; ".join(f"{r['arch']} {r['shape']}: {r['bound']}, "
+                      f"{r['step_s_lower_bound']:.4g}, "
+                      f"{r['mem_gib_per_device']:.3g}, "
+                      f"{'fits' if r['fits_hbm'] else 'over'}"
+                      for r in rows))
+    return {"chip": chip.name, "seconds": secs, "rows": rows}
+
+
+def first_divergences(tokens, other):
+    """{(request, first index where ``tokens`` parts from ``other``)}."""
+    return {(i, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y))
+            for i, (a, b) in enumerate(zip(tokens, other)) if a != b}
+
+
+def moe_smoke_meshes(dev, smi, c, naive, prompts, max_new, add):
+    """Phase 22 (f): one MoE SMOKE (phase 19's seeded weights, the phase-5
+    prompts mod its vocab) f32, paged, the naive read, unsharded on the
+    card and on the CPU, then at model 2 and model 4 on the card: each
+    mesh serve token-identical to the unsharded card serve, so it parts
+    from the CPU exactly where that serve does (printed); no kernel
+    launches (the
+    experts are cuBLAS bmm, the read the naive gather); the summary's
+    mesh with the pool split where the KV heads divide (maverick-smoke's
+    2 at model 4: whole)."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Engine
+    params = Model(c).init(torch.Generator(device=dev).manual_seed(
+        SEED + 19), device=dev)
+    ps = [p % c.vocab for p in prompts]
+    btoks, _, bwall, bsum, blaunch = serve(Engine(c, params, naive,
+                                                  device=dev), ps, max_new)
+    check_launches(f"mesh {c.name} unsharded", blaunch, {})
+    ctoks, _, _, _, _ = serve(Engine(c, tree_map(lambda t: t.cpu(), params),
+                                     naive, device="cpu"), ps, max_new)
+    cpu_parts = first_divergences(btoks, ctoks)
+    rec = {"unsharded": dict(tokens_per_s=bsum["tokens_per_s"],
+                             tpot_p50_ms=bsum["tpot_p50_ms"], wall_s=bwall),
+           "cpu_divergences": sorted(cpu_parts)}
+    for n in (2, 4):
+        label = f"mesh {c.name} model {n}"
+        eng = Engine(c, params, dataclasses.replace(
+            naive, mesh=MeshConfig(model=n)), device=[dev] * n)
+        toks, _, wall, summ, launches = serve(eng, ps, max_new)
+        add(launches)
+        check_launches(label, launches, {})
+        parted = first_divergences(toks, btoks)
+        check(not parted, f"{label}: parts from the unsharded card serve at "
+              f"(request, token) {sorted(parted)}")
+        shards = n if c.n_kv_heads % n == 0 else 1
+        check(summ["mesh"] == {"shape": {"data": 1, "model": n},
+                               "n_devices": n, "axes": ["data", "model"],
+                               "kv_pool_shards": shards,
+                               "shard_kv_seq": False}
+              and eng.pool.model_shards == shards,
+              f"{label}: summary mesh {summ['mesh']}")
+        print(f"{label}: {len(ps)} requests, the unsharded card serve's "
+              f"tokens, {summ['tokens_per_s']:.1f} tok/s (unsharded "
+              f"{bsum['tokens_per_s']:.1f}), TPOT p50 "
+              f"{summ['tpot_p50_ms']:.3f} ms ({bsum['tpot_p50_ms']:.3f}), "
+              f"pool shards {shards}, {eng.runner.n_steps} steps [{smi}]; "
+              f"card and CPU part at (request, token) {sorted(cpu_parts)} "
+              f"in both")
+        rec[f"model {n}"] = dict(tokens_per_s=summ["tokens_per_s"],
+                                 tpot_p50_ms=summ["tpot_p50_ms"],
+                                 wall_s=wall, steps=eng.runner.n_steps,
+                                 mesh=summ["mesh"])
+    return rec
+
+
+def call_counts(engine, rec):
+    """{(rid, index): the MoE calls ``rec`` (a ``RoutingRecorder`` of
+    ``engine``) holds when that token is committed}."""
+    seen = {}
+    append = engine._append_token
+
+    def counting(req, slot, tok, lp):
+        seen[(req.rid, len(req.tokens_out))] = len(rec.calls)
+        return append(req, slot, tok, lp)
+    engine._append_token = counting
+    return seen
+
+
+def first_routing_difference(calls, other, k):
+    """(call index, the top-k boundary gap in ``other``'s router logits
+    at the first row routed to another expert set, the RMS of that call's
+    router-logit differences) of the first MoE call where two serves'
+    recorded dispatch (``RoutingRecorder.calls``) routes a row
+    differently; None where they never do."""
+    for c, ((a, _), (b, _)) in enumerate(zip(calls, other)):
+        check(a.shape == b.shape, f"routing: call {c} has {a.shape} router "
+              f"logits in one serve, {b.shape} in the other")
+        differ = (np.sort(np.argsort(-a, axis=-1)[:, :k], axis=-1)
+                  != np.sort(np.argsort(-b, axis=-1)[:, :k], axis=-1)
+                  ).any(-1)
+        if differ.any():
+            z = np.sort(b[np.argmax(differ)])
+            return c, float(z[-k] - z[-k - 1]), \
+                float(np.sqrt(((a - b) ** 2).mean()))
+    return None
+
+
+def moe_full_width_meshes(dev, smi, naive, err, add):
+    """Phase 22 (g): moonshot-v1-16b-a3b at full width cut to 2 layers,
+    bf16 (router f32), phase 19 (e)'s weights and prompts, 16 new tokens,
+    the naive read. The unsharded card serve, recording its logits and
+    its MoE dispatch, and a plain one for the times; then at model 2 and
+    model 4 a plain serve (the times), a recorded one and one
+    teacher-forced through the unsharded tokens taking the unsharded
+    serve's expert choices (``replay_routing``). ROADMAP §3's rules, with
+    ``err`` phase 19's CPU-measured bf16 error of these weights and
+    prompts: the teacher-forced logits within ``err`` of the unsharded
+    serve's, and every expert choice of its own that differed a router
+    near-tie: a top-k boundary gap within ROUTER_TIE_SIGMAS RMS of that
+    call's router-logit differences (the RMS pooled over the serve, as
+    ``check_ties`` takes it, is printed: prefill calls that agree bit
+    for bit dilute it). The recorded serve's tokens are the unsharded
+    serve's, or each request parts first where the unsharded top-2
+    margin is within ``err`` (a bf16 near-tie) or after the two serves'
+    first routing difference, itself such a router near-tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Engine
+    name, cut, seed = FULL_WIDTH[1]
+    c = dataclasses.replace(get_config(name), n_layers=cut)
+    check(err is not None and err > 0,
+          f"mesh {name}: no bf16 error from phase 19 ({err})")
+    params = Model(c).init(torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    ps = full_width_prompts()[name]
+    sc = dataclasses.replace(naive, max_batch=4, max_seq=512)
+    undo = record_routing()
+    try:
+        base = Engine(c, params, sc, device=dev)
+        scores = {}
+        _, _, margins = recording_engine(base, scores)
+        brec = RoutingRecorder(base)
+        btoks, brids, _, _, blaunch = serve(base, ps, 16)
+        check_launches(f"mesh {name} unsharded", blaunch, {})
+        index = {rid: i for i, rid in enumerate(brids)}
+        bscores = {(index[r], j): z for (r, j), z in scores.items()}
+        del base
+        ptoks, _, bwall, bsum, _ = serve(Engine(c, params, sc, device=dev),
+                                         ps, 16)
+        check(ptoks == btoks, f"mesh {name}: the plain unsharded serve's "
+              f"tokens differ from the recorded one's")
+        out = {"bf16_error": err, "unsharded": dict(
+            tokens_per_s=bsum["tokens_per_s"],
+            tpot_p50_ms=bsum["tpot_p50_ms"], wall_s=bwall)}
+        for n in (2, 4):
+            label = f"mesh {name} ({cut} layers) model {n}"
+            msc = dataclasses.replace(sc, mesh=MeshConfig(model=n))
+            toks, _, wall, summ, launches = serve(
+                Engine(c, params, msc, device=[dev] * n), ps, 16)
+            add(launches)
+            check_launches(label, launches, {})
+            eng = Engine(c, params, msc, device=[dev] * n)
+            rec = RoutingRecorder(eng)
+            at = call_counts(eng, rec)
+            rtoks, rrids, _, _, _ = serve(eng, ps, 16)
+            check(rtoks == toks, f"{label}: the recorded serve's tokens "
+                  f"differ from the plain one's")
+            del eng
+            got, _, forced_s, rep = forced_scores(
+                Engine(c, params, msc, device=[dev] * n), ps, 16, btoks,
+                replay=brec.calls)
+            logit_err = max_diff(bscores, got)
+            check(logit_err <= err, f"{label}: logits {logit_err} from the "
+                  f"unsharded serve's, beyond the bf16 error {err}")
+            call_ties = rep.get("call_ties", [])
+            for gap, call_rms in call_ties:
+                check(gap <= ROUTER_TIE_SIGMAS * call_rms,
+                      f"{label}: teacher-forced, a routing choice differs "
+                      f"at a top-k boundary gap of {gap}, beyond "
+                      f"{ROUTER_TIE_SIGMAS} x its call's RMS router-logit "
+                      f"difference {call_rms}: not a near-tie")
+            pooled = (rep["dsq"] / rep["n"]) ** 0.5 if rep["n"] else 0.0
+            first = first_routing_difference(rec.calls, brec.calls,
+                                             c.top_k)
+            flips = []
+            for i, j in sorted(first_divergences(toks, btoks)):
+                margin = margins[(brids[i], j)]
+                routed = first is not None \
+                    and first[0] < at[(rrids[i], j)] \
+                    and first[1] <= ROUTER_TIE_SIGMAS * first[2]
+                check(margin <= err or routed,
+                      f"{label}: request {i} parts from the unsharded serve "
+                      f"at token {j}, top-2 margin {margin} > {err}, and "
+                      f"not after a router near-tie (first routing "
+                      f"difference: call, gap, its RMS {first})")
+                flips.append({"request": i, "step": j, "margin": margin,
+                              "after_routing_difference": routed})
+            print(f"{label}: {summ['tokens_per_s']:.2f} tok/s (unsharded "
+                  f"naive {bsum['tokens_per_s']:.2f}), TPOT p50 "
+                  f"{summ['tpot_p50_ms']:.3f} ms "
+                  f"({bsum['tpot_p50_ms']:.3f}), {wall:.3f} s [{smi}]; "
+                  f"teacher-forced with the unsharded expert choices: "
+                  f"logits max_abs_err {logit_err:.4g} (bound {err:.4g}), "
+                  f"routing differences (gap, its call's RMS) "
+                  f"{[(round(g, 6), round(r, 6)) for g, r in call_ties]} "
+                  f"(pooled RMS {pooled:.3g}), {forced_s:.1f} s; free "
+                  f"serves' first routing difference (call, gap, RMS) "
+                  f"{first}; flips against the unsharded card serve "
+                  f"{flips}")
+            out[f"model {n}"] = dict(
+                tokens_per_s=summ["tokens_per_s"],
+                tpot_p50_ms=summ["tpot_p50_ms"], wall_s=wall,
+                logit_err=logit_err, call_ties=call_ties,
+                pooled_rms=pooled, first_routing_difference=first,
+                flips=flips, mesh=summ["mesh"])
+    finally:
+        undo()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_phase(dev, smi, cfg, params, scfg, prompts, max_new, prefix_prompts,
-               int8_run, cpu_runs, rows, profs):
+               int8_run, cpu_runs, rows, profs, moe_bf16_err):
     """Phase 22: sharded serving and training, every mesh ``[dev] * n``
     (one controller, n shards on the card). ``int8_run``: phase 11's
     (scfg, card tokens, card rids, card margins, launches) of the
@@ -3956,7 +4236,9 @@ def mesh_phase(dev, smi, cfg, params, scfg, prompts, max_new, prefix_prompts,
     greedy decoding); ``rows``: phase 3's rows (kernel 2's at the shards'
     shapes are printed here); ``profs``: phase 13's profiled serves of
     the unsharded naive setting ("naive") and of the model-4 mesh (4),
-    whose busy shares are printed beside the serves here. Returns
+    whose busy shares are printed beside the serves here;
+    ``moe_bf16_err``: phase 19 (e)'s CPU-measured bf16 error of
+    moonshot-v1-16b-a3b at 2 layers, the bound of (g). Returns
     (details, the launches of the phase's sharded runs)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MeshConfig, SpecConfig
@@ -4200,6 +4482,24 @@ def mesh_phase(dev, smi, cfg, params, scfg, prompts, max_new, prefix_prompts,
           f"{n_resharded}")
 
     part("(d) training, elastic, fleet")
+
+    # (e) the dry run of every cell on the production mesh plan, and the
+    # analytic roofline at this card's spec
+    out["roofline"] = roofline_line(dev)
+    part("(e) dry run and roofline")
+
+    # (f) the MoE SMOKEs, f32, paged, the naive read
+    out["moe_smokes"] = {}
+    for sname in ("moonshot-v1-smoke", "llama4-maverick-smoke"):
+        out["moe_smokes"][sname] = moe_smoke_meshes(
+            dev, smi, get_config(sname), naive, prompts, max_new, add)
+    part("(f) MoE SMOKEs")
+
+    # (g) moonshot-v1-16b-a3b at full width, 2 layers, bf16: phase 19
+    # (e)'s weights and prompts, the naive read
+    out["moe_full_width"] = moe_full_width_meshes(dev, smi, naive,
+                                                  moe_bf16_err, add)
+    part("(g) moonshot full width")
     for r in rows["sparse_gather_matvec"]:
         if "shard of model" in r["case"]:
             print(f"mesh: kernel 2 {r['case']} (phase 3): device "
@@ -5068,7 +5368,9 @@ def main():
         {"naive": (cpu_tokens, margins, cpu_rids),
          "int8": (q8_cpu_tokens, q8_margins, q8_cpu_rids),
          "spec": (pre_cpu_tokens, pre_margins, pre_cpu_rids)}, rows,
-        {"naive": profiles["mesh naive"], 4: profiles["mesh model 4"]})
+        {"naive": profiles["mesh naive"], 4: profiles["mesh model 4"]},
+        details["families"]["families moonshot-v1-16b-a3b (2 layers)"]
+        ["bf16_error"])
     lap(clock, "22) multi-device")
 
     # ---- report --------------------------------------------------------------

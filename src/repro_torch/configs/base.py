@@ -4,7 +4,9 @@
 the reference's fields and defaults so one set of values configures both
 packages.
 ``ObsConfig``, ``MeshConfig`` and ``AsyncConfig`` configure tracing,
-sharded serving and the async engine, as in the reference.
+sharded serving and the async engine, as in the reference. ``SHAPES`` and
+``applicable_shapes`` are the assigned input shapes the dry run and the
+roofline cover.
 """
 
 from __future__ import annotations
@@ -80,6 +82,11 @@ class ModelConfig:
                 return ("mlstm",) * (self.slstm_every - 1) + ("slstm",)
             return ("mlstm",)
         return ("attn",)
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: SSM and hybrid archs run long_500k."""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def n_units(self) -> int:
@@ -338,3 +345,21 @@ class FleetConfig:
     #                                   (serialized polling is the default:
     #                                   replicas on one card share its
     #                                   stream and the host's one thread)
+
+
+# --- assigned input shapes (seq_len, global_batch, kind) -------------------
+
+SHAPES = {
+    "train_4k": dict(seq=4096, batch=256, kind="train"),
+    "prefill_32k": dict(seq=32768, batch=32, kind="prefill"),
+    "decode_32k": dict(seq=32768, batch=128, kind="decode"),
+    "long_500k": dict(seq=524288, batch=1, kind="decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """long_500k only for sub-quadratic archs (assignment rule)."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.supports_long_context:
+        names.append("long_500k")
+    return tuple(names)

@@ -433,9 +433,13 @@ def constrain_tp_exact(x):
 
 
 def constrain_moe_dispatch(t):
-    """[E, cap, ...] expert-parallel dispatch: experts over 'model' in the
-    reference. Sharded MoE is not in the port (the engine refuses an MoE
-    stack under a mesh); the identity."""
+    """[E, cap, ...] MoE dispatch (the table, the gathered tokens). The
+    reference puts its E axis on 'model'. The port keeps the dispatch
+    whole on the home device, where ``route`` and ``combine`` run once on
+    the unsharded tables, and splits each expert product by column
+    instead (``colwise`` of the batched operands: the expert leaves split
+    on their last dim, as ``_param_spec`` decides under ``exact_tp``); so
+    the identity, in scope and off."""
     return t
 
 
@@ -472,12 +476,14 @@ def column_block(b: Any, i: int, lo: int, hi: int) -> torch.Tensor:
 
 
 def colwise(x: torch.Tensor, w, b: Optional[Any] = None):
-    """``x @ w (+ b)``. Off-scope, or for a whole ``w``, one product (on
-    the home device under a scope). For a column-sharded ``w``, one
-    product per shard on its device with its columns (and its block of
-    the bias ``b``, whole or split alike), concatenated on the home
-    device: the output columns are the whole product's, bit for bit
-    where the GEMM's sum order does not depend on the column count."""
+    """``x @ w (+ b)``: x [..., k] by w [k, n], or batched, x [E, c, k] by
+    w [E, k, n] (an MoE block's experts; ``@`` of two 3-d tensors is one
+    ``bmm``). Off-scope, or for a whole ``w``, one product (on the home
+    device under a scope). For a ``w`` split on its last dim, one product
+    per shard on its device with its columns (and its block of the bias
+    ``b``, whole or split alike), concatenated on the home device: the
+    output columns are the whole product's, bit for bit where the GEMM's
+    sum order does not depend on the column count."""
     parts = column_parts(w)
     if parts is None:
         y = x @ whole(w)

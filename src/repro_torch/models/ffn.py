@@ -1,7 +1,8 @@
 """FFN: dense GLU / non-GLU, with the NeCTAr sparse decode path. Under
 an activation-sharding scope (dist.sharding) the serving step runs
 tensor parallel on column-sharded weights: kernel 2 once a shard, on its
-column block of W_down."""
+column block of W_down; an MoE block's experts take the same
+column-parallel dense path (``dense_ffn``)."""
 
 from __future__ import annotations
 
@@ -76,11 +77,22 @@ def ffn_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return torch.where(is_prefill[:, None, None], down_d, down_s)
 
 
-def _hidden_mesh(p: dict, act: str, x: torch.Tensor) -> torch.Tensor:
-    """The hidden activation under a scope, gathered on the home device:
-    each shard's columns of W_up (and W_gate) with the activation applied
-    on its device, concatenated (``constrain_tp_exact``); a whole W_up
-    once on the home device."""
+def dense_ffn(p: dict, act: str, x: torch.Tensor) -> torch.Tensor:
+    """The dense FFN of ``p`` under activation ``act``, ``hidden`` then
+    W_down (``sharding.colwise``): x [..., d] by [d, f] weights (an MoE
+    block's shared experts), or x [E, cap, d] by [E, d, f] (its routed
+    experts). Under a scope every product runs a shard's column block on
+    its device, concatenated on the home device."""
+    return sharding.colwise(hidden(p, act, x), p["w_down"])
+
+
+def hidden(p: dict, act: str, x: torch.Tensor) -> torch.Tensor:
+    """The hidden activation of ``p``'s W_up (and W_gate): x [..., d] by
+    [d, f], or an MoE block's experts, x [E, cap, d] by [E, d, f] (a
+    batched product). Under a scope, each shard's columns with the
+    activation applied on its device, concatenated on the home device
+    (``constrain_tp_exact``); whole weights (off-scope, or a leaf left
+    whole) once."""
     up, gate = sharding.column_parts(p["w_up"]), \
         sharding.column_parts(p.get("w_gate"))
     if up is None or ("w_gate" in p and gate is None):
@@ -116,10 +128,9 @@ def _ffn_step_mesh(p: dict, cfg: ModelConfig, x: torch.Tensor,
     under exact_tp: h gathered from the column-sharded up-projection,
     then the per-shard down-projections on W_down's column blocks,
     gathered. No row-parallel product and no sum of partials."""
-    act = "relu" if cfg.relu_sparse else cfg.act
-    h = _hidden_mesh(p, act, x)
     if not cfg.relu_sparse:
-        return sharding.colwise(h, p["w_down"])
+        return dense_ffn(p, cfg.act, x)
+    h = hidden(p, "relu", x)
     k = sparsity.active_fraction_to_k(cfg.d_ff, cfg.sparse_k_frac)
     down_s = _down_sparse_mesh(h, p["w_down"], k)
     if not has_prefill:

@@ -12,7 +12,11 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated-normal fan-in init: N(0, 1) cut at ±3, times
     ``fan_in ** -0.5`` — the reference's law, not its bits. The draw runs
-    on the generator's device and the result moves to ``device``."""
+    on the generator's device and the result moves to ``device``. On the
+    meta device (a tree of shapes: the dry run, a layout to convert
+    into) nothing is drawn or allocated."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     w = torch.empty(tuple(shape), dtype=torch.float32,

@@ -11,6 +11,17 @@ Nothing in ``route`` or ``moe_forward`` reads a device value on the host
 paged decode step of an MoE stack can be captured as a CUDA graph and
 replayed (``transformer.decode_burst``).
 
+Under an activation-sharding scope (dist.sharding, sharded serving) the
+expert leaves are split on their last dim, as ``_param_spec`` decides
+under ``exact_tp``: the router's logits are the shards' column blocks,
+concatenated, so ``route`` and ``combine`` run once on the home device on
+tables equal to the unsharded ones; each shard runs one batched product
+of the gathered tokens against its column block of W_up (and W_gate, the
+activation applied on its device), the hidden columns are concatenated,
+and each shard runs one against its column block of W_down, concatenated
+on d (``ffn.dense_ffn``, as the shared experts). Only concatenations, no
+partial sums.
+
 MoE routing is itself structured activation sparsity: the paper's C2 at
 expert granularity; with ``relu_sparse`` the ReLU applies inside the
 routed expert as well.
@@ -24,8 +35,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparsity
-from repro_torch.models import layers
-from repro_torch.models.ffn import init_ffn
+from repro_torch.dist import sharding
+from repro_torch.models import ffn, layers
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig,
@@ -42,8 +53,8 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig,
     if cfg.glu:
         p["w_gate"] = layers.dense_init(generator, (E, d, f), dtype, device)
     if cfg.n_shared_experts:
-        p["shared"] = init_ffn(generator, cfg, dtype, device,
-                               d_ff=cfg.d_ff * cfg.n_shared_experts)
+        p["shared"] = ffn.init_ffn(generator, cfg, dtype, device,
+                                   d_ff=cfg.d_ff * cfg.n_shared_experts)
     return p
 
 
@@ -135,25 +146,19 @@ def moe_forward(p: dict, cfg: ModelConfig, x: torch.Tensor):
     cap = capacity(T, cfg)
     # the router stays f32: a bf16 model's activations widen exactly, as
     # jnp promotes them in the reference's product
-    table, gates, aux = route(xt.to(p["router"].dtype) @ p["router"], cfg,
-                              cap)
+    table, gates, aux = route(
+        sharding.colwise(xt.to(p["router"].dtype), p["router"]), cfg, cap)
 
     xpad = torch.cat([xt, xt.new_zeros(1, d)])
-    xe = xpad[table.long()]                                     # [E, cap, d]
+    table = sharding.constrain_moe_dispatch(table)
+    xe = sharding.constrain_moe_dispatch(xpad[table.long()])   # [E, cap, d]
     act = "relu" if cfg.relu_sparse else cfg.act
-    up = torch.bmm(xe, p["w_up"])
-    if cfg.glu:
-        h = sparsity.apply_act(torch.bmm(xe, p["w_gate"]), act) * up
-    else:
-        h = sparsity.apply_act(up, act)
-    ye = torch.bmm(h, p["w_down"])                              # [E, cap, d]
+    ye = ffn.dense_ffn(p, act, xe)                              # [E, cap, d]
     ye = ye * gates[..., None].to(ye.dtype)
     out = combine(ye, table, T, cfg.top_k)
 
     if cfg.n_shared_experts:
-        sh = p["shared"]
-        out = out + sparsity.dense_ffn(xt, sh["w_up"], sh["w_down"], act=act,
-                                       w_gate=sh.get("w_gate"))
+        out = out + ffn.dense_ffn(p["shared"], act, xt)
     return out.reshape(B, S, d), aux
 
 

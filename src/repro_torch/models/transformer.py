@@ -629,10 +629,6 @@ def forward_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     A codebook model's tokens are [B, S, nc]. M-RoPE positions are text
     only (three equal channels), as the reference's step sets them.
     Returns logits f32[B, S, V] (or [B, S, nc, V])."""
-    if sharding.current_scope() is not None and "moe" in cfg.pattern_unit():
-        raise NotImplementedError(
-            f"{cfg.name}: sharded MoE (expert parallel) is not in the port: "
-            f"ROADMAP item 9b serves attention + FFN stacks under a mesh")
     x = sharding.constrain_tp_exact(_embed_inputs(params, cfg, tokens))
     S = tokens.shape[1]
     lens = cache["lens"]

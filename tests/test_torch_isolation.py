@@ -73,8 +73,14 @@ MESH_FILES = ("launch/mesh.py", "dist/sharding.py", "dist/collectives.py",
               "dist/ring.py", "dist/elastic.py", "train/loop.py")
 
 
+# the modules of the sharded-MoE, roofline and dry-run slice
+TOOL_FILES = ("configs/base.py", "roofline/hw.py", "roofline/analysis.py",
+              "launch/dryrun.py", "models/ffn.py")
+
+
 @pytest.mark.parametrize("name", SLICE_FILES + RECURRENT_FILES
-                         + FAMILY_FILES + TRAIN_FILES + MESH_FILES)
+                         + FAMILY_FILES + TRAIN_FILES + MESH_FILES
+                         + TOOL_FILES)
 def test_disagg_and_fleet_modules_import_no_jax(name):
     path = ROOT / "src" / "repro_torch" / name
     assert path in PORT_FILES
@@ -207,3 +213,16 @@ def test_mesh_entry_points_default_to_cuda_and_raise_without_it(no_card):
     assert callable(fn)
     assert Engine(cfg, params, ServeConfig(paged=True, mesh=mcfg),
                   device=["cpu"] * 2).mesh.devices[1].type == "cpu"
+
+
+def test_dry_run_and_roofline_touch_no_device(tmp_path, monkeypatch):
+    """The dry run counts a cell on a mesh of meta devices, and neither it
+    nor the roofline asks for a card: both run on a host without one,
+    with no ``device`` argument."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+    monkeypatch.setattr(analysis, "ART_DIR", str(tmp_path))
+    assert {d.type for d in dryrun.production_mesh().devices} == {"meta"}
+    rec = dryrun.run_cell("llama3.2-1b", "decode_32k")
+    assert rec["ok"], rec.get("error")
+    assert analysis.cell_roofline("llama3.2-1b", "decode_32k")["ok"]
