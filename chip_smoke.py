@@ -281,6 +281,27 @@ Phases, each reporting on lines of its own:
                other choice a router near-tie; tokens its own, or
                parting at a bf16 or router near-tie; tok/s and TPOT
                p50 beside the unsharded serve's.
+ 23. examples — (runs after phase 22) (a) the ten examples of
+               ``repro_torch.examples`` in process on the card at their
+               default flags (relu_llama_e2e, the paper's end-to-end
+               demo, at 200 training steps; quickstart at 40), the
+               launch counts set to 0 before each and read after, each
+               one's checks held (sharded equal to single, disagg equal
+               to monolithic, losses falling, C4 decisions at the H100
+               SXM, ...); (b) relu_llama_e2e's card-trained weights on
+               the CPU through the same dense and sparse slot engines:
+               tokens as the card's under the near-tie rule, weight
+               bytes per token within 1%, the weight-read reduction and
+               tok/s beside nvidia-smi's name and power limit; (c)
+               launch.perf at h100-sxm: every MODELED variant,
+               int8_stream+sparse_ffn, no_remat and serve_replicated on
+               llama3.2-1b and moonshot-v1-16b-a3b at decode_32k and
+               llama3.2-1b at train_4k, before, after and speedup, and
+               moe_ws raising as the reference's fails; (d)
+               ops.paged_decode_attention (kernel 1 with S = 1) at
+               nectar's decode shape is a phase-3 row (measured there,
+               where the profiler's windows are whole). The examples'
+               launches join the kernels line.
 It exits non-zero, printing no result, when there is no CUDA device or a
 check fails. Its last line is the result JSON; the line before it holds
 the per-kernel JSON. Details go to build/chip_smoke.json.
@@ -697,7 +718,6 @@ def run_attention(dev, rng, label, exact=False, **shape):
     kernel's and the f32 plain version's distances from the f64 answer
     (``f64_err``, ``plain_f64_err``)."""
     from repro_torch.kernels import decode_attn, ref
-    import torch.nn.functional as F
     q, kp, vp, tables, lens = attention_case(dev, rng, **shape)
     err = held(f"{label}: paged_attention",
                lambda: decode_attn.paged_attention(q, kp, vp, tables, lens),
@@ -717,8 +737,20 @@ def run_attention(dev, rng, label, exact=False, **shape):
                                  - FAMILY_RTOL * want.abs()).max()),
             "plain_f64_err": float((ref.paged_attention_plain(
                 q, kp, vp, tables, lens) - want).abs().max())})
-    # the library yardstick: SDPA over the gathered, masked sequence, in
-    # the pools' dtype (a sentinel gathers block 0, as the kernel reads it)
+    return dict(measure(
+        "paged_attention", label, err,
+        lambda: decode_attn.paged_attention(q, kp, vp, tables, lens),
+        lambda: ref.paged_attention_plain(q, kp, vp, tables, lens),
+        sdpa_yardstick(dev, q, kp, vp, tables, lens),
+        *attention_work(q, kp, tables, lens)), **extra)
+
+
+def sdpa_yardstick(dev, q, kp, vp, tables, lens):
+    """Kernel 1's library yardstick: SDPA over the gathered, masked
+    sequence, in the pools' dtype (a sentinel gathers block 0, as the
+    kernel reads it)."""
+    from repro_torch.kernels import ref
+    import torch.nn.functional as F
     kg = ref._gather_clamped(kp, tables).transpose(1, 2)
     vg = ref._gather_clamped(vp, tables).transpose(1, 2)
     S, Skv = q.shape[1], kg.shape[2]
@@ -726,13 +758,8 @@ def run_attention(dev, rng, label, exact=False, **shape):
            <= (lens[:, None].long()
                + torch.arange(S, device=dev)[None, :])[:, :, None])
     qt, mask = q.to(kp.dtype).transpose(1, 2), vis[:, None]
-    return dict(measure(
-        "paged_attention", label, err,
-        lambda: decode_attn.paged_attention(q, kp, vp, tables, lens),
-        lambda: ref.paged_attention_plain(q, kp, vp, tables, lens),
-        lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask,
-                                               enable_gqa=True),
-        *attention_work(q, kp, tables, lens)), **extra)
+    return lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask,
+                                                  enable_gqa=True)
 
 
 def run_sparse(dev, rng, label, B, k, d_ff, d, empty_frac):
@@ -4511,6 +4538,244 @@ def mesh_phase(dev, smi, cfg, params, scfg, prompts, max_new, prefix_prompts,
     return out, total
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the repository's examples on the card, the paper's end-to-end
+# demo against the CPU, the perf variants at the card's spec
+
+
+PERF_CELLS = (("llama3.2-1b", "decode_32k"),
+              ("moonshot-v1-16b-a3b", "decode_32k"),
+              ("llama3.2-1b", "train_4k"))
+PERF_VARIANTS = ("int8_stream", "sparse_ffn", "kv_quant", "flash_fusion",
+                 "ws_dense", "grad_compression", "int8_stream+sparse_ffn",
+                 "no_remat", "serve_replicated")
+
+
+def check_example(name, out, cfg):
+    """Phase 23 (a): what each example shows must hold on the card (the
+    token identities of sharded_serve and disagg_serve are checked by the
+    examples themselves)."""
+    from repro_torch.core import heterogeneous
+    from repro_torch.roofline import hw
+
+    def ce_fell(history, label):
+        ce = [m["ce"] for _, m in history]
+        check(all(np.isfinite(ce)) and ce[-1] < ce[0],
+              f"examples {label}: ce {ce} is not finite or did not fall")
+
+    def valid(toks):
+        return all(0 <= t < cfg.vocab for t in toks)
+
+    if name == "relu_llama_e2e":
+        ce_fell(out["history"], name)
+        check(all(0 < f < 1 for f in out["sparsity"]),
+              f"examples {name}: sparsity {out['sparsity']}")
+        for mode, rec in out["serve"].items():
+            check(rec["n_tokens"] == 8 * 24 and all(
+                valid(t) for t in rec["tokens"].values()),
+                f"examples {name}: {mode} served {rec['n_tokens']} tokens")
+        check(out["weight_read_reduction"] > 1,
+              f"examples {name}: weight-read reduction "
+              f"{out['weight_read_reduction']}")
+    elif name == "quickstart":
+        ce_fell(out["history"], name)
+        check(len(out["decoded"]) == 13 and valid(out["decoded"]),
+              f"examples {name}: decoded {out['decoded']}")
+    elif name == "sparse_serving":
+        check(len(out["tokens"]) == 6 and out["kv_rel_err"] < 0.01
+              and out["regimes"] == heterogeneous.decode_regime_report(
+                  cfg.d_model, cfg.d_ff, cfg.vocab, batch=4,
+                  chip=hw.H100_SXM),
+              f"examples {name}: {len(out['tokens'])} requests, KV error "
+              f"{out['kv_rel_err']}, regimes {out['regimes']}")
+    elif name == "streaming_serve":
+        check(len(out["stream"]) == 8 and len(out["batch"]) == 5
+              and all(len(t) == 8 for _, t in out["batch"].values()),
+              f"examples {name}: stream {out['stream']}, batch "
+              f"{out['batch']}")
+    elif name == "spec_decode":
+        check(out["stream"]["summary"]["spec_steps"] > 0
+              and out["menu"]["ngram"]["summary"]["spec_steps"] > 0,
+              f"examples {name}: no verify step")
+    elif name == "disagg_serve":
+        check(out["disagg"]["summary"]["n_handoffs"] == 5,
+              f"examples {name}: {out['disagg']['summary']['n_handoffs']} "
+              f"handoffs")
+    elif name == "fleet_serve":
+        check(len(set(out["session_homes"])) == 1,
+              f"examples {name}: the session moved between replicas "
+              f"{out['session_homes']}")
+    elif name == "profile_serve":
+        check(0 < out["decode"]["attain"] <= 1,
+              f"examples {name}: decode attainment {out['decode']}")
+    elif name == "multipod_dryrun_demo":
+        check(out["row"]["ok"] and all(r["ok"] for r in
+                                       out["records"].values()),
+              f"examples {name}: the dry run failed")
+
+
+def e2e_card_vs_cpu(cfg, out, smi):
+    """Phase 23 (b): relu_llama_e2e's card-trained weights moved to the
+    CPU and served there through the same dense and sparse slot engines
+    on the same requests: tokens as the card's under the near-tie rule,
+    weight bytes per token within 1% of the card's."""
+    from repro_torch.examples import relu_llama_e2e as e2e
+    params = tree_map(lambda t: t.cpu(), out["params"])
+    reqs = e2e.requests(cfg)
+    details = {}
+    for mode, sparse in e2e.MODES:
+        eng = e2e.make_engine(cfg, params, "cpu", sparse)
+        _, _, margins = recording_engine(eng)
+        rec = e2e.run_mode(eng, reqs[mode], "cpu")
+        card = out["serve"][mode]
+        rids = sorted(card["tokens"])
+        flips = compare_cpu(f"examples e2e {mode}-cpu",
+                            [card["tokens"][r] for r in rids],
+                            [rec["tokens"][r] for r in rids], margins, rids)
+        wb, wb_cpu = (card["weight_bytes_per_token"],
+                      rec["weight_bytes_per_token"])
+        check(abs(wb - wb_cpu) <= 0.01 * wb_cpu,
+              f"examples e2e {mode}: weight bytes per token {wb} on the "
+              f"card, {wb_cpu} on the CPU")
+        details[mode] = {"flips": flips, "weight_bytes_per_token_cpu": wb_cpu,
+                         "tokens_per_s_cpu": rec["tokens_per_s"]}
+        print(f"examples e2e {mode}: {len(rids) - len(flips)}/{len(rids)} "
+              f"requests token-identical card against CPU, near-tie flips "
+              f"{flips}; weight bytes/token {wb:.0f} (CPU {wb_cpu:.0f}); "
+              f"{card['tokens_per_s']:.1f} tok/s on the card "
+              f"({rec['tokens_per_s']:.1f} on the CPU)")
+    print(f"examples e2e: weight-read reduction "
+          f"{out['weight_read_reduction']:.4f}x on {smi} (dense "
+          f"{out['serve']['dense']['tokens_per_s']:.1f} tok/s, sparse "
+          f"{out['serve']['nectar-sparse']['tokens_per_s']:.1f} tok/s, "
+          f"{out['train_wall_s']:.2f} s for 200 training steps); the paper's "
+          f"NeCTAr SoC at 3.2 GB/s, modeled: "
+          f"{out['paper_chip_infs_per_s']['dense']:.2f} -> "
+          f"{out['paper_chip_infs_per_s']['sparse']:.2f} infs/s")
+    return details
+
+
+def perf_lines():
+    """Phase 23 (c): ``launch.perf.run_variant`` at the H100 SXM on
+    PERF_CELLS (their dry-run records first), one line a cell with each
+    variant's bound and step lower bound before and after; moe_ws must
+    raise, as the reference's fails."""
+    from repro_torch.launch import dryrun, perf
+    from repro_torch.roofline import hw
+    out = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for cell in PERF_CELLS:
+            check(dryrun.run_cell(*cell)["ok"], f"perf: no record of {cell}")
+            out[cell] = [perf.run_variant(*cell, v, force=True,
+                                          chip=hw.H100_SXM)
+                         for v in PERF_VARIANTS]
+    for (arch, shape), recs in out.items():
+        for r in recs:
+            check(r["chip"] == "h100-sxm" and r["step_speedup"] > 0
+                  and r["after"]["bound"] in ("compute", "memory",
+                                              "collective"),
+                  f"perf: {arch} x {shape} + {r['variant']}: {r}")
+        print(f"perf: {arch} x {shape} at h100-sxm (variant: bound before"
+              f"->after, compute term s and step lower bound s before->"
+              f"after, speedup): "
+              + "; ".join(
+                  f"{r['variant']}: {r['before']['bound']}->"
+                  f"{r['after']['bound']}, compute "
+                  f"{r['before']['compute_s']:.4g}->"
+                  f"{r['after']['compute_s']:.4g}, step "
+                  f"{r['before']['step_s_lower_bound']:.4g}->"
+                  f"{r['after']['step_s_lower_bound']:.4g}, "
+                  f"{r['step_speedup']:.4f}x" for r in recs))
+    try:
+        perf.run_variant("moonshot-v1-16b-a3b", "decode_32k", "moe_ws",
+                         force=True)
+    except RuntimeError as exc:
+        moe_ws = str(exc)
+    else:
+        raise Failure("perf: moe_ws ran; its dry run must fail, as the "
+                      "reference's does")
+    print(f"perf: moe_ws raised as the reference fails: {moe_ws}")
+    return {f"{a} x {s}": recs for (a, s), recs in out.items()}, moe_ws
+
+
+def run_paged_decode(dev, rng, label, **shape):
+    """Phase 23 (d), a phase-3 row: ``ops.paged_decode_attention``, the
+    S=1 wrapper over kernel 1 (kv_len counts the in-flight token), held to
+    its plain version and timed as ``run_attention`` holds and times
+    kernel 1."""
+    from repro_torch.kernels import ops, ref
+    q, kp, vp, tables, lens = attention_case(dev, rng, S=1, **shape)
+    q1, kv_len = q[:, 0].contiguous(), lens + 1
+
+    def kernel_fn():
+        return ops.paged_decode_attention(q1, kp, vp, tables, kv_len)
+
+    def plain_fn():
+        return ref.paged_attention_plain(q, kp, vp, tables, lens)[:, 0]
+
+    err = held(f"{label}: paged_decode_attention", kernel_fn, plain_fn)
+    return measure("paged_attention", label, err, kernel_fn, plain_fn,
+                   sdpa_yardstick(dev, q, kp, vp, tables, lens),
+                   *attention_work(q, kp, tables, lens))
+
+
+def examples_phase(dev, smi):
+    """Phase 23 ((d), kernel 1's S=1 wrapper, is a phase-3 row): (a)
+    every example of ``repro_torch.examples`` in process on the card at
+    its default flags (relu_llama_e2e at 200 training steps, quickstart
+    at 40), each one's launches counted from 0, its checks held; (b)
+    relu_llama_e2e's card-trained weights served on the CPU; (c) the
+    perf variants. Returns (details, the examples' launches)."""
+    import importlib
+    from repro_torch.configs import get_config
+    from repro_torch.examples import EXAMPLES
+    from repro_torch.kernels import ops
+    cfg = get_config("nectar-relu-llama-1.7m")
+    details = {}
+    launches = dict.fromkeys(KERNELS, 0)
+    outs = {}
+    t_phase = time.perf_counter()
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                out = mod.main(["--device", str(dev)])
+        except SystemExit as exc:        # an example's own check failed
+            raise Failure(f"examples {name}: {exc}") from None
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        lnch = dict(ops.LAUNCHES)
+        for key in KERNELS:
+            launches[key] += lnch[key]
+        check_example(name, out, cfg)
+        outs[name] = out
+        details[name] = {"seconds": secs, "launches": lnch,
+                         "output": buf.getvalue()}
+        print(f"examples: {name} {secs:.2f} s, checks held, launches "
+              f"{lnch}")
+        if name == "relu_llama_e2e":
+            print("\n".join(f"examples e2e| {line}"
+                            for line in buf.getvalue().splitlines()))
+    print(f"examples: spec_decode's greedy outputs token-identical across "
+          f"drafters on the card: {outs['spec_decode']['identical']}")
+    t_b = time.perf_counter()
+    details["e2e_cpu"] = e2e_card_vs_cpu(cfg, outs["relu_llama_e2e"], smi)
+    t_c = time.perf_counter()
+    details["perf"], details["perf_moe_ws"] = perf_lines()
+    now = time.perf_counter()
+    print(f"time: 23 (a) examples {t_b - t_phase:.1f} s, (b) e2e on the CPU "
+          f"{t_c - t_b:.1f} s, (c) perf {now - t_c:.1f} s")
+    details["seconds"] = now - t_phase
+    details["e2e"] = {k: v for k, v in outs["relu_llama_e2e"].items()
+                      if k != "params"}
+    return details, launches
+
+
 def main():
     details = {}
     clock = [time.perf_counter()]
@@ -4696,6 +4961,12 @@ def main():
         run_sparse(dev, mrng, f"nectar shard of model {n} rows=8",
                    B=scfg.max_batch, k=k_nectar, d_ff=cfg.d_ff,
                    d=cfg.d_model // n, empty_frac=0.1) for n in (2, 4)]
+    # phase 23 (d): ops.paged_decode_attention, kernel 1's S=1 wrapper
+    # (kv_len counts the in-flight token), at nectar's decode shape, from a
+    # stream of its own
+    rows["paged_attention"].append(run_paged_decode(
+        dev, np.random.default_rng(SEED + 27),
+        "nectar S=1 wrapper paged_decode_attention", **nectar_attn))
     rows["relu_ffn"] = [
         run_relu_ffn(dev, krng, f"nectar prefill M={M}", M=M, d=cfg.d_model,
                      f=cfg.d_ff, dead_blocks=(1, 3))
@@ -5373,6 +5644,11 @@ def main():
         ["bf16_error"])
     lap(clock, "22) multi-device")
 
+    # ---- 23) the examples, the paper's end-to-end demo, the perf variants
+    # (its kernel-1 row (d) is in phase 3) ----------------------------------
+    details["examples"], examples_launches = examples_phase(dev, smi)
+    lap(clock, "23) examples")
+
     # ---- report --------------------------------------------------------------
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -5390,6 +5666,7 @@ def main():
     # it
     spec_launches = {key: sum(run[2][key] for run in spec_runs.values())
                      for key in KERNELS}
+    # ... and, for every kernel, the examples of phase 23
     path_launches = {
         "paged_attention": launches["paged_attention"]
         + pre_launches["paged_attention"]
@@ -5420,6 +5697,8 @@ def main():
         + training_launches["relu_ffn"] + mesh_launches["relu_ffn"],
         "nmce_matmul": ops_launches["nmce_matmul"]
         + families_launches["nmce_matmul"]}
+    for key in KERNELS:
+        path_launches[key] += examples_launches[key]
     main_case = {"paged_attention": rows["paged_attention"][0],
                  "sparse_gather_matvec": rows["sparse_gather_matvec"][0],
                  "decode_attention": rows["decode_attention"][0],
@@ -5443,7 +5722,8 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_device_ms": r["library_device_ms"],
-            "mesh_launches": mesh_launches[key]})
+            "mesh_launches": mesh_launches[key],
+            "examples_launches": examples_launches[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

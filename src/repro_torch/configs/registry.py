@@ -26,3 +26,7 @@ def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[name]
+
+
+def list_configs():
+    return sorted(REGISTRY)

@@ -15,11 +15,12 @@ implementation:
                         (``kernels.ops.sparse_gather_matvec``).
 
 The classifier takes the chip's ridge point, bf16 peak over HBM rate:
-about 240 FLOP/byte on the TPU v5e (``roofline.hw.V5E``, the default, so
-both packages decide alike) and about 295 on the H100 SXM
-(``roofline.hw.H100_SXM``, passed explicitly where the card is meant).
-Sites below the ridge are memory-bound. The rule is the reference's at
-any chip: nothing here is specific to Hopper.
+about 295 FLOP/byte on the H100 SXM the port runs on
+(``roofline.hw.H100_SXM``, the default of ``classify``, ``Dispatcher``
+and ``decode_regime_report``). Sites below the ridge are memory-bound.
+The rule is the reference's at any chip: nothing here is specific to
+Hopper, and a test that holds these decisions to the reference's passes
+the reference's chip (``roofline.hw.V5E``) to both packages.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def arithmetic_intensity(site: MatmulSite) -> float:
     return flops / (wbytes + abytes)
 
 
-def classify(site: MatmulSite, chip: hw.Chip = hw.V5E) -> str:
+def classify(site: MatmulSite, chip: hw.Chip = hw.H100_SXM) -> str:
     ridge = chip.peak_flops / chip.hbm_bw  # flops per byte at the knee
     if site.sparsity >= 0.5 and site.rows <= 256:
         return "sparse_gather"
@@ -67,15 +68,15 @@ class Dispatcher:
 
     impls: Dict[str, Callable]
     override: Optional[str] = None
-    chip: hw.Chip = hw.V5E
+    chip: hw.Chip = hw.H100_SXM
 
     def __call__(self, site: MatmulSite, *args, **kwargs):
         regime = self.override or classify(site, self.chip)
         return self.impls[regime](*args, **kwargs), regime
 
 
-def decode_regime_report(d_model: int, d_ff: int, vocab: int,
-                         batch: int, chip: hw.Chip = hw.V5E) -> Dict[str, str]:
+def decode_regime_report(d_model: int, d_ff: int, vocab: int, batch: int,
+                         chip: hw.Chip = hw.H100_SXM) -> Dict[str, str]:
     """Which engine each decode-step matmul site lands on: the
     heterogeneous placement decision table."""
     sites = decode_sites(d_model, d_ff, vocab, batch)

@@ -168,6 +168,18 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, tables: torch.Tensor,
+                           kv_len: torch.Tensor) -> torch.Tensor:
+    """Single-token paged decode through block tables, for callers that
+    count a total ``kv_len``: q f32[B, Hq, Dh], kv_len i32[B] including
+    the in-flight token. ``paged_attention`` (kernel 1) with S = 1 and
+    lens = kv_len - 1; returns f32[B, Hq, Dh]."""
+    out = paged_attention(q[:, None].contiguous(), k_pool, v_pool, tables,
+                          kv_len - 1)
+    return out[:, 0]
+
+
 @functools.cache
 def decode_plan(B: int, S: int, Hq: int, Kv: int, Dh: int,
                 dtype_bytes: int, n_sm: int) -> dict:

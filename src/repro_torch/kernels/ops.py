@@ -28,6 +28,18 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return decode_attn.paged_attention(q, k_pool, v_pool, tables, lens)
 
 
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, tables: torch.Tensor,
+                           kv_len: torch.Tensor) -> torch.Tensor:
+    """Single-token paged decode (kernel 1 with S = 1): q f[B, Hq, Dh],
+    kv_len i32[B] including the in-flight token. Returns f32[B, Hq, Dh]."""
+    if q.device.type == "cpu":
+        return ref.paged_attention_plain(q[:, None], k_pool, v_pool, tables,
+                                         kv_len - 1)[:, 0]
+    return decode_attn.paged_decode_attention(q, k_pool, v_pool, tables,
+                                              kv_len)
+
+
 def sparse_gather_matvec(h: torch.Tensor, idx: torch.Tensor,
                          w_down: torch.Tensor) -> torch.Tensor:
     """Gathered down-projection over active rows of W_down (kernel 2)."""

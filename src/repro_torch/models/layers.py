@@ -38,6 +38,16 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (xf * scale * gamma.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim in fp32, cast back to the input dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
+
+
 def head_rms_norm(x: torch.Tensor, gamma: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
     """Per-head RMSNorm over d_head (qwen3's qk_norm), in fp32, cast back

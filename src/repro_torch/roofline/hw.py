@@ -1,5 +1,7 @@
-"""Hardware constants for roofline analysis: the reference's TPU v5e and
-nominal CPU host, and the NVIDIA H100 SXM5 the port runs on.
+"""Hardware constants for roofline analysis: the NVIDIA H100 SXM5 the port
+runs on (the default chip of ``ridge_point`` and ``roofline_terms``), the
+reference's nominal CPU host, and the reference's TPU v5e, kept as a named
+chip only so that tests can hold the port's decisions to the reference's.
 
 H100_SXM is NVIDIA's H100 Tensor Core GPU datasheet, SXM5 column, dense
 rates (without structured sparsity) at the part's 700 W: 989.4 TFLOP/s
@@ -115,14 +117,14 @@ def peak_for(chip: Chip, dtype: torch.dtype) -> float:
     return chip.peak_flops
 
 
-def ridge_point(chip: Chip = V5E, dtype_bits: int = 16) -> float:
+def ridge_point(chip: Chip = H100_SXM, dtype_bits: int = 16) -> float:
     """FLOPs/byte at the memory/compute knee."""
     peak = chip.peak_flops if dtype_bits >= 16 else chip.peak_int8_ops
     return peak / chip.hbm_bw
 
 
 def roofline_terms(flops: float, hbm_bytes: float, collective_bytes: float,
-                   n_chips: int, chip: Chip = V5E,
+                   n_chips: int, chip: Chip = H100_SXM,
                    collective_bw: float | None = None,
                    peak: float | None = None) -> dict:
     """The three-term roofline (seconds) and the dominant bottleneck.

@@ -74,6 +74,9 @@ class SamplingParams:
         return (self.temperature or 0.0) <= 0
 
 
+GREEDY = SamplingParams()
+
+
 def effective_params(sp: SamplingParams,
                      fallback_temperature: float = 0.0) -> SamplingParams:
     """Resolve a request's params to a concrete temperature: unset (None)

@@ -69,6 +69,36 @@ def test_paged_attention_kernel_matches_plain(cuda, S, Hq, Kv, Dh, bs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Kv,Dh,bs", [(4, 4, 32, 16), (32, 8, 64, 16)])
+def test_paged_decode_attention_matches_plain(cuda, Hq, Kv, Dh, bs):
+    """The S=1 wrapper over kernel 1 (kv_len counts the in-flight token)
+    against the plain version through ``ops`` on the CPU; kv_len 1, a
+    context ending on a block boundary and an IDLE row (all sentinel)."""
+    rng = np.random.default_rng(Dh)
+    nb, MB = 40, 12
+    kv_len = np.array([1, 2 * bs, 71, 1], np.int32)
+    B = len(kv_len)
+    tables = np.full((B, MB), nb, np.int32)
+    free = list(rng.permutation(nb))
+    for b in range(B - 1):                 # the last row stays IDLE
+        n = -(-int(kv_len[b]) // bs)
+        tables[b, :n] = [free.pop() for _ in range(n)]
+    arrays = (rng.standard_normal((B, Hq, Dh)),
+              rng.standard_normal((nb, bs, Kv, Dh)),
+              rng.standard_normal((nb, bs, Kv, Dh)))
+    q, kp, vp = (torch.tensor(a, dtype=torch.float32) for a in arrays)
+    t, kl = torch.tensor(tables), torch.tensor(kv_len)
+    before = ops.LAUNCHES["paged_attention"]
+    got = ops.paged_decode_attention(*(x.to(cuda) for x in (q, kp, vp, t,
+                                                            kl)))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == before + 1
+    want = ops.paged_decode_attention(q, kp, vp, t, kl)
+    assert got.shape == (B, Hq, Dh)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,k,d_ff,d", [(8, 128, 640, 128),
                                         (5, 1024, 8192, 2048)])
 def test_sparse_gather_kernel_matches_plain(cuda, B, k, d_ff, d):

@@ -5,13 +5,14 @@ the CPU, against the reference's modules.
 Both are plain Python, so the port must take the reference's decisions
 and give its numbers exactly (floats compared with ``==``): the regime of
 every matmul site on a hypothesis-drawn grid at the TPU v5e's ridge (the
-default chip of both), the decision tables of the registry's widths, the
-offsets the scheduler learns, and the lookahead, time and efficiency of
-the pipeline model. The reference's own cases of
-``tests/test_substrate.py`` (prefetch) and ``tests/test_system.py``
-(dispatch) are restated against the port. On the H100 SXM the ridge is
-higher (bf16 989.4 TFLOP/s over 3.35 TB/s against 197 over 0.819), and
-the port keeps the reference's rule there too.
+reference's default chip, passed explicitly to both packages), the
+decision tables of the registry's widths, the offsets the scheduler
+learns, and the lookahead, time and efficiency of the pipeline model. The
+reference's own cases of ``tests/test_substrate.py`` (prefetch) and
+``tests/test_system.py`` (dispatch) are restated against the port. The
+port's default chip is the H100 SXM, whose ridge is higher (bf16 989.4
+TFLOP/s over 3.35 TB/s against 197 over 0.819), and the port keeps the
+reference's rule there too.
 """
 
 import dataclasses
@@ -49,7 +50,8 @@ def test_classify_and_intensity_equal_the_reference(rows, k, n, wbits,
     mine, theirs = _sites(rows, k, n, wbits, abits, sparsity)
     assert heterogeneous.arithmetic_intensity(mine) \
         == jax_het.arithmetic_intensity(theirs)
-    assert heterogeneous.classify(mine) == jax_het.classify(theirs)
+    assert heterogeneous.classify(mine) \
+        == heterogeneous.classify(mine, hw.H100_SXM)
     assert heterogeneous.classify(mine, hw.V5E) \
         == jax_het.classify(theirs, jax_hw.V5E)
 
@@ -62,11 +64,14 @@ def test_v5e_entry_equals_the_reference():
 @pytest.mark.parametrize("batch", [1, 8, 64, 512])
 def test_decode_regime_report_equals_the_reference(batch):
     """Every config of the port's registry, at the v5e's ridge, gives the
-    reference's table; at the H100 SXM's the rule is the same one."""
+    reference's table; at the H100 SXM's (the port's default) the rule is
+    the same one."""
     for name, cfg in sorted(registry.REGISTRY.items()):
         args = (cfg.d_model, cfg.d_ff, cfg.vocab, batch)
+        assert heterogeneous.decode_regime_report(*args, chip=hw.V5E) \
+            == jax_het.decode_regime_report(*args, chip=jax_hw.V5E), name
         assert heterogeneous.decode_regime_report(*args) \
-            == jax_het.decode_regime_report(*args), name
+            == heterogeneous.decode_regime_report(*args, chip=hw.H100_SXM)
         ridge = hw.H100_SXM.peak_flops / hw.H100_SXM.hbm_bw
         sites = heterogeneous.decode_sites(*args)
         for site_name, regime in heterogeneous.decode_regime_report(
@@ -81,13 +86,14 @@ def test_decode_regime_report_equals_the_reference(batch):
 
 def test_h100_ridge_moves_a_site_between_regimes():
     """A site between the two ridges (240.5 and 295.3 FLOP/byte) streams
-    on the H100 and goes to the dense product on the v5e."""
+    on the H100 (the port's default) and goes to the dense product on the
+    v5e."""
     site = heterogeneous.MatmulSite(rows=300, k=4096, n=4096)
     ai = heterogeneous.arithmetic_intensity(site)
     assert hw.V5E.peak_flops / hw.V5E.hbm_bw < ai \
         < hw.H100_SXM.peak_flops / hw.H100_SXM.hbm_bw
-    assert heterogeneous.classify(site) == "gemm_mxu"
-    assert heterogeneous.classify(site, hw.H100_SXM) == "gemv_stream"
+    assert heterogeneous.classify(site, hw.V5E) == "gemm_mxu"
+    assert heterogeneous.classify(site) == "gemv_stream"
 
 
 def test_dispatcher_routes_by_regime_and_override():
@@ -100,7 +106,7 @@ def test_dispatcher_routes_by_regime_and_override():
         return f
     impls = {r: impl(r) for r in ("gemv_stream", "gemm_mxu",
                                   "sparse_gather")}
-    disp = heterogeneous.Dispatcher(impls)
+    disp = heterogeneous.Dispatcher(impls, chip=hw.V5E)
     decode = heterogeneous.MatmulSite(rows=8, k=2048, n=8192)
     prefill = heterogeneous.MatmulSite(rows=32 * 4096, k=2048, n=8192)
     sparse = heterogeneous.MatmulSite(rows=8, k=8192, n=2048, sparsity=0.9)
@@ -111,10 +117,11 @@ def test_dispatcher_routes_by_regime_and_override():
                      ("gemm_mxu", (), {}), ("sparse_gather", (3,), {})]
     forced = heterogeneous.Dispatcher(impls, override="gemm_mxu")
     assert forced(decode) == ("GEMM_MXU", "gemm_mxu")
-    h100 = heterogeneous.Dispatcher(impls, chip=hw.H100_SXM)
+    h100 = heterogeneous.Dispatcher(impls)
+    assert h100.chip is hw.H100_SXM
     site = heterogeneous.MatmulSite(rows=300, k=4096, n=4096)
     assert h100(site)[1] == "gemv_stream"
-    assert heterogeneous.Dispatcher(impls)(site)[1] == "gemm_mxu"
+    assert disp(site)[1] == "gemm_mxu"
     # the same decisions as the reference's Dispatcher on the same sites
     theirs = jax_het.Dispatcher({r: (lambda r=r: r) for r in impls})
     for s in (decode, prefill, sparse, site):

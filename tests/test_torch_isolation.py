@@ -78,9 +78,17 @@ TOOL_FILES = ("configs/base.py", "roofline/hw.py", "roofline/analysis.py",
               "launch/dryrun.py", "models/ffn.py")
 
 
+# the perf variants and the examples
+EXAMPLE_FILES = ("launch/perf.py", "examples/__init__.py") + tuple(
+    f"examples/{name}.py" for name in (
+        "relu_llama_e2e", "quickstart", "sparse_serving", "streaming_serve",
+        "spec_decode", "sharded_serve", "disagg_serve", "fleet_serve",
+        "profile_serve", "multipod_dryrun_demo"))
+
+
 @pytest.mark.parametrize("name", SLICE_FILES + RECURRENT_FILES
                          + FAMILY_FILES + TRAIN_FILES + MESH_FILES
-                         + TOOL_FILES)
+                         + TOOL_FILES + EXAMPLE_FILES)
 def test_disagg_and_fleet_modules_import_no_jax(name):
     path = ROOT / "src" / "repro_torch" / name
     assert path in PORT_FILES
@@ -226,3 +234,19 @@ def test_dry_run_and_roofline_touch_no_device(tmp_path, monkeypatch):
     rec = dryrun.run_cell("llama3.2-1b", "decode_32k")
     assert rec["ok"], rec.get("error")
     assert analysis.cell_roofline("llama3.2-1b", "decode_32k")["ok"]
+
+
+def test_examples_default_to_cuda_and_raise_without_it(no_card):
+    """Every example but the dry-run demo (which touches no device) runs
+    on the card unless ``--device cpu`` is given; without a card its main
+    raises before any work."""
+    import importlib
+    from repro_torch.examples import EXAMPLES
+    assert sorted(EXAMPLES) == sorted(
+        p.stem for p in (ROOT / "examples").glob("*.py"))
+    for name in EXAMPLES:
+        if name == "multipod_dryrun_demo":
+            continue
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            mod.main([])

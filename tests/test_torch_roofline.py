@@ -111,11 +111,15 @@ def test_parse_collectives_counts_bytes():
 
 def test_roofline_terms_dominance():
     t = hw.roofline_terms(flops=1e12, hbm_bytes=1e13, collective_bytes=0,
-                          n_chips=256)
+                          n_chips=256, chip=hw.V5E)
     assert t["bound"] == "memory_s"
     t2 = hw.roofline_terms(flops=1e12, hbm_bytes=1e10,
-                           collective_bytes=1e13, n_chips=256)
+                           collective_bytes=1e13, n_chips=256, chip=hw.V5E)
     assert t2["bound"] == "collective_s"
+    # the port's default chip is the card's
+    assert hw.roofline_terms(1e12, 1e13, 0, 256) \
+        == hw.roofline_terms(1e12, 1e13, 0, 256, chip=hw.H100_SXM)
+    assert hw.ridge_point() == hw.ridge_point(hw.H100_SXM)
 
 
 def test_model_flops_decode_vs_train():
