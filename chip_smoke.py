@@ -1140,11 +1140,12 @@ def recording_engine(engine, scores=None):
     {(rid, index): margin} (a codebook model's: the least of its
     codebooks'); with ``scores`` also each token's score vector there,
     {(rid, index): f32[V]} (f32[nc, V]). Every batched sample goes
-    through ``engine.sampler``, a codebook model's through the engine's
-    per-codebook argmax (``_sample_rows``); the slot engine samples a
-    request's first token from its prefill logits on the host."""
+    through ``engine.sampler.launch``, a codebook model's through the
+    engine's per-codebook argmax (``_sample_rows``); the slot engine
+    samples a request's first token from its prefill logits on the
+    host."""
     ticks, prefills, margins = [], [], {}
-    sampler, append = engine.sampler, engine._append_token
+    sampler, append = engine.sampler.launch, engine._append_token
     sample_rows = engine._sample_rows
     paged = engine.scfg.paged
 
@@ -1178,7 +1179,7 @@ def recording_engine(engine, scores=None):
     if engine.cfg.n_codebooks:
         engine._sample_rows = recording_rows
     else:
-        engine.sampler = recording_sampler
+        engine.sampler.launch = recording_sampler
     engine._append_token = recording_append
     return ticks, prefills, margins
 
@@ -1388,7 +1389,7 @@ def recording_spec_engine(engine):
     ticks, margins, deciding = [], {}, {}
     state = {"logits": None, "verify": None}
     rngs = {}
-    sampler, append, step = (engine.sampler, engine._append_token,
+    sampler, append, step = (engine.sampler.launch, engine._append_token,
                              engine.runner.step)
     commit, accept_rng = engine._commit_verify, engine._accept_rng
 
@@ -1438,7 +1439,7 @@ def recording_spec_engine(engine):
                 margins.update(zip(keys, ms))
                 deciding.update((key, z[j]) for j, key in enumerate(keys))
 
-    engine.sampler = recording_sampler
+    engine.sampler.launch = recording_sampler
     engine.runner.step = recording_step
     engine._accept_rng = recording_accept_rng
     engine._append_token = recording_append

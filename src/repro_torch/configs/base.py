@@ -181,14 +181,20 @@ class SpecConfig:
 class ObsConfig:
     """Tracing and telemetry (repro_torch.obs).
 
-    Disabled by default: every instrumentation hook of the engine and the
-    runner then resolves to a shared no-op singleton
-    (``obs.trace.NULL_TRACER``): no span object, no CUDA event, no host
-    sync. With ``enabled=True`` the engine records per-tick phase spans
-    (schedule, draft, batch_assemble, device_dispatch, device_wait,
-    sample_sync, postprocess) with each tick's device time, per-row-kind
-    and padding figures, and per-request lifecycle events. ``profile``
-    adds roofline attainment per width bucket (``obs.profile``)."""
+    Always on: the engine's phase totals (``obs.trace.CountingTracer``),
+    seconds by phase (front_end, tick, schedule, admit, draft,
+    batch_assemble, device_dispatch, graph_dispatch, sample_sync,
+    device_wait, postprocess, kv_handoff) from one clock read at each
+    phase boundary: no span object, no event, no CUDA event, no wait.
+    ``metrics.summary()`` and the registry show them
+    (``engine_phase_seconds_total{phase=...}``) beside each request's
+    queue wait; every time in ``obs`` and ``serve.metrics`` is on
+    ``time.perf_counter_ns``. With ``enabled=True`` the engine also
+    records per-tick phase spans with each tick's device time (CUDA
+    timing events on the card, read once the tick's own waits have passed
+    them: tracing adds no wait), per-row-kind and padding figures, and
+    per-request lifecycle events. ``profile`` adds roofline attainment per
+    width bucket (``obs.profile``)."""
 
     enabled: bool = False
     profile: bool = False           # roofline attainment per width bucket;
@@ -196,8 +202,6 @@ class ObsConfig:
     #                                 device time)
     tick_spans: bool = True         # per-tick phase spans
     timeline: bool = True           # per-request lifecycle events
-    fence_device: bool = True       # time each step's device work (CUDA
-    #                                 events on the card) and wait for it
     torch_annotations: bool = False  # also open a torch.profiler
     #                                 record_function range per span
     max_events: int = 262_144       # storage bound: spans and events

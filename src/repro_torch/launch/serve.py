@@ -17,7 +17,10 @@ from a seeded generator.
 (``--model zamba2-smoke``, ``--model xlstm-smoke``) serve through the slot
 engine; a paged flag is refused for them with the reference's error.
 It runs on the CUDA device unless ``--device cpu`` is given, and prints a
-JSON summary (with ``--async``, the engine's ``async_stats()`` under
+JSON summary (paged: the requests' queue wait, submit to their first
+slot, as ``queue_wait_p50_ms`` and ``queue_wait_p99_ms``, and the
+engine's seconds by phase as ``engine_phase_s``, with tracing off too;
+with ``--async``, the engine's ``async_stats()`` under
 "async"; with tracing, the tracer's ``ticks``; with ``--profile``, the
 per-bucket ``bucket_attainment`` rows, whose table is printed first).
 ``--trace-out PREFIX`` writes PREFIX.trace.json (Perfetto) and
@@ -274,7 +277,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     "prefix_hits": s["prefix_hits"],
                     "prefix_cached_tokens": s["prefix_cached_tokens"],
                     "kv_pool_capacity_bytes":
-                        s["kv_pool"]["capacity_bytes"]})
+                        s["kv_pool"]["capacity_bytes"],
+                    "queue_wait_p50_ms": s["queue_wait_p50_ms"],
+                    "queue_wait_p99_ms": s["queue_wait_p99_ms"],
+                    "engine_phase_s": s["engine_phase_s"]})
         if dcfg is not None:
             out.update({
                 "n_handoffs": s["n_handoffs"],

@@ -4,10 +4,11 @@
 Perfetto layout (open the file at https://ui.perfetto.dev or
 chrome://tracing):
 
-  * pid 1 "engine": one LANE (tid) per engine phase — tick, schedule,
-    draft, batch_assemble, device_dispatch, device_wait, sample_sync,
-    postprocess — so host vs device time reads directly off the
-    device_wait lane. Spans are complete ("X") events in microseconds.
+  * pid 1 "engine": one LANE (tid) per engine phase — front_end, tick,
+    schedule, admit, draft, batch_assemble, device_dispatch,
+    graph_dispatch, sample_sync, device_wait, postprocess — so the host's
+    blocked time reads directly off the device_wait lane. Spans are
+    complete ("X") events in microseconds.
   * pid 2 "requests": one lane per request id. Each request gets a
     whole-lifetime span (arrival -> finish/last event) plus thread-
     scoped instant ("i") events for every lifecycle step (admitted,
@@ -17,7 +18,10 @@ chrome://tracing):
 The JSONL log is the machine-readable twin: one JSON object per line,
 ``{"kind": "meta" | "span" | "event" | "tick", ...}`` with microsecond
 timestamps relative to the tracer epoch — grep/jq-friendly, and what
-tools/check_trace.py validates.
+tools/check_trace.py validates. Both files carry the epoch itself
+(``epoch_ns``, a ``time.perf_counter_ns`` reading): ``epoch_ns + ts * 1e3``
+is a timestamp on the host clock that a device trace's markers are
+aligned to.
 """
 
 from __future__ import annotations
@@ -102,6 +106,7 @@ def perfetto_trace(tracer: Tracer, registry: Optional[Registry] = None,
         "displayTimeUnit": "ms",
         "metadata": {
             "tool": "repro_torch.obs",
+            "epoch_ns": tracer.epoch_ns,
             "n_ticks": tracer.n_ticks,
             "dropped": tracer.dropped,
             "tick_summary": tracer.tick_summary(),
@@ -128,8 +133,8 @@ def write_jsonl(tracer: Tracer, path: str) -> str:
     with open(path, "w") as f:
         f.write(json.dumps({
             "kind": "meta", "tool": "repro_torch.obs",
-            "n_ticks": tracer.n_ticks, "n_spans": len(tracer.spans),
-            "n_events": len(tracer.events),
+            "epoch_ns": tracer.epoch_ns, "n_ticks": tracer.n_ticks,
+            "n_spans": len(tracer.spans), "n_events": len(tracer.events),
             "dropped": tracer.dropped}) + "\n")
         for s in tracer.spans:
             rec = {"kind": "span", "name": s.name, "ts_us": _us(s.t0),

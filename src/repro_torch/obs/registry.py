@@ -130,7 +130,8 @@ class Registry:
     def __init__(self):
         self._metrics: Dict[str, object] = {}
         self._groups: Dict[str, Callable[[], dict]] = {}
-        # prefix -> (label name, fn() -> {label value: {suffix: value}})
+        # prefix -> (label name, fn() -> {label value: {suffix: value}},
+        # Prometheus type)
         self._labeled: Dict[str, tuple] = {}
 
     def _get(self, cls, name: str, **kw):
@@ -169,7 +170,13 @@ class Registry:
         value}}`` exposes ``<prefix>_<suffix>{<label>="<value>"}``
         gauges, re-evaluated at each collect/scrape. Label values are
         escaped at exposition time — callers pass raw strings."""
-        self._labeled[prefix] = (label, fn)
+        self._labeled[prefix] = (label, fn, "gauge")
+
+    def labeled_counter_group(self, prefix: str, label: str,
+                              fn: Callable[[], dict]) -> None:
+        """``labeled_gauge_group`` for monotonic per-entity totals (the
+        engine's seconds by phase): exposed with the counter type."""
+        self._labeled[prefix] = (label, fn, "counter")
 
     # --- reads ------------------------------------------------------------
     def _group_values(self) -> Dict[str, float]:
@@ -187,10 +194,10 @@ class Registry:
 
     def _labeled_series(self) -> List[tuple]:
         """Flattened labeled-group samples: (metric name, label name,
-        raw label value, value), suffix-major so exposition can emit
-        one TYPE line per metric name."""
+        raw label value, value, type), suffix-major so exposition can
+        emit one TYPE line per metric name."""
         out: List[tuple] = []
-        for prefix, (label, fn) in self._labeled.items():
+        for prefix, (label, fn, kind) in self._labeled.items():
             try:
                 d = fn()
             except Exception:   # noqa: BLE001 — a dead gauge must not
@@ -207,7 +214,7 @@ class Registry:
                         (str(lv), v))
             for name in sorted(series):
                 for lv, v in sorted(series[name]):
-                    out.append((name, label, lv, v))
+                    out.append((name, label, lv, v, kind))
         return out
 
     def collect(self) -> Dict[str, object]:
@@ -224,7 +231,7 @@ class Registry:
             else:
                 out[name] = m.value
         out.update(self._group_values())
-        for name, label, lv, v in self._labeled_series():
+        for name, label, lv, v, _ in self._labeled_series():
             out[f'{name}{{{label}="{escape_label_value(lv)}"}}'] = v
         return out
 
@@ -255,9 +262,9 @@ class Registry:
             lines.append(f"# TYPE {name} gauge")
             lines.append(f"{name} {v}")
         last = None
-        for name, label, lv, v in self._labeled_series():
+        for name, label, lv, v, kind in self._labeled_series():
             if name != last:
-                lines.append(f"# TYPE {name} gauge")
+                lines.append(f"# TYPE {name} {kind}")
                 last = name
             lines.append(
                 f'{name}{{{label}="{escape_label_value(lv)}"}} {v}')

@@ -1,52 +1,62 @@
-"""Tracer: per-tick phase spans and per-request lifecycle timelines.
+"""Tracer: the engine's phase totals, per-tick phase spans and per-request
+lifecycle timelines.
 
 The engine is instrumented unconditionally: every tick runs under
-``with tracer.tick():`` and every phase under ``with tracer.span(...):``.
-The DEFAULT tracer is ``NULL_TRACER``, whose ``span``/``tick`` return a
-shared no-op singleton: no allocation, no clock read, no CUDA event, no
-host sync. ``ObsConfig(enabled=True)`` swaps in the recording ``Tracer``
-(``make_tracer``), which is where all cost lives.
+``with tracer.tick():``, every phase under ``with tracer.span(name):``,
+and ``StreamingServer`` runs its own work under ``span("front_end")``.
+There are two tiers, both on one clock (``time.perf_counter_ns``, the
+clock ``now_s`` reads and the benchmark's device-trace markers are
+aligned to):
 
-Attribution within one tick:
+  * counting (``CountingTracer``, the default, one per engine): running
+    totals of nanoseconds by phase. Entering or leaving a phase reads the
+    clock once and credits the time since the previous boundary to the
+    phase being left, so each host statement inside a phase is credited
+    to exactly one phase, the innermost open one (a tick's statements
+    outside every phase below it to ``tick``). No ``Span`` object, no
+    event, no CUDA event and no wait. The totals run for the tracer's
+    life; a window (``serve.metrics``) or a request (its admission to its
+    finish) takes their difference.
+  * recording (``Tracer``, ``ObsConfig(enabled=True)``): the same totals,
+    a ``Span`` for every phase, the requests' lifecycle events and a
+    ``tick_stats`` entry per tick.
 
-  device_ms = the device time of the tick's steps, measured by a
-              ``DeviceClock`` around each step's device work and read in
-              its ``device_wait`` span:
-                * on a CUDA device, the time between two
-                  ``torch.cuda.Event(enable_timing=True)`` recorded on the
-                  runner's stream before the step's first launch and after
-                  its last (a graph replay counts as its launches). The
-                  eager step is issued one op at a time by the host, so
-                  this span also holds the gaps in which the device waits
-                  for the host: it is an UPPER bound on the device's busy
-                  time, and an attainment computed from it
-                  (``obs.profile``) a LOWER bound;
-                * on the CPU, the host time inside the step's
-                  ``device_dispatch`` and ``device_wait`` spans (the ops
-                  run eagerly inside the dispatch);
-  host_ms   = tick wall time - device_ms (at least 0).
+The phases (``PHASES``): ``front_end`` (``StreamingServer``'s submit and
+poll outside ``engine.step``), ``tick``, ``schedule`` (admission control,
+capacity, allocation, the async tick's choice) with ``admit`` (the
+scheduler's admission) inside it, ``draft``, ``batch_assemble``,
+``device_dispatch`` (the host issuing an eager step: ``ModelRunner.step``,
+the slot engine's decode and prefill), ``graph_dispatch`` (graph work:
+``decode_burst`` and ``graph_step``), ``sample_sync`` (the sampler's
+launches and inputs), ``device_wait`` (the host blocked on the device:
+the sampler's copy, ``HostCopy.wait``, the verify rows' logits),
+``postprocess`` (commit, finish, the metrics) and ``kv_handoff`` (the
+disagg coordinator's block moves).
 
-A tick that reconciles an async overlap tick waits for, and so reads
-the device time of, the step the tick before it dispatched: that device
-work ran beside both ticks' host work by design, so there device_ms may
-exceed the tick's wall and host_ms, clamped at 0, is not the rest of it.
-Every other step is dispatched and waited for within one tick.
+Device time (recording tier): each step's ``DeviceClock`` is a pair of
+``torch.cuda.Event(enable_timing=True)`` recorded on the runner's stream
+before the step's first launch and after its last (a graph replay counts
+as its launches); on the CPU, the host time of the step's dispatch (the
+ops run eagerly inside it). A clock is never waited for: it is read at
+the end of a tick once its end event has completed, which it has after
+any wait the tick made past it (the sampler's copy, ``HostCopy.wait``),
+and its time goes to the tick that dispatched the step. A step no wait
+has passed yet (a prefill chunk that samples nothing, an overlap tick's
+step) is read at a later tick's end, into its own tick's entry. The eager
+step is issued one op at a time by the host, so the span also holds the
+gaps in which the device waits for the host: an UPPER bound on the
+device's busy time, and an attainment computed from it (``obs.profile``)
+a LOWER bound. A tick's ``host_ms`` is its wall less its device time, at
+least 0: a step whose device work ran past its tick (no wait in it) may
+read longer than the tick.
 
-The reference reads device time as the duration of its ``device_wait``
-span, around ``block_until_ready`` after jax's asynchronous dispatch of
-one executable. The port's eager step does its work while the host
-issues it, so that span would hold only the last kernels' tail on the
-card and nothing on the CPU.
-
-Each tick also records per-phase durations (``phases_ms``), the
-engine's ``tick_attrs`` (row-kind counts, width, padding waste, live
-keys) and ``device_ticks``.
-
-Spans are recorded AT EXIT with (t0, t1, depth, tick); request events
-record (rid, name, t, tick, attrs). Storage is bounded by
-ObsConfig.max_events: past it, new entries are dropped and counted
-(``dropped``), never silently wrapped (tools/check_trace.py warns on a
-truncated trace).
+Spans are recorded AT EXIT with (t0, t1, depth, tick), in seconds since
+the tracer's ``epoch_ns`` (a ``perf_counter_ns`` reading, written by the
+exporters): ``epoch_ns + t * 1e9`` lays a span over anything else on the
+clock. Request events record (rid, name, t, tick, attrs). Storage is
+bounded by ObsConfig.max_events: past it, new entries are dropped and
+counted (``dropped``), never silently wrapped (tools/check_trace.py warns
+on a truncated trace).
 """
 
 from __future__ import annotations
@@ -59,11 +69,20 @@ import torch
 
 from repro_torch.configs.base import ObsConfig
 
+PHASES = ("front_end", "tick", "schedule", "admit", "draft",
+          "batch_assemble", "device_dispatch", "graph_dispatch",
+          "sample_sync", "device_wait", "postprocess", "kv_handoff")
+
+
+def now_s() -> float:
+    """Seconds on the tracer's clock (``time.perf_counter_ns``)."""
+    return time.perf_counter_ns() / 1e9
+
 
 @dataclasses.dataclass
 class Span:
-    """One closed phase span. Times are seconds on the tracer's monotonic
-    clock (``perf_counter``), relative to the tracer epoch."""
+    """One closed phase span. Times are seconds since the tracer's
+    ``epoch_ns``."""
     name: str
     t0: float
     t1: float
@@ -86,95 +105,127 @@ class Event:
     attrs: Optional[dict] = None
 
 
-class _NullSpan:
-    """The shared no-op context manager of the disabled path: one module
-    instance, ``__slots__ = ()``, so entering a span allocates nothing."""
+class CountingTracer:
+    """The default tracer (tracing off): running totals of nanoseconds by
+    phase (module docstring). Not thread-safe: one engine's tick loop
+    drives it; ``phase_seconds`` may be read from another thread."""
 
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
-NULL_SPAN = _NullSpan()
-
-
-class NullTracer:
-    """Disabled-mode tracer: every hook is a no-op returning shared
-    singletons. The engine and the runner never branch on ``if tracer``;
-    they call through, and this class makes that free."""
-
-    __slots__ = ()
     enabled = False
     spans: tuple = ()
     events: tuple = ()
     tick_stats: tuple = ()
     dropped = 0
+    _now_ns = staticmethod(time.perf_counter_ns)
 
-    def span(self, name, **attrs):
-        return NULL_SPAN
+    def __init__(self):
+        self._ns: Dict[Optional[str], int] = dict.fromkeys(PHASES, 0)
+        self._cur: Optional[str] = None     # None: outside every phase
+        self._stack: List[Optional[str]] = []
+        self._t = self._now_ns()
+        self._next: Optional[str] = None
+
+    # --- the phase clock ---------------------------------------------------
+    def _push(self, name: str, t: int) -> None:
+        ns, cur = self._ns, self._cur
+        ns[cur] = ns.get(cur, 0) + t - self._t
+        self._stack.append(cur)
+        self._cur, self._t = name, t
+
+    def _pop(self, t: int) -> None:
+        ns, cur = self._ns, self._cur
+        ns[cur] = ns.get(cur, 0) + t - self._t
+        self._cur, self._t = self._stack.pop(), t
+
+    def snapshot(self) -> Dict[str, int]:
+        """The totals (ns by phase) up to now, the open phase credited to
+        now: read at a request's admission and finish."""
+        t = self._now_ns()
+        ns, cur = self._ns, self._cur
+        ns[cur] = ns.get(cur, 0) + t - self._t
+        self._t = t
+        return {k: v for k, v in ns.items() if k is not None}
+
+    def phase_seconds(self, since: Optional[Dict[str, int]] = None
+                      ) -> Dict[str, float]:
+        """Seconds by phase up to the last boundary, less ``since`` (a
+        ``snapshot``) where given."""
+        since = since or {}
+        return {k: (v - since.get(k, 0)) / 1e9
+                for k, v in list(self._ns.items()) if k is not None}
+
+    # --- the hooks -----------------------------------------------------------
+    def span(self, name: str, **attrs):
+        """Enter phase ``name`` (nests; the innermost open phase is the one
+        credited). The tracer is its own context manager: nothing is made,
+        and nothing refers back to it (no cycle keeps it alive)."""
+        self._next = name
+        return self
+
+    def __enter__(self):
+        self._push(self._next, self._now_ns())
+        return self
+
+    def __exit__(self, *exc):
+        self._pop(self._now_ns())
+        return False
 
     def tick(self):
-        return NULL_SPAN
+        return self.span("tick")
 
-    def tick_attrs(self, **attrs):
+    def tick_attrs(self, **attrs) -> None:
         pass
 
-    def event(self, rid, name, **attrs):
+    def event(self, rid: int, name: str, **attrs) -> None:
         pass
 
-    def device_clock(self, device):
+    def device_clock(self, device: torch.device):
         return None
 
-    def device_wait(self, clock):
-        return NULL_SPAN
+    def device_wait(self):
+        """The phase in which the host blocks on the device."""
+        return self.span("device_wait")
 
-    def reset(self):
-        pass
-
-
-NULL_TRACER = NullTracer()
+    def reset(self) -> None:
+        """A fresh window: the totals run on (windows take differences)."""
 
 
 class DeviceClock:
-    """The device time of one step (see the module docstring). ``stop``
-    after the step's last launch; ``wait`` (inside the ``device_wait``
-    span) blocks until the step's work is done; ``seconds`` then reads the
-    span. Made only by a recording tracer with ``fence_device`` on."""
+    """The device time of one step (module docstring): made before the
+    step's first launch, ``stop`` after its last. ``stop`` hands the clock
+    to its tracer, which reads it once ``done``: nothing here waits."""
 
-    __slots__ = ("_start", "_end", "_t0", "_dispatch_s", "_wait_s")
+    __slots__ = ("_sink", "_now_ns", "_start", "_end", "_t0", "_s", "tick")
 
-    def __init__(self, device: torch.device):
+    def __init__(self, tr: "Tracer", events: bool):
+        # the tracer's list of stopped clocks, not the tracer: a pending
+        # clock makes no cycle with it
+        self._sink, self._now_ns = tr._clocks, tr._now_ns
         self._start = self._end = None
-        if device.type == "cuda":
+        if events:
             self._start = torch.cuda.Event(enable_timing=True)
             self._start.record()
-        self._t0 = time.perf_counter()
-        self._dispatch_s = self._wait_s = 0.0
+        self._t0 = self._now_ns()
+        self._s = 0.0
+        self.tick = tr.n_ticks
 
     def stop(self) -> None:
         if self._start is not None:
             self._end = torch.cuda.Event(enable_timing=True)
             self._end.record()
-        self._dispatch_s = time.perf_counter() - self._t0
+        self._s = (self._now_ns() - self._t0) / 1e9
+        self._sink.append(self)
 
-    def wait(self) -> None:
-        t = time.perf_counter()
-        if self._end is not None:
-            self._end.synchronize()
-        self._wait_s = time.perf_counter() - t
+    def done(self) -> bool:
+        return self._end is None or self._end.query()
 
     def seconds(self) -> float:
         if self._end is not None:
             return self._start.elapsed_time(self._end) / 1e3
-        return self._dispatch_s + self._wait_s
+        return self._s
 
 
 class _SpanCM:
-    """Context manager recording one span on exit (enabled mode)."""
+    """Context manager recording one span on exit (recording tier)."""
 
     __slots__ = ("tr", "name", "t0", "attrs", "annot")
 
@@ -190,42 +241,23 @@ class _SpanCM:
         if tr.cfg.torch_annotations:
             self.annot = torch.profiler.record_function(self.name)
             self.annot.__enter__()
-        self.t0 = tr._now() - tr.epoch
+        self.t0 = tr._now_ns()
+        tr._push(self.name, self.t0)
         return self
 
     def __exit__(self, *exc):
         tr = self.tr
-        t1 = tr._now() - tr.epoch
+        t1 = tr._now_ns()
+        tr._pop(t1)
         tr._depth -= 1
         if self.annot is not None:
             self.annot.__exit__(*exc)
-        tr._phase_s[self.name] = tr._phase_s.get(self.name, 0.0) \
-            + (t1 - self.t0)
-        tr._record(Span(self.name, self.t0, t1, tr._depth, tr.n_ticks,
+        if tr._in_tick:
+            tr._phase_s[self.name] = tr._phase_s.get(self.name, 0.0) \
+                + (t1 - self.t0) / 1e9
+        tr._record(Span(self.name, (self.t0 - tr.epoch_ns) / 1e9,
+                        (t1 - tr.epoch_ns) / 1e9, tr._depth, tr.n_ticks,
                         self.attrs))
-        return False
-
-
-class _DeviceWaitCM:
-    """The ``device_wait`` span of ``Tracer.device_wait``."""
-
-    __slots__ = ("tr", "clock", "span")
-
-    def __init__(self, tr: "Tracer", clock: Optional[DeviceClock]):
-        self.tr = tr
-        self.clock = clock
-
-    def __enter__(self):
-        self.span = self.tr.span("device_wait")
-        self.span.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        if self.clock is not None:
-            self.clock.wait()
-        self.span.__exit__(*exc)
-        if self.clock is not None:
-            self.tr._device_s += self.clock.seconds()
         return False
 
 
@@ -244,21 +276,27 @@ class _TickCM:
         tr._phase_s = {}
         tr._tick_attrs = {}
         tr._device_s = 0.0
+        tr._in_tick = True
         tr._depth += 1
-        self.t0 = tr._now() - tr.epoch
+        self.t0 = tr._now_ns()
+        tr._push("tick", self.t0)
         return self
 
     def __exit__(self, *exc):
         tr = self.tr
-        t1 = tr._now() - tr.epoch
+        tr._read_clocks()
+        t1 = tr._now_ns()
+        tr._pop(t1)
         tr._depth -= 1
+        tr._in_tick = False
         tick = tr.n_ticks
-        tr._record(Span("tick", self.t0, t1, tr._depth, tick, None))
-        dur = t1 - self.t0
+        t0, t1 = (self.t0 - tr.epoch_ns) / 1e9, (t1 - tr.epoch_ns) / 1e9
+        tr._record(Span("tick", t0, t1, tr._depth, tick, None))
+        dur = t1 - t0
         device = tr._device_s
         entry = {
             "tick": tick,
-            "t0_s": self.t0,
+            "t0_s": t0,
             "dur_ms": dur * 1e3,
             "device_ms": device * 1e3,
             "host_ms": max(dur - device, 0.0) * 1e3,
@@ -270,27 +308,29 @@ class _TickCM:
         return False
 
 
-class Tracer:
+class Tracer(CountingTracer):
     """The recording tracer (ObsConfig(enabled=True)).
 
-    One per engine; not thread-safe (the tick loop is single-threaded host
-    code). ``spans`` and ``events`` hold the raw record; ``tick_stats`` is
-    the per-tick aggregate (host_ms, device_ms, padding waste, row counts)
-    and the exporters (``obs.export``) turn the record into Perfetto and
-    JSONL files."""
+    One per engine (or one shared by a disagg pool's two engines); not
+    thread-safe (the tick loop is single-threaded host code). ``spans``
+    and ``events`` hold the raw record; ``tick_stats`` is the per-tick
+    aggregate (host_ms, device_ms, padding waste, row counts) and the
+    exporters (``obs.export``) turn the record into Perfetto and JSONL
+    files."""
 
-    _now = staticmethod(time.perf_counter)
+    enabled = True
 
     def __init__(self, cfg: Optional[ObsConfig] = None):
+        super().__init__()
         self.cfg = cfg if cfg is not None else ObsConfig(enabled=True)
-        self.enabled = True
         self.reset()
 
     # --- lifecycle --------------------------------------------------------
     def reset(self) -> None:
-        """A fresh measurement window (``Engine.reset_metrics``); the epoch
-        restarts, so exported timestamps are relative to the window."""
-        self.epoch = self._now()
+        """A fresh measurement window (``Engine.reset_metrics``): the epoch
+        restarts, so exported timestamps are relative to the window; the
+        phase totals run on."""
+        self.epoch_ns = self._now_ns()
         self.spans: List[Span] = []
         self.events: List[Event] = []
         self.tick_stats: List[dict] = []
@@ -300,6 +340,8 @@ class Tracer:
         self._phase_s: Dict[str, float] = {}
         self._tick_attrs: dict = {}
         self._device_s = 0.0
+        self._in_tick = False
+        self._clocks: List[DeviceClock] = []
 
     def _record(self, item) -> None:
         store = self.spans if type(item) is Span else self.events
@@ -310,16 +352,17 @@ class Tracer:
 
     # --- spans ------------------------------------------------------------
     def span(self, name: str, **attrs):
-        """Open a phase span; nests (depth tracked) and records on exit."""
+        """Open a phase span; nests (depth tracked) and records on exit.
+        With ``tick_spans`` off only the phase totals run."""
         if not self.cfg.tick_spans:
-            return NULL_SPAN
+            return CountingTracer.span(self, name)
         return _SpanCM(self, name, attrs or None)
 
     def tick(self):
         """Open one engine-tick span; on exit a tick_stats entry with host
         and device attribution is folded."""
         if not self.cfg.tick_spans:
-            return NULL_SPAN
+            return CountingTracer.span(self, "tick")
         return _TickCM(self)
 
     def tick_attrs(self, **attrs) -> None:
@@ -329,24 +372,33 @@ class Tracer:
 
     # --- device time ------------------------------------------------------
     def device_clock(self, device: torch.device) -> Optional[DeviceClock]:
-        """A started DeviceClock for one step on ``device``, or None when
-        ``fence_device`` is off (no event, no wait)."""
-        if not self.cfg.fence_device:
+        """A started DeviceClock for one step on ``device`` (None without
+        ``tick_spans``: no tick entry would take its time)."""
+        if not self.cfg.tick_spans:
             return None
-        return DeviceClock(device)
+        return DeviceClock(self, device.type == "cuda")
 
-    def device_wait(self, clock: Optional[DeviceClock]):
-        """The ``device_wait`` span: on exit it waits for ``clock``'s step
-        (where there is one) and adds its device time to the current
-        tick."""
-        return _DeviceWaitCM(self, clock)
+    def _read_clocks(self) -> None:
+        """Read every stopped clock whose end has completed (no wait) into
+        its own tick: the current one, or the entry already folded."""
+        keep = []
+        for c in self._clocks:
+            if not c.done():
+                keep.append(c)
+            elif c.tick >= self.n_ticks:
+                self._device_s += c.seconds()
+            else:
+                e = self.tick_stats[c.tick]
+                e["device_ms"] += c.seconds() * 1e3
+                e["host_ms"] = max(e["dur_ms"] - e["device_ms"], 0.0)
+        self._clocks[:] = keep
 
     # --- request timeline -------------------------------------------------
     def event(self, rid: int, name: str, **attrs) -> None:
         """One request-lifecycle instant on request ``rid``'s timeline."""
         if not self.cfg.timeline:
             return
-        self._record(Event(rid, name, self._now() - self.epoch,
+        self._record(Event(rid, name, (self._now_ns() - self.epoch_ns) / 1e9,
                            self.n_ticks, attrs or None))
 
     def timeline(self, rid: int) -> List[Event]:
@@ -390,13 +442,13 @@ class Tracer:
 
 
 def make_tracer(cfg: Optional[ObsConfig]):
-    """ObsConfig -> NULL_TRACER (disabled; the shared no-op singleton) or
-    a fresh recording Tracer. ``profile`` implies tracing: attainment
-    joins the static cost with the ticks' device time."""
+    """ObsConfig -> a fresh CountingTracer (tracing off) or a fresh
+    recording Tracer. ``profile`` implies tracing: attainment joins the
+    static cost with the ticks' device time."""
     if cfg is None or not (cfg.enabled or cfg.profile):
-        return NULL_TRACER
+        return CountingTracer()
     return Tracer(cfg)
 
 
-__all__ = ["DeviceClock", "Event", "NULL_SPAN", "NULL_TRACER", "NullTracer",
-           "Span", "Tracer", "make_tracer"]
+__all__ = ["CountingTracer", "DeviceClock", "Event", "PHASES", "Span",
+           "Tracer", "make_tracer", "now_s"]

@@ -160,10 +160,12 @@ class MergedCollector:
     def summary(self) -> dict:
         """The decode engine's summary (TPOT and the prefill-interference
         split live there), with the pool-wide counters and end-to-end
-        latency percentiles recomputed over the MERGED request set, the
+        latency percentiles recomputed over the MERGED request set (the
+        queue waits too: a request is admitted on either engine), the
         handoff counters, and the prefill engine's own summary under
         ``"prefill_engine"``."""
         out = self._d.summary()
+        waits = self._p.queue_waits() + self._d.queue_waits()
         done = [r for r in self.requests.values()
                 if r.finished_at is not None]
         ttfts = [r.ttft for r in done if r.ttft is not None]
@@ -180,6 +182,8 @@ class MergedCollector:
             "ttft_p99_ms": _ms(percentile(ttfts, 99)),
             "latency_p50_ms": _ms(percentile(lats, 50)),
             "latency_p99_ms": _ms(percentile(lats, 99)),
+            "queue_wait_p50_ms": _ms(percentile(waits, 50)),
+            "queue_wait_p99_ms": _ms(percentile(waits, 99)),
             "prefill_chunks": self.prefill_chunks,
             "evictions": self.evictions,
             "prefix_lookups": self.prefix_lookups,

@@ -30,14 +30,17 @@ pipeline: overlap ticks and device-resident decode bursts, whose tokens
 the host replays through the synchronous commit path (see the section
 "asynchronous tick pipeline" below).
 
-``ServeConfig.obs`` turns on tracing (repro_torch.obs): every tick runs
-in the tracer's ``tick`` span, its phases in phase spans (schedule,
-admit, draft, batch_assemble, device_dispatch, device_wait, sample_sync,
-postprocess) with the tick's attributes, and each request's lifecycle
-events (arrival, admitted, prefix_hit, prefill_chunk, first_token,
-preempted, replay_done, spec_*, cow, finish) land on its timeline;
-``ObsConfig.profile`` (paged mode) adds the roofline profiler. The
-default tracer is the shared no-op ``NULL_TRACER``.
+Every tick runs in the tracer's ``tick`` phase and its host work in the
+phases of repro_torch.obs (schedule, admit, draft, batch_assemble,
+device_dispatch or graph_dispatch, sample_sync, device_wait,
+postprocess), in every tick kind: the default ``CountingTracer`` keeps
+the engine's seconds by phase, from which each request's record takes
+its own (``serve.metrics``: admission to finish, beside its queue wait).
+``ServeConfig.obs`` turns on the recording tracer: those phases as spans
+with the tick's attributes, and each request's lifecycle events
+(arrival, admitted, prefix_hit, prefill_chunk, first_token, preempted,
+replay_done, spec_*, cow, finish) on its timeline; ``ObsConfig.profile``
+(paged mode) adds the roofline profiler.
 
 The paged engine also carries the disagg handoff seam (serve.disagg):
 ``submit_prefill`` admits a request for prefill only, which parks at
@@ -136,8 +139,8 @@ class Engine:
         ``drafter`` injects a ready repro_torch.spec drafter; otherwise one
         is built from the spec config (``draft_params`` are the weights of
         the small model for spec.drafter='model'; they move to
-        ``device``). ``tracer`` injects a shared obs.Tracer; otherwise one
-        is made from ``scfg.obs`` (the no-op NULL_TRACER by default)."""
+        ``device``). ``tracer`` injects a shared obs tracer; otherwise one
+        is made from ``scfg.obs`` (a CountingTracer by default)."""
         paged_only = [] if scfg.paged else _paged_only(scfg)
         if paged_only:
             raise ValueError(f"{', '.join(paged_only)} requires the paged "
@@ -158,8 +161,8 @@ class Engine:
         self.model = Model(cfg)
         self.params = _to(params, self.device)
         # tracing (repro_torch.obs): the instrumented tick path calls
-        # through unconditionally; the null tracer makes every hook a
-        # shared no-op
+        # through unconditionally; the counting tracer only moves its
+        # phase clock
         self.tracer = tracer if tracer is not None \
             else make_tracer(scfg.obs)
         self.metrics = metrics_mod.MetricsCollector(cfg, scfg)
@@ -293,12 +296,14 @@ class Engine:
             return False                       # queue full: shed load
         self._requests[req.rid] = req
         n_prompt = len(np.asarray(req.prompt))
-        self.metrics.on_arrival(req.rid, n_prompt)
+        req.metrics = self.metrics.on_arrival(req.rid, n_prompt,
+                                              req.submitted_at)
         self.tracer.event(req.rid, "arrival", prompt_len=n_prompt)
         return True
 
     def forget(self, rid: int) -> None:
-        """Drop a finished request's record (and its metrics entry)."""
+        """Drop a finished request's record (and its metrics entry; the
+        Request keeps its own, ``Request.metrics``)."""
         req = self._requests.get(rid)
         if req is not None and req.done:
             del self._requests[rid]
@@ -355,7 +360,9 @@ class Engine:
         a sampled request is served greedy."""
         B = self.scfg.max_batch
         if self.cfg.n_codebooks:
-            tok = last_logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            tok = last_logits.argmax(dim=-1).to(torch.int32)
+            with self.tracer.device_wait():
+                tok = tok.cpu().numpy()
             return tok, np.zeros((B,), np.float32)
         temp = np.zeros((B,), np.float32)
         top_k = np.zeros((B,), np.int32)
@@ -371,8 +378,10 @@ class Engine:
             ctr = self._draw_ctr.get(req.rid, 0)
             self._draw_ctr[req.rid] = ctr + 1
             keys[slot] = sampling.request_key(sp.seed, req.rid, ctr)
-        return self.sampler(last_logits, self._presence, temp, top_k,
-                            top_p, rep, keys)
+        tok, lp = self.sampler.launch(last_logits, self._presence, temp,
+                                      top_k, top_p, rep, keys)
+        with self.tracer.device_wait():
+            return tok.cpu().numpy(), lp.cpu().numpy()
 
     def _append_token(self, req: Request, slot: int, tok,
                       lp: float) -> str:
@@ -553,6 +562,7 @@ class Engine:
         with tr.span("schedule"):
             with tr.span("admit"):
                 for e in self.sched.admit():
+                    self.metrics.on_admit(e.req.rid)
                     self._seed_presence(e.slot, e.req)
                     tr.event(e.req.rid, "admitted", slot=e.slot,
                              cached=e.cached_len, replay=e.replay)
@@ -611,12 +621,12 @@ class Engine:
             # paired engine
             self._tick_overlap = bool(prefill_plan) \
                 or self.external_prefill_overlap
+            proposals: Dict[int, tuple] = {}
 
         # ---- 2) drafting (spec only) ----------------------------------
         # rows replaying after eviction re-feed committed tokens through
         # the same verify math that first wrote their KV ("resync":
         # forced acceptance, no emission)
-        proposals: Dict[int, tuple] = {}
         if spec is not None and run_rows:
             with tr.span("draft", rows=len(run_rows), k=K):
                 items = []
@@ -695,18 +705,19 @@ class Engine:
                     pad_waste_frac=1.0 - valid_tokens / denom if denom
                     else 0.0,
                     n_keys=batch.live_keys(self.scfg.block_size))
+            # the rows the step's logits are sampled for
+            sample_pairs: List[Tuple[int, Request]] = []
+            completing = set()
+            for e, pos, valid in prefill_plan:
+                if pos + valid >= len(e.prefill_tokens()):
+                    completing.add(e.req.rid)
+                    if not e.replay:
+                        sample_pairs.append((e.slot, e.req))
+            if spec is None:
+                sample_pairs.extend((e.slot, e.req) for e in run_rows)
         out = self.runner.step(batch)
 
         # ---- 4) sample + commit ----------------------------------------
-        sample_pairs: List[Tuple[int, Request]] = []
-        completing = set()
-        for e, pos, valid in prefill_plan:
-            if pos + valid >= len(e.prefill_tokens()):
-                completing.add(e.req.rid)
-                if not e.replay:
-                    sample_pairs.append((e.slot, e.req))
-        if spec is None:
-            sample_pairs.extend((e.slot, e.req) for e in run_rows)
         tok_np = lp_np = None
         if sample_pairs:
             with tr.span("sample_sync", rows=len(sample_pairs)):
@@ -825,7 +836,9 @@ class Engine:
         tail's blocks, unpin."""
         if not rows:
             return
-        logits = out.logits.float().cpu().numpy()   # one copy for all rows
+        logits = out.logits.float()
+        with self.tracer.device_wait():
+            logits = logits.cpu().numpy()          # one copy for all rows
         kv_read = 0.0
         drafted = accepted = emitted_total = 0
         for e in rows:
@@ -939,10 +952,11 @@ class Engine:
     # entry-identity check, and its stale KV writes are never read: the
     # sync path republishes host-truth lens and tables, and a freed block
     # is reused only by steps queued behind the in-flight one on the same
-    # stream. Under tracing an async tick's phases run in the reference's
-    # spans (schedule, batch_assemble, device_dispatch, sample_sync with
-    # the tick it reconciles, device_wait, postprocess) and a burst's
-    # tick records its device iterations as ``device_ticks``.
+    # stream. An async tick's phases are the sync tick's (schedule, with
+    # the choice of flavor; batch_assemble; graph_dispatch, the runner's
+    # graph work; sample_sync with the tick it reconciles, around
+    # device_wait; postprocess), and under tracing a burst's tick records
+    # its device iterations as ``device_ticks``.
 
     def flush_async(self) -> None:
         """Reconcile any in-flight overlap tick now, so that out-of-band
@@ -954,24 +968,23 @@ class Engine:
 
     def _tick_paged_async(self) -> List[int]:
         acfg = self._async
-        self._async_tick_no += 1
-        pre = self._flushed_finished
-        self._flushed_finished = []
-        force = acfg.sync_every > 0 \
-            and self._async_tick_no % acfg.sync_every == 0
-        rows = None if force else self._async_decode_rows()
+        with self.tracer.span("schedule"):
+            self._async_tick_no += 1
+            pre = self._flushed_finished
+            self._flushed_finished = []
+            force = acfg.sync_every > 0 \
+                and self._async_tick_no % acfg.sync_every == 0
+            rows = None if force else self._async_decode_rows()
         if rows is None:
             fin = self._reconcile_pending()
             self._async_stats["sync_ticks"] += 1
             return pre + fin + self._tick_paged()
         if acfg.max_device_ticks > 1 and self.mesh is None:
             # loop mode wants committed state: flush the pending overlap
-            # tick, drop rows it finished, then burst on the device (a
+            # tick, then burst on the device over the rows it left (a
             # sharded engine keeps loop mode off, as the reference's)
             fin = self._reconcile_pending()
-            rows = [e for e in rows
-                    if self.sched.active.get(e.req.rid) is e]
-            out = self._tick_async_loop(rows) if rows else None
+            out = self._tick_async_loop(rows)
             if out is not None:
                 return pre + fin + out
             self._async_stats["sync_ticks"] += 1
@@ -1020,20 +1033,19 @@ class Engine:
         self._pending = None
         tr = self.tracer
         finished: List[int] = []
-        host = pend["host"]
         with tr.span("sample_sync", rows=len(pend["entries"]),
                      reconciles_tick=pend["tick"]):
-            with tr.device_wait(host.clock):
-                tok_np, lp_np = host.wait()
-        live = [e for e in pend["entries"]
-                if self.sched.active.get(e.req.rid) is e]
-        prev = self._tick_overlap
-        self._tick_overlap = pend["overlap"]
-        try:
-            with tr.span("postprocess"):
+            with tr.device_wait():
+                tok_np, lp_np = pend["host"].wait()
+        with tr.span("postprocess"):
+            live = [e for e in pend["entries"]
+                    if self.sched.active.get(e.req.rid) is e]
+            prev = self._tick_overlap
+            self._tick_overlap = pend["overlap"]
+            try:
                 self._commit_decode(live, tok_np, lp_np, finished)
-        finally:
-            self._tick_overlap = prev
+            finally:
+                self._tick_overlap = prev
         return finished
 
     def _sampling_arrays(self, rows: List[SchedEntry]):
@@ -1115,12 +1127,14 @@ class Engine:
                               pad_waste_frac=1.0 - len(rows) / B,
                               n_keys=batch.live_keys(scfg.block_size),
                               device_ticks=1, async_mode="overlap")
+            entries = list(rows)
+            rids = frozenset(e.req.rid for e in rows)
+            chained = pend["tok"] if pend is not None and chain.any() \
+                else None
         tok_dev, lp_dev, host = self.runner.graph_step(
             batch, sampled, keys, temp, top_k, top_p, chain=chain,
-            pending=pend["tok"] if pend is not None and chain.any()
-            else None)
-        new_pend = {"entries": list(rows),
-                    "rids": frozenset(e.req.rid for e in rows),
+            pending=chained)
+        new_pend = {"entries": entries, "rids": rids,
                     "tok": tok_dev, "lp": lp_dev, "host": host,
                     "tick": getattr(tr, "n_ticks", 0),
                     "overlap": self._tick_overlap}
@@ -1133,13 +1147,19 @@ class Engine:
                          ) -> Optional[List[int]]:
         """Device-resident burst: chain up to max_device_ticks decode
         iterations on the device (one host wait), then replay the emitted
-        tokens through the synchronous commit path. Returns None (state
-        untouched) when the burst cannot pre-allocate without eviction."""
+        tokens through the synchronous commit path, over the rows still
+        active after the reconcile before it. Returns None (state
+        untouched) when no row is, or the burst cannot pre-allocate
+        without eviction."""
         tr = self.tracer
         scfg = self.scfg
         K = self._async.max_device_ticks
         B = scfg.max_batch
         with tr.span("schedule"):
+            rows = [e for e in rows
+                    if self.sched.active.get(e.req.rid) is e]
+            if not rows:
+                return None
             budgets: Dict[int, int] = {}
             need_blocks = 0
             for e in rows:
@@ -1205,22 +1225,21 @@ class Engine:
                           valid_tokens=len(rows),
                           pad_waste_frac=1.0 - len(rows) / B,
                           async_mode="loop")
-        with tr.span("device_dispatch", width=1, has_prefill=False,
-                     loop_k=k_burst):
-            host = self.runner.decode_burst(
-                sampled, K, self.pool.tables(), tok0, lens0, alive0, budget,
-                stops, stop_len, hist0, keys, temp, top_k, top_p, k_burst)
+            tables = self.pool.tables()
+        host = self.runner.decode_burst(
+            sampled, K, tables, tok0, lens0, alive0, budget, stops,
+            stop_len, hist0, keys, temp, top_k, top_p, k_burst)
         finished: List[int] = []
         with tr.span("sample_sync", rows=len(rows),
                      reconciles_tick=getattr(tr, "n_ticks", 0)):
-            with tr.device_wait(host.clock):
+            with tr.device_wait():
                 em_np, lp_np, n_dev = host.wait()
-        iters_dev = int(n_dev.max()) if rows else 0
-        self._loop_device_ticks += iters_dev
-        self._async_stats["loop_bursts"] += 1
-        self._async_stats["loop_device_ticks"] += iters_dev
-        tr.tick_attrs(device_ticks=max(iters_dev, 1))
         with tr.span("postprocess"):
+            iters_dev = int(n_dev.max())
+            self._loop_device_ticks += iters_dev
+            self._async_stats["loop_bursts"] += 1
+            self._async_stats["loop_device_ticks"] += iters_dev
+            tr.tick_attrs(device_ticks=max(iters_dev, 1))
             committed: Dict[int, int] = {}
             for e in rows:
                 s = e.slot
@@ -1382,8 +1401,8 @@ class Engine:
         if m is None:
             # the source collector no longer tracks it (reset or
             # forgotten): make a record so the finish-side accounting lands
-            self.metrics.on_arrival(rid,
-                                    len(np.asarray(req.prompt).reshape(-1)))
+            req.metrics = self.metrics.on_arrival(
+                rid, len(np.asarray(req.prompt).reshape(-1)))
             if req.tokens_out:
                 self.metrics.on_first_token(rid)
                 self.metrics.requests[rid].n_generated = len(req.tokens_out)
@@ -1435,21 +1454,29 @@ class Engine:
             return False
         self._requests[req.rid] = req
         self._active[req.rid] = req
-        self.metrics.on_arrival(req.rid, len(prompt))
-        self.tracer.event(req.rid, "arrival", prompt_len=len(prompt))
-        self.tracer.event(req.rid, "admitted", slot=slot)
+        req.metrics = self.metrics.on_arrival(req.rid, len(prompt),
+                                              req.submitted_at)
+        self.metrics.on_admit(req.rid)
+        tr = self.tracer
+        tr.event(req.rid, "arrival", prompt_len=len(prompt))
+        tr.event(req.rid, "admitted", slot=slot)
         # prefill into a batch-1 cache, then splice that row into the live
         # cache at ``slot`` (slots advance independently via lens[b])
-        tmp = self.model.init_cache(1, len(prompt), device=self.device)
-        with torch.no_grad():
-            logits, tmp = self.model.prefill(
-                self.params, torch.tensor(prompt[None], device=self.device),
-                tmp)
-        self.model.merge_slot(self.cache, tmp, slot, len(prompt))
+        with tr.span("device_dispatch", rows=1):
+            tmp = self.model.init_cache(1, len(prompt), device=self.device)
+            with torch.no_grad():
+                logits, tmp = self.model.prefill(
+                    self.params,
+                    torch.tensor(prompt[None], device=self.device), tmp)
+            self.model.merge_slot(self.cache, tmp, slot, len(prompt))
+            last = logits[0, 0].float() if not self.cfg.n_codebooks \
+                else logits[0, 0].argmax(dim=-1).to(torch.int32)
+        with tr.device_wait():
+            last = last.cpu().numpy()
         self._seed_presence(slot, req)
         if self.cfg.n_codebooks:
             # greedy only: a per-codebook argmax
-            tok = logits[0, 0].argmax(dim=-1).to(torch.int32).cpu().numpy()
+            tok = last
             lp = 0.0
         else:
             # the first token is drawn on the host, from a per-request
@@ -1461,8 +1488,7 @@ class Engine:
                     spawn_key=(req.rid & 0xFFFFFFFF,))))
             seen = prompt.astype(np.int64) \
                 if sp.repetition_penalty != 1.0 else ()
-            tok, lp = sampling.sample_np(
-                logits[0, 0].float().cpu().numpy(), sp, rng, seen=seen)
+            tok, lp = sampling.sample_np(last, sp, rng, seen=seen)
         status = self._append_token(req, slot, tok, lp)
         if status != "stop":
             self.metrics.on_first_token(req.rid)
@@ -1480,10 +1506,10 @@ class Engine:
         if not self._active:
             return finished
         tr = self.tracer
-        reqs = list(self._active.values())
-        slots = {req.rid: self.alloc.active[req.rid] for req in reqs}
         B = self.scfg.max_batch
         with tr.span("batch_assemble"):
+            reqs = list(self._active.values())
+            slots = {req.rid: self.alloc.active[req.rid] for req in reqs}
             nc = self.cfg.n_codebooks
             tok = np.zeros((B, 1, nc) if nc else (B, 1), np.int32)
             for req in reqs:
@@ -1499,9 +1525,6 @@ class Engine:
                     self.cache)
             if clock is not None:
                 clock.stop()
-        if clock is not None:
-            with tr.device_wait(clock):
-                pass
         with tr.span("sample_sync", rows=len(reqs)):
             tok_np, lp_np = self._sample_rows(
                 [(slots[req.rid], req) for req in reqs], logits[:, 0])

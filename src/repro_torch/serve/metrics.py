@@ -13,6 +13,17 @@ metadata all read the same registry. With tracing on, ``summary()`` adds
 the tracer's ``ticks`` and ``phase_ms_per_tick`` and, with profiling, the
 per-bucket ``bucket_attainment``.
 
+Each request's record (``RequestMetrics``, also ``Request.metrics``, so it
+outlives ``Engine.forget``) carries its stamps on one clock, the tracer's
+(``obs.trace.now_s``, ``time.perf_counter_ns``): ``submitted_at`` (the
+front end's submit, before any backlog), ``arrival`` (the engine's
+queue), ``admitted_at`` (its first slot), ``first_token_at``,
+``finished_at``, and ``phase_s``, the engine's seconds by phase from its
+admission to its finish (the difference of the always-on phase totals).
+The summary adds the queue wait's percentiles and the window's phase
+totals; the registry, ``request_queue_wait_seconds`` and
+``engine_phase_seconds_total{phase=...}``.
+
 ``fleet_summary`` aggregates several collectors (fleet replicas, or a
 disagg pool's merged view) into one fleet view.
 
@@ -21,13 +32,14 @@ Empty windows report ``None`` (explicit null), never a fake 0."""
 from __future__ import annotations
 
 import dataclasses
-import time
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.obs.registry import Registry
+from repro_torch.obs.trace import now_s
 from repro_torch.serve import kv_cache
 
 
@@ -87,9 +99,16 @@ class RequestMetrics:
     rid: int
     arrival: float
     prompt_len: int = 0
+    submitted_at: Optional[float] = None    # front end's submit (arrival
+    #                                         when the engine is called)
+    admitted_at: Optional[float] = None     # its first slot
     first_token_at: Optional[float] = None
     last_token_at: Optional[float] = None   # inter-token gap frontier
     finished_at: Optional[float] = None
+    # the engine's seconds by phase from admission to finish
+    phase_s: Optional[Dict[str, float]] = None
+    phases_at_admit: Optional[Dict[str, int]] = dataclasses.field(
+        default=None, repr=False)
     n_generated: int = 0
     preemptions: int = 0
     cached_prompt_tokens: int = 0   # prefix-cache hit size at admission
@@ -98,6 +117,13 @@ class RequestMetrics:
     spec_accepted: int = 0          # ... accepted
     spec_emitted: int = 0           # tokens committed via verify passes
     spec_verifies: int = 0          # verify passes this request rode
+
+    @property
+    def queue_wait(self) -> Optional[float]:
+        """Submit to the first slot."""
+        if self.admitted_at is None:
+            return None
+        return self.admitted_at - self.submitted_at
 
     @property
     def ttft(self) -> Optional[float]:
@@ -149,16 +175,23 @@ def _ms(v: Optional[float]) -> Optional[float]:
     return None if v is None else v * 1e3
 
 
+def _phase_counters(tracer, since: Dict[str, int]) -> dict:
+    """``engine_phase_seconds_total``'s samples: the tracer's seconds by
+    phase since ``since`` (a ``snapshot``)."""
+    return {k: {"seconds_total": v}
+            for k, v in tracer.phase_seconds(since=since).items()}
+
+
 class MetricsCollector:
     """Accumulates per-request and per-step serving metrics. Every scalar
     lives in ``self.registry``; the legacy attribute names are read-only
     properties over its counters. ``pool``, ``prefix`` and ``profiler``
     (set by the paged engine) splice their stats into the registry and
-    ``summary()``; ``tracer`` (set by the engine) adds its per-tick
-    aggregates when it records."""
+    ``summary()``; ``tracer`` (set by the engine) gives the phase totals
+    (the window's: their difference since it was set) and, when it
+    records, its per-tick aggregates."""
 
-    def __init__(self, cfg: ModelConfig, scfg: ServeConfig,
-                 clock=time.monotonic):
+    def __init__(self, cfg: ModelConfig, scfg: ServeConfig, clock=now_s):
         self.cfg = cfg
         self.scfg = scfg
         self.clock = clock
@@ -195,6 +228,9 @@ class MetricsCollector:
             "inter-token gaps with no prefill in flight")
         self._tpot_overlap: List[float] = []
         self._tpot_steady: List[float] = []
+        self._h_qwait = r.histogram("request_queue_wait_seconds",
+                                    "submit to the first slot")
+        self._queue_wait: List[float] = []
         # prefix cache
         self._c_plook = r.counter("prefix_lookups_total",
                                   "admissions that consulted the index")
@@ -225,7 +261,8 @@ class MetricsCollector:
         self._prefix = None          # RadixPrefixCache (prefix_cache)
         self._mesh: dict = {}        # sharded serving: launch.mesh info
         self._profiler = None        # obs.ServingProfiler (obs.profile)
-        self.tracer = None           # obs.Tracer, set by the engine
+        self._tracer = None          # obs tracer, set by the engine
+        self._phase_base: Dict[str, int] = {}
         self._t0: Optional[float] = None
 
     @property
@@ -234,6 +271,35 @@ class MetricsCollector:
         fleet's aggregate needs the earliest start across collectors for
         one shared wall clock: per-replica walls do not add."""
         return self._t0
+
+    @property
+    def tracer(self):
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, tracer) -> None:
+        """The engine's tracer: the window's phase totals start here, as
+        ``engine_phase_seconds_total{phase=...}`` counters."""
+        self._tracer = tracer
+        self._phase_base = tracer.snapshot() if tracer is not None else {}
+        if tracer is not None:
+            # bound to the tracer and the window's base, not to the
+            # collector: no reference cycle, so an engine's collector (and
+            # the pool it reads) goes when the engine does
+            self.registry.labeled_counter_group(
+                "engine_phase", "phase", functools.partial(
+                    _phase_counters, tracer, self._phase_base))
+
+    def phase_seconds(self) -> Dict[str, float]:
+        """The engine's seconds by phase in this window."""
+        if self._tracer is None:
+            return {}
+        return self._tracer.phase_seconds(since=self._phase_base)
+
+    def queue_waits(self) -> List[float]:
+        """Every queue wait (seconds) of the requests admitted in this
+        window."""
+        return list(self._queue_wait)
 
     # --- registry-backed live gauges -------------------------------------
     @property
@@ -342,13 +408,32 @@ class MetricsCollector:
         return self._c_savings.value
 
     # --- request lifecycle events ---
-    def on_arrival(self, rid: int, prompt_len: int) -> None:
+    def on_arrival(self, rid: int, prompt_len: int,
+                   submitted_at: Optional[float] = None) -> RequestMetrics:
+        """A request enters the engine's queue; ``submitted_at`` is its
+        front end's submit (default: now). Returns its record."""
         at = self.clock()
         if self._t0 is None:
             self._t0 = at
         self._c_arrive.inc()
-        self.requests[rid] = RequestMetrics(rid=rid, arrival=at,
-                                            prompt_len=prompt_len)
+        r = self.requests[rid] = RequestMetrics(
+            rid=rid, arrival=at, prompt_len=prompt_len,
+            submitted_at=at if submitted_at is None else submitted_at)
+        return r
+
+    def on_admit(self, rid: int) -> None:
+        """A request takes a slot; its first admission stamps
+        ``admitted_at``, its queue wait and the phase totals its
+        ``phase_s`` starts from."""
+        r = self.requests.get(rid)
+        if r is None or r.admitted_at is not None:
+            return
+        r.admitted_at = self.clock()
+        if self._tracer is not None:
+            r.phases_at_admit = self._tracer.snapshot()
+        wait = r.queue_wait
+        self._queue_wait.append(wait)
+        self._h_qwait.observe(wait)
 
     def on_first_token(self, rid: int) -> None:
         r = self.requests[rid]
@@ -381,6 +466,11 @@ class MetricsCollector:
     def on_finish(self, rid: int) -> None:
         r = self.requests[rid]
         r.finished_at = self.clock()
+        if r.phases_at_admit is not None and self._tracer is not None:
+            now = self._tracer.snapshot()
+            r.phase_s = {k: (v - r.phases_at_admit.get(k, 0)) / 1e9
+                         for k, v in now.items()}
+            r.phases_at_admit = None
         self._c_finish.inc()
         for hist, v in ((self._h_ttft, r.ttft), (self._h_lat, r.latency),
                         (self._h_tpot, r.tpot),
@@ -451,7 +541,8 @@ class MetricsCollector:
 
     # --- summary ---
     def summary(self) -> dict:
-        """The reference's summary keys; ``ticks`` and
+        """The reference's summary keys, the queue wait's p50 and p99 and
+        the window's phase totals (``engine_phase_s``); ``ticks`` and
         ``phase_ms_per_tick`` with tracing on, ``bucket_attainment`` with
         profiling too."""
         done = [r for r in self.requests.values()
@@ -515,6 +606,9 @@ class MetricsCollector:
             # sharded serving (ServeConfig.mesh): axes, shard count, the
             # pool's KV-head shards; {} without a mesh
             "mesh": self.mesh,
+            "queue_wait_p50_ms": _ms(percentile(self._queue_wait, 50)),
+            "queue_wait_p99_ms": _ms(percentile(self._queue_wait, 99)),
+            "engine_phase_s": self.phase_seconds(),
         }
         if self.tracer is not None and self.tracer.enabled:
             out["ticks"] = self.tracer.tick_summary()

@@ -196,21 +196,20 @@ class RadixPrefixCache:
         return self._n_reclaimable
 
     def _count_reclaimable(self) -> int:
+        """Indexed blocks less the locked ones: a node is locked when it
+        or a descendant is referenced, so the locked nodes are the
+        referenced ones and their ancestors, found up the parent links,
+        each node once (no recursion: a chain of cached blocks is as deep
+        as its sequence is long)."""
         ref = self.pool.ref
-
-        def walk(node: _Node) -> Tuple[int, bool]:
-            count, child_locked = 0, False
-            for c in node.children.values():
-                n, lk = walk(c)
-                count += n
-                child_locked |= lk
-            locked = child_locked or (
-                node is not self.root and ref.get(node.block, 0) > 0)
-            if node is not self.root and not locked:
-                count += 1
-            return count, locked
-
-        return walk(self.root)[0]
+        locked = set()
+        for b, node in self._by_block.items():
+            if ref.get(b, 0) <= 0:
+                continue
+            while node is not self.root and node not in locked:
+                locked.add(node)
+                node = node.parent
+        return len(self._by_block) - len(locked)
 
     def reclaim(self, n: int) -> List[int]:
         """Evict up to ``n`` LRU unreferenced LEAF blocks from the index

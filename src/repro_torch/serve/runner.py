@@ -38,13 +38,14 @@ bytes behind them are partitioned, so ``copy_blocks``, ``apply_perm`` and
 ``import_blocks_from`` act on every shard's slice alike. A mesh runner
 runs its async ticks eagerly (no CUDA graph) and has no decode bursts.
 
-Under tracing (``tracer``, repro_torch.obs) every dispatch runs in a
-``device_dispatch`` span and every wait for the device in a
-``device_wait`` span, and a ``DeviceClock`` measures each step's device
-time: on a CUDA device a pair of timing events on the stream around the
-step's launches (around the replays, never inside a capture). With
-tracing off, or ``ObsConfig.fence_device`` off, no event is made and no
-wait is added.
+The engine's tracer (``tracer``, repro_torch.obs) times the runner's
+host work by phase: an eager ``step`` in ``device_dispatch``, the graph
+work of ``decode_burst`` and ``graph_step`` in ``graph_dispatch``. Nothing
+here waits for the device. With tracing on a ``DeviceClock`` also times
+each step's device work: on a CUDA device a pair of timing events on the
+stream around the step's launches (around the replays, never inside a
+capture), which the tracer reads once the engine's own waits have passed
+them; with tracing off no event is made.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ from repro_torch.configs.base import ServeConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.kernels import build
 from repro_torch.models import transformer
-from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.obs.trace import CountingTracer
 from repro_torch.serve import sampling
 
 # row phases (StepBatch.phase values)
@@ -107,12 +108,10 @@ class _Layout:
 class HostCopy:
     """Device tensors on their way to the host: the copies are queued on
     the stream when this is made, and ``wait`` blocks until they landed
-    (on a CUDA device the one host wait of an async tick). ``clock`` is
-    the DeviceClock of the work that made them, under tracing."""
+    (on a CUDA device the one host wait of an async tick)."""
 
-    def __init__(self, host: List[torch.Tensor], event=None, clock=None):
+    def __init__(self, host: List[torch.Tensor], event=None):
         self._host, self._event = host, event
-        self.clock = clock
 
     def wait(self) -> List[np.ndarray]:
         if self._event is not None:
@@ -261,7 +260,7 @@ class ModelRunner:
         self.params = params if mesh is None else shd.shard_tree(
             params, shd.params_shardings(params, self.cfg, mesh,
                                          self.policy), mesh)
-        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.tracer = tracer if tracer is not None else CountingTracer()
         self.buckets = sorted({1, scfg.prefill_chunk}
                               | ({scfg.spec.k_max + 1}
                                  if scfg.spec is not None else set()))
@@ -374,18 +373,18 @@ class ModelRunner:
         dst.copy_(host, non_blocking=True)
         return layout.views(dst)
 
-    def _to_host(self, *tensors: torch.Tensor, clock=None) -> HostCopy:
+    def _to_host(self, *tensors: torch.Tensor) -> HostCopy:
         """Queue copies of ``tensors`` to the host (pinned buffers, on the
         current stream) and return without waiting."""
         if self.device.type != "cuda":
-            return HostCopy([t.clone() for t in tensors], clock=clock)
+            return HostCopy([t.clone() for t in tensors])
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 for t in tensors]
         for h, t in zip(host, tensors):
             h.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return HostCopy(host, event, clock)
+        return HostCopy(host, event)
 
     def _step_layout(self, width: int) -> _Layout:
         lay = self._layouts.get(width)
@@ -401,22 +400,20 @@ class ModelRunner:
         return lay
 
     # --- the one step -------------------------------------------------------
-    def step(self, batch: StepBatch, fence: bool = True) -> StepOutput:
+    def step(self, batch: StepBatch) -> StepOutput:
         """Republish host-truth lens/tables, run the step, return the
-        per-position and the last-valid logits.
-
-        Under tracing the step runs in a ``device_dispatch`` span and,
-        with ``fence`` (and ``ObsConfig.fence_device``), its device time
-        is measured and waited for in a ``device_wait`` span; the
-        untraced path never waits. (The reference's device ``tokens``
-        override comes with its first caller, ROADMAP queue 1 item 5: the
-        overlap tick here chains its token in ``graph_step``.)"""
+        per-position and the last-valid logits, without waiting for the
+        device. The host's issue runs in the ``device_dispatch`` phase;
+        under tracing a DeviceClock times the step's device work. (The
+        reference's device ``tokens`` override comes with its first
+        caller, ROADMAP queue 1 item 5: the overlap tick here chains its
+        token in ``graph_step``.)"""
         width = batch.tokens.shape[1]
         has_prefill = bool(np.any(batch.phase == PREFILL))
         tr = self.tracer
         with tr.span("device_dispatch", width=width,
                      has_prefill=has_prefill):
-            clock = tr.device_clock(self.device) if fence else None
+            clock = tr.device_clock(self.device)
             t = self._stage(self._step_layout(width), {
                 "lens": batch.row_start, "tables": batch.tables,
                 "n_valid": batch.n_valid, "tokens": batch.tokens,
@@ -434,10 +431,7 @@ class ModelRunner:
                                            device=self.device), idx]
             if clock is not None:
                 clock.stop()
-        self.n_steps += 1
-        if clock is not None:
-            with tr.device_wait(clock):
-                pass
+            self.n_steps += 1
         return StepOutput(logits=logits, last_logits=last)
 
     # --- the async engine's decode iteration -----------------------------
@@ -518,11 +512,11 @@ class ModelRunner:
         st.graph, st.tally = graph, tally
         self.graph_captures += 1
 
-    def _iterate(self, st: _Burst, n: int):
+    def _iterate(self, st: _Burst, n: int) -> None:
         """``n`` decode iterations on ``st``: replays of its graph back to
         back on a CUDA device (each counts the launches it makes), eager
-        iterations on the CPU. Returns the DeviceClock around them under
-        tracing (None otherwise)."""
+        iterations on the CPU; under tracing, one DeviceClock around
+        them."""
         clock = self.tracer.device_clock(self.device)
         if st.graph is None:
             for _ in range(n):
@@ -534,7 +528,6 @@ class ModelRunner:
             self.graph_replays += n
         if clock is not None:
             clock.stop()
-        return clock
 
     def _stage_burst(self, st: _Burst, tables: np.ndarray, tok0, lens0,
                      alive0, budget, stops, stop_len, hist0, keys, temp,
@@ -563,16 +556,19 @@ class ModelRunner:
         replayed ``k_burst`` times back to back, with no host wait between
         replays (an iteration after every row is dead changes nothing).
         Returns the host copy, in flight, of (emitted i32[B, k_max], lp
-        f32[B, k_max], n_emit i32[B])."""
+        f32[B, k_max], n_emit i32[B]). The host's work runs in the
+        ``graph_dispatch`` phase."""
         assert self.mesh is None, \
             "decode_burst is single-device (the async engine keeps loop " \
             "mode off under ServeConfig.mesh)"
-        st = self._burst(sampled, k_max)
-        self._stage_burst(st, tables, tok0, lens0, alive0, budget, stops,
-                          stop_len, hist0, keys, temp, top_k, top_p)
-        clock = self._iterate(st, k_burst)
-        return self._to_host(st.state["emitted"], st.state["lp"],
-                             st.state["n_emit"], clock=clock)
+        with self.tracer.span("graph_dispatch", width=1, has_prefill=False,
+                              loop_k=k_burst):
+            st = self._burst(sampled, k_max)
+            self._stage_burst(st, tables, tok0, lens0, alive0, budget, stops,
+                              stop_len, hist0, keys, temp, top_k, top_p)
+            self._iterate(st, k_burst)
+            return self._to_host(st.state["emitted"], st.state["lp"],
+                                 st.state["n_emit"])
 
     def graph_step(self, batch: StepBatch, sampled: bool, keys, temp,
                    top_k, top_p, chain: Optional[np.ndarray] = None,
@@ -585,11 +581,12 @@ class ModelRunner:
         previous tick's sampled tokens still on the device, instead of
         ``batch.tokens``. Counts one runner step, as ``step`` does. Returns
         (tokens i32[B], logprobs f32[B]) on the device and their host copy
-        in flight; nothing here waits for the device."""
-        st = self._burst(sampled, 1)
-        B = self.scfg.max_batch
-        alive = (batch.n_valid > 0).astype(np.int32)
-        with self.tracer.span("device_dispatch", width=1, has_prefill=False):
+        in flight; nothing here waits for the device. The host's work runs
+        in the ``graph_dispatch`` phase."""
+        with self.tracer.span("graph_dispatch", width=1, has_prefill=False):
+            st = self._burst(sampled, 1)
+            B = self.scfg.max_batch
+            alive = (batch.n_valid > 0).astype(np.int32)
             self._stage_burst(
                 st, batch.tables, batch.tokens[:, 0], batch.row_start,
                 alive, alive, np.full((B, STOP_NS, STOP_L), -1, np.int32),
@@ -599,11 +596,11 @@ class ModelRunner:
             if pending is not None:
                 tok = st.state["tok"]
                 tok.copy_(torch.where(st.state["chain"], pending, tok))
-            clock = self._iterate(st, 1)
+            self._iterate(st, 1)
             self.n_steps += 1
             tok = st.state["emitted"][:, 0].clone()
             lp = st.state["lp"][:, 0].clone()
-            return tok, lp, self._to_host(tok, lp, clock=clock)
+            return tok, lp, self._to_host(tok, lp)
 
     # --- block maintenance --------------------------------------------------
     def apply_perm(self, perm: np.ndarray) -> None:

@@ -210,10 +210,13 @@ class Sampler:
             return greedy_batch(logits)
         return sample_batch(logits, presence, temp, top_k, top_p, rep, keys)
 
-    def __call__(self, logits: torch.Tensor, presence: np.ndarray,
-                 temp: np.ndarray, top_k: np.ndarray, top_p: np.ndarray,
-                 rep: np.ndarray, keys: np.ndarray
-                 ) -> Tuple[np.ndarray, np.ndarray]:
+    def launch(self, logits: torch.Tensor, presence: np.ndarray,
+               temp: np.ndarray, top_k: np.ndarray, top_p: np.ndarray,
+               rep: np.ndarray, keys: np.ndarray
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The tick's sample from host arrays: (tokens int32[B],
+        log-probabilities f32[B]) on the logits' device, not yet waited
+        for."""
         dev = logits.device
         greedy_only = not np.any(temp > 0) and np.all(rep == 1.0)
         t = (lambda a: None) if greedy_only \
@@ -221,7 +224,7 @@ class Sampler:
         tok, lp = self.device_call(
             logits, t(presence), t(temp), t(top_k), t(top_p), t(rep),
             t(keys.astype(np.int64)), greedy_only=greedy_only)
-        return tok.to(torch.int32).cpu().numpy(), lp.cpu().numpy()
+        return tok.to(torch.int32), lp
 
 
 # ---------------------------------------------------------------------------

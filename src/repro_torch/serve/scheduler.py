@@ -46,7 +46,10 @@ class Request:
     ``sampling.logprobs`` is set, ``logprobs_out[i]`` is the chosen-token
     log-probability of ``tokens_out[i]``; ``sampling.prompt_logprobs``
     fills ``prompt_logprobs_out[i]`` with the log-probability of
-    ``prompt[i]`` given ``prompt[:i]`` (index 0 is None — no prefix)."""
+    ``prompt[i]`` given ``prompt[:i]`` (index 0 is None — no prefix).
+    ``submitted_at`` is the front end's submit time (``obs.trace.now_s``;
+    None when the engine is called directly); ``metrics`` is the request's
+    ``serve.metrics.RequestMetrics`` record once the engine has it."""
     rid: int
     prompt: np.ndarray          # i32[S] (or [S, nc]: codebooks)
     max_new: int = 16
@@ -58,6 +61,9 @@ class Request:
     logprobs_out: List[float] = dataclasses.field(default_factory=list)
     prompt_logprobs_out: List[Optional[float]] = dataclasses.field(
         default_factory=list)
+    submitted_at: Optional[float] = None
+    metrics: Optional[object] = dataclasses.field(default=None, repr=False,
+                                                  compare=False)
 
 
 class State(enum.Enum):

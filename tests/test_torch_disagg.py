@@ -198,13 +198,20 @@ REGIMES = {
 }
 
 
+# what the port's summary adds to the reference's: the requests' queue
+# wait and the window's seconds by engine phase
+PORT_SUMMARY_KEYS = {"queue_wait_p50_ms", "queue_wait_p99_ms",
+                     "engine_phase_s"}
+
+
 @pytest.mark.parametrize("regime", list(REGIMES))
 def test_regime_matches_reference(sides, regime):
     """Tokens identical to the reference's coordinator and to the port's
     single paged engine; the merged summary's integer counters equal the
     reference's (handoffs, blocks moved, decode steps, prefill chunks,
     evictions, prefix and spec counters, the interference split's sample
-    counts)."""
+    counts), its keys the reference's and exactly the port's additions
+    (``PORT_SUMMARY_KEYS``), each request's queue wait counted once."""
     kw, make_prompts, max_new = REGIMES[regime]
     ref, port = sides
     prompts = make_prompts(ref.cfg.vocab)
@@ -218,8 +225,12 @@ def test_regime_matches_reference(sides, regime):
     s, ws = coord.metrics.summary(), want_coord.metrics.summary()
     assert _ints(s) == _ints(ws)
     assert s["n_handoffs"] == len(prompts) and s["evictions"] == 0
-    assert set(s) == set(ws)
-    assert set(s["prefill_engine"]) == set(ws["prefill_engine"])
+    assert set(s) - set(ws) == PORT_SUMMARY_KEYS and set(ws) <= set(s)
+    assert set(s["prefill_engine"]) - set(ws["prefill_engine"]) \
+        == PORT_SUMMARY_KEYS
+    # each request is admitted once, on one of the two engines
+    assert len(coord.prefill.metrics.queue_waits()
+               + coord.decode.metrics.queue_waits()) == len(prompts)
     if regime == "prefix_cache":
         assert s["prefix_hits"] > 0
     if regime == "interference":

@@ -208,10 +208,17 @@ def test_cli_serves_the_recurrent_families(name, monkeypatch):
         assert str(got.value) == str(want.value)
 
 
+# what the port's summary adds to the reference's: the requests' queue
+# wait and the window's seconds by engine phase
+PORT_SUMMARY_KEYS = {"queue_wait_p50_ms", "queue_wait_p99_ms",
+                     "engine_phase_s"}
+
+
 @pytest.mark.parametrize("paged", [True, False])
 def test_summary_has_the_reference_keys(paged):
-    """The same keys as the reference's summary, the spec counters
-    included; the nested pool and index gauges too."""
+    """The reference's summary keys, the spec counters included, and
+    exactly the port's additions (``PORT_SUMMARY_KEYS``); the nested pool
+    and index gauges too."""
     cfg = get_config("nectar-relu-llama-smoke")
     jparams = JaxModel(cfg).init(jax.random.PRNGKey(0))
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams),
@@ -225,7 +232,8 @@ def test_summary_has_the_reference_keys(paged):
                  device="cpu")
     eng.run([Request(rid=0, prompt=prompt, max_new=3)])
     js, s = jeng.metrics.summary(), eng.metrics.summary()
-    assert set(s) == set(js) and SPEC_KEYS <= set(s)
+    assert set(s) - set(js) == PORT_SUMMARY_KEYS and set(js) <= set(s)
+    assert SPEC_KEYS <= set(s)
     assert set(s["kv_pool"]) == set(js["kv_pool"])
     assert set(s["prefix_index"]) == set(js["prefix_index"])
     for key in ("n_finished", "generated_tokens", "decode_steps",

@@ -126,8 +126,8 @@ def _port_serve(name, setting, model=1, moe_inputs=None):
     log = []
     step = eng.runner.step
 
-    def rec(batch, fence=True):
-        out = step(batch, fence)
+    def rec(batch):
+        out = step(batch)
         log.append(out.logits.clone())
         return out
     eng.runner.step = rec

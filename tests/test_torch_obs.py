@@ -1,5 +1,5 @@
 """The port's tracing and telemetry (repro_torch.obs) on the CPU, against
-the reference's (repro.obs).
+the reference's (repro.obs), and what the port adds to it.
 
 The same seeded prompts go through the reference's engine and the port's
 (``device="cpu"``, the reference's weights through
@@ -8,17 +8,22 @@ paged sync, speculative (n-gram), async overlap (K = 1), async loop
 (K = 8), prefix-cached and slot engines. Each request's lifecycle events
 (name, tick and attributes), the integer tick attributes tick for tick,
 the summary keys, the registry's counters and the Prometheus exposition
-(names and labels; values wherever they are not times) must be equal.
-Beside them: the tracer core, the disabled fast path, token identity with
+(names and labels; values wherever they are not times) must be equal;
+the port's additions (each request's queue wait, the engine's seconds by
+phase, the graph work's own phase) are listed exactly. Beside them: the
+tracer core, the counting tier (phases that tile each tick, each
+request's phase seconds, no wait added by tracing), token identity with
 tracing on and off, the exporters against ``tools/check_trace.py``, the
 registry, the metrics endpoint and the async engine's attribution.
 """
 
+import gc
 import importlib.util
 import json
 import os
 import time
 import urllib.request
+import weakref
 
 import jax
 import numpy as np
@@ -36,11 +41,12 @@ from repro.serve.scheduler import Request as JaxRequest
 from repro_torch.configs import get_config as torch_get_config
 from repro_torch.configs.base import (AsyncConfig, ObsConfig, ServeConfig,
                                       SpecConfig)
-from repro_torch.obs import (NULL_TRACER, Registry, Tracer, make_tracer,
-                             perfetto_trace, start_metrics_server,
-                             write_jsonl, write_perfetto)
+from repro_torch.obs import (PHASES, CountingTracer, Registry, Tracer,
+                             make_tracer, perfetto_trace,
+                             start_metrics_server, write_jsonl,
+                             write_perfetto)
 from repro_torch.obs.registry import escape_help, escape_label_value
-from repro_torch.obs.trace import NULL_SPAN, DeviceClock
+from repro_torch.obs.trace import DeviceClock
 from repro_torch.serve import metrics as metrics_mod
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.runner import DECODE
@@ -52,6 +58,35 @@ _TOOLS = os.path.join(os.path.dirname(os.path.dirname(
 _spec = importlib.util.spec_from_file_location("check_trace", _TOOLS)
 check_trace = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(check_trace)
+
+
+def _check_port_ordering(path, tmp_path):
+    """``check_trace``'s async ordering (``--expect-ordering``) on the
+    port's JSONL, its ``graph_dispatch`` spans (the async ticks' graph
+    work) counted as the dispatch of their tick: every ``sample_sync``
+    starts after the dispatch of the tick it reconciles closed."""
+    with open(path) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    for r in recs:
+        if r["kind"] == "span" and r["name"] == "graph_dispatch":
+            r["name"] = "device_dispatch"
+    out = tmp_path / ("ordering." + os.path.basename(path))
+    out.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    return check_trace.check_jsonl(str(out), expect_ordering=True)
+
+# what the port's summary adds to the reference's: the requests' queue
+# wait and the window's seconds by engine phase
+PORT_SUMMARY_KEYS = {"queue_wait_p50_ms", "queue_wait_p99_ms",
+                     "engine_phase_s"}
+# ... and its registry: the queue wait's histogram and a counter a phase
+PORT_METRICS = {"request_queue_wait_seconds"} | {
+    f'engine_phase_seconds_total{{phase="{p}"}}' for p in PHASES}
+PORT_TYPES = {"# TYPE request_queue_wait_seconds histogram",
+              "# TYPE engine_phase_seconds_total counter"}
+# the phases the port's ticks add to the reference's: the graph work of
+# the async ticks (the reference's jitted dispatch is device_dispatch)
+PORT_TICK_PHASES = {"overlap": {"graph_dispatch"},
+                    "loop": {"graph_dispatch"}}
 
 # the integer (and categorical) tick attributes held equal tick for tick
 TICK_KEYS = ("rows_prefill", "rows_decode", "rows_verify", "width",
@@ -226,17 +261,23 @@ def test_tick_attributes_equal_the_reference(nectar, case):
 def test_summary_and_registry_equal_the_reference(nectar, case):
     """The summary keys (``ticks`` and ``phase_ms_per_tick`` included),
     every registry counter and gauge, and the Prometheus exposition's
-    names, labels and TYPE lines; values wherever they are not times."""
+    names, labels and TYPE lines; values wherever they are not times. The
+    port adds exactly ``PORT_SUMMARY_KEYS``, ``PORT_METRICS`` (with their
+    series and ``PORT_TYPES``) and ``PORT_TICK_PHASES``."""
     (_, ref), (_, port) = _pair(nectar, case)
     rs, ps = ref.metrics.summary(), port.metrics.summary()
-    assert set(ps) == set(rs)
+    assert set(ps) - set(rs) == PORT_SUMMARY_KEYS and set(rs) <= set(ps)
     assert {"ticks", "phase_ms_per_tick"} <= set(ps)
     assert set(ps["ticks"]) == set(rs["ticks"])
     for key in ("n_ticks", "n_device_ticks"):
         assert ps["ticks"][key] == rs["ticks"][key]
-    assert set(ps["phase_ms_per_tick"]) == set(rs["phase_ms_per_tick"])
+    assert set(ps["phase_ms_per_tick"]) \
+        == set(rs["phase_ms_per_tick"]) | PORT_TICK_PHASES.get(case, set())
+    assert set(ps["engine_phase_s"]) == set(PHASES)
     rc, pc = ref.metrics.registry.collect(), port.metrics.registry.collect()
-    assert set(pc) == set(rc)
+    assert set(pc) - set(rc) == PORT_METRICS and set(rc) <= set(pc)
+    assert pc["request_queue_wait_seconds"]["count"] == len(
+        port.metrics.requests) > 0
     for name, v in rc.items():
         if isinstance(v, dict):            # a histogram
             assert pc[name]["count"] == v["count"], name
@@ -246,7 +287,11 @@ def test_summary_and_registry_equal_the_reference(nectar, case):
             assert pc[name] == v, name
     (rser, rtypes) = _prom(ref.metrics.registry.prometheus_text())
     (pser, ptypes) = _prom(port.metrics.registry.prometheus_text())
-    assert set(pser) == set(rser) and ptypes == rtypes
+    added = {n for n in set(pser) - set(rser)
+             if not n.startswith("request_queue_wait_seconds_")}
+    assert added == PORT_METRICS - {"request_queue_wait_seconds"}
+    assert set(rser) <= set(pser) and ptypes - rtypes == PORT_TYPES
+    assert rtypes <= ptypes
     for name, v in rser.items():
         if not _timed(name) or name.endswith("_count"):
             assert pser[name] == v, name
@@ -266,7 +311,8 @@ def test_registry_counters_reconcile_with_spec_events(nectar):
             assert e.attrs["rejected"] > 0
 
 
-@pytest.mark.parametrize("case", ["paged", "spec", "loop", "slot"])
+@pytest.mark.parametrize("case", ["paged", "spec", "overlap", "loop",
+                                  "slot"])
 def test_greedy_tokens_identical_tracing_on_off(nectar, case):
     """Tracing observes, it never schedules."""
     off, _ = _serve(nectar, "port", case, obs=())
@@ -281,8 +327,8 @@ def test_greedy_tokens_identical_tracing_on_off(nectar, case):
 
 def test_span_nesting_and_device_attribution():
     """Spans record at exit with their depth; a tick's device_ms is the
-    device time of its clocks (on the CPU the host time inside the
-    dispatch and the wait), host_ms the rest."""
+    device time of its clocks, read at its end (on the CPU the host time
+    of the dispatch), host_ms the rest."""
     tr = Tracer(ObsConfig(enabled=True))
     with tr.tick():
         with tr.span("schedule"):
@@ -292,7 +338,7 @@ def test_span_nesting_and_device_attribution():
             clock = tr.device_clock(torch.device("cpu"))
             time.sleep(0.002)
             clock.stop()
-        with tr.device_wait(clock):
+        with tr.device_wait():
             pass
         tr.tick_attrs(width=4, pad_waste_frac=0.5)
     assert [s.name for s in tr.spans] == ["admit", "schedule",
@@ -313,39 +359,90 @@ def test_span_nesting_and_device_attribution():
 
 
 def test_unfenced_step_dispatches_without_a_wait(nectar):
-    """``ModelRunner.step(fence=False)`` runs in its device_dispatch span
-    and returns without a device_wait span or a clock; the default waits
-    and reads the step's device time."""
+    """``ModelRunner.step`` runs in its device_dispatch span and returns
+    without a device_wait span: traced, its clock is read at the tick's
+    end (on the CPU, done at once); with the counting tracer it makes no
+    clock and only the phase total moves."""
     _, _, tcfg, tparams = nectar
-    eng = Engine(tcfg, tparams, ServeConfig(
-        paged=True, obs=ObsConfig(enabled=True), **BASE), device="cpu")
-    runner, tr = eng.runner, eng.tracer
-    batch = runner.new_batch(1, eng.pool.tables())
-    batch.add_row(0, DECODE, [5], 0)
-    for fence in (False, True):
+    for obs in (ObsConfig(enabled=True), ObsConfig()):
+        eng = Engine(tcfg, tparams, ServeConfig(paged=True, obs=obs,
+                                                **BASE), device="cpu")
+        runner, tr = eng.runner, eng.tracer
+        batch = runner.new_batch(1, eng.pool.tables())
+        batch.add_row(0, DECODE, [5], 0)
+        before = tr.snapshot()
         with tr.tick():
-            runner.step(batch, fence=fence)
-        names = [s.name for s in tr.spans if s.tick == tr.n_ticks - 1]
-        assert names.count("device_dispatch") == 1
-        assert ("device_wait" in names) == fence
-        assert (tr.tick_stats[-1]["device_ms"] > 0) == fence
+            runner.step(batch)
+        moved = {k for k, v in tr.phase_seconds(since=before).items() if v}
+        assert moved == {"tick", "device_dispatch"}
+        if obs.enabled:
+            names = [s.name for s in tr.spans if s.tick == tr.n_ticks - 1]
+            assert names.count("device_dispatch") == 1
+            assert "device_wait" not in names and not tr._clocks
+            assert tr.tick_stats[-1]["device_ms"] > 0
+        else:
+            assert tr.device_clock(eng.device) is None and tr.spans == ()
 
 
-def test_fence_off_makes_no_clock():
-    tr = Tracer(ObsConfig(enabled=True, fence_device=False))
-    assert tr.device_clock(torch.device("cpu")) is None
+class _StubTimingEvent:
+    """A CUDA timing event without a card: ``query`` reports its work done
+    from the second poll on; ``synchronize`` and ``wait`` are waits, and
+    counted; ``elapsed_time`` is 5 ms, and only once the end is done."""
+
+    waits = 0
+
+    def __init__(self, enable_timing=False):
+        self.polls = 0
+
+    def record(self, stream=None):
+        pass
+
+    def query(self):
+        self.polls += 1
+        return self.polls > 1
+
+    def synchronize(self):
+        type(self).waits += 1
+
+    def wait(self, stream=None):
+        type(self).waits += 1
+
+    def elapsed_time(self, end):
+        assert end.polls > 1, "a clock read before its end was done"
+        return 5.0
+
+
+def test_fence_off_makes_no_clock(monkeypatch):
+    """The no-wait rule in the tracer: the counting tier makes no clock; a
+    recording clock is never waited for. A step still running at its
+    tick's end stays pending and is read at a later tick's end, into its
+    own tick's entry."""
+    monkeypatch.setattr(torch.cuda, "Event", _StubTimingEvent,
+                        raising=False)
+    monkeypatch.setattr(_StubTimingEvent, "waits", 0)
+    assert CountingTracer().device_clock(torch.device("cuda")) is None
+    tr = Tracer(ObsConfig(enabled=True))
     with tr.tick():
-        with tr.device_wait(None):
-            pass
-    assert tr.tick_stats[0]["device_ms"] == 0.0
+        clock = tr.device_clock(torch.device("cuda"))
+        clock.stop()
+    assert tr.tick_stats[0]["device_ms"] == 0.0 and tr._clocks == [clock]
+    with tr.tick():
+        pass
+    first, second = tr.tick_stats
+    assert first["device_ms"] == 5.0 and second["device_ms"] == 0.0
+    assert first["host_ms"] == max(first["dur_ms"] - 5.0, 0.0)
+    assert not tr._clocks and _StubTimingEvent.waits == 0
 
 
 def test_device_clock_on_the_cpu_adds_dispatch_and_wait():
-    clock = DeviceClock(torch.device("cpu"))
+    """On the CPU a clock's device time is the host time of the step's
+    dispatch (its ops run there): done at once, nothing to wait for."""
+    tr = Tracer(ObsConfig(enabled=True))
+    clock = DeviceClock(tr, events=False)
     time.sleep(0.001)
     clock.stop()
-    clock.wait()
-    assert clock.seconds() >= 0.001
+    assert clock.done() and clock.seconds() >= 0.001
+    assert tr._clocks == [clock]
 
 
 def test_tracer_max_events_bound():
@@ -376,30 +473,265 @@ def test_torch_annotations_open_profiler_ranges():
 
 
 # ---------------------------------------------------------------------------
+# the counting tier: phases that tile each tick, each request's record
+
+
+def _port_engine(nectar, case, obs=None):
+    """The port's engine of ``case`` (tracing off by default)."""
+    _, _, tcfg, tparams = nectar
+    kw, lengths, max_new = CASES[case]
+    scfg = _scfg("port", kw, {} if obs is None else obs)
+    return Engine(tcfg, tparams, scfg, device="cpu"), \
+        _case_prompts(tcfg, lengths), max_new
+
+
+def _tick_kind(before: dict, after: dict, had_pending: bool) -> str:
+    """sync, reconcile (a sync tick that first commits an overlap tick's
+    tokens), overlap or burst, from the async counters' deltas."""
+    if after["loop_bursts"] > before["loop_bursts"]:
+        return "burst"
+    if after["overlap_ticks"] > before["overlap_ticks"]:
+        return "overlap"
+    return "reconcile" if had_pending else "sync"
+
+
+@pytest.mark.parametrize("case", ["paged", "overlap", "loop"])
+def test_each_tick_kind_is_tiled_by_its_phases(nectar, case):
+    """Every tick of every kind (sync, reconcile, overlap, burst) is tiled
+    by the phase clock: its phases' seconds sum to its wall on the
+    tracer's clock (to within 0.2 ms of a host clock around it), and the
+    tick's own statements outside every phase (``tick``) take at most 5%
+    of each kind's ticks. The last request arrives while the first two
+    decode, so an async engine's next tick reconciles in a sync tick."""
+    eng, prompts, max_new = _port_engine(nectar, case)
+    tr = eng.tracer
+    reqs = [Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    kinds = {}
+    step = eng.step
+
+    def timed_step():
+        before, pending = eng.async_stats(), eng._pending is not None
+        t0, snap0 = time.perf_counter_ns(), tr.snapshot()
+        out = step()
+        snap1, t1 = tr.snapshot(), time.perf_counter_ns()
+        d = {k: snap1[k] - snap0[k] for k in snap1}
+        assert abs(sum(d.values()) - (t1 - t0)) < 200_000
+        acc = kinds.setdefault(
+            _tick_kind(before, eng.async_stats(), pending), [0, 0])
+        acc[0] += sum(d.values())
+        acc[1] += d["tick"]
+        return out
+    eng.step = timed_step
+    for req in reqs[:2]:
+        assert eng.add_request(req)
+    for n in range(2000):
+        if n == 4:
+            assert eng.add_request(reqs[2])
+        if n > 4 and not eng._busy():
+            break
+        eng.step()
+    assert all(r.done for r in reqs)
+    want = {"paged": {"sync"}, "overlap": {"sync", "reconcile", "overlap"},
+            "loop": {"sync", "burst"}}[case]
+    assert want <= set(kinds)
+    for kind, (wall, rest) in kinds.items():
+        assert rest <= 0.05 * wall, (kind, rest, wall)
+
+
+class _ManualClock:
+    """A phase clock that moves only when the test moves it."""
+
+    def __init__(self):
+        self.ns = 0
+
+    def __call__(self):
+        return self.ns
+
+
+def test_request_phase_seconds_are_the_totals_difference(nectar):
+    """A request's ``phase_s`` is the difference of the engine's phase
+    totals between its admission and its finish. The clock moves only
+    where the test moves it (3 ms in each forward step, inside
+    device_dispatch; 1 ms in each sample launch, inside sample_sync; 0.5
+    ms in each admission, inside admit), so each phase's seconds are also
+    known from the steps a request lived through."""
+    eng, prompts, max_new = _port_engine(nectar, "preempt")
+    tr, clock = eng.tracer, _ManualClock()
+    tr._now_ns = clock
+    counts = {"steps": 0, "samples": 0, "admits": 0}
+    seen = {}
+
+    def moving(fn, key, ns):
+        def call(*a, **kw):
+            counts[key] += 1
+            clock.ns += ns
+            return fn(*a, **kw)
+        return call
+    model = eng.runner.model
+    model.forward_step = moving(model.forward_step, "steps", 3_000_000)
+    eng.sampler.launch = moving(eng.sampler.launch, "samples", 1_000_000)
+    eng.sched.admit = moving(eng.sched.admit, "admits", 500_000)
+    col = eng.metrics
+    on_admit, on_finish = col.on_admit, col.on_finish
+
+    def admit(rid):
+        first = col.requests[rid].admitted_at is None
+        on_admit(rid)
+        if first:
+            seen[rid] = [tr.snapshot(), dict(counts)]
+
+    def finish(rid):
+        on_finish(rid)
+        seen[rid] += [tr.snapshot(), dict(counts)]
+    col.on_admit, col.on_finish = admit, finish
+    reqs = [Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    done = eng.run(reqs, max_steps=2000)
+    assert col.evictions > 0               # admitted again after a preempt
+    for rid, req in done.items():
+        t_a, n_a, t_f, n_f = seen[rid]
+        r = req.metrics
+        assert r.phase_s == {k: (t_f[k] - t_a[k]) / 1e9 for k in t_f}
+        assert r.phase_s["device_dispatch"] == pytest.approx(
+            3e-3 * (n_f["steps"] - n_a["steps"]))
+        assert r.phase_s["sample_sync"] == pytest.approx(
+            1e-3 * (n_f["samples"] - n_a["samples"]))
+        assert r.phase_s["admit"] == pytest.approx(
+            5e-4 * (n_f["admits"] - n_a["admits"]))
+
+
+def test_request_record_stamps_ordered_and_kept_after_forget(nectar):
+    """Through the StreamingServer with one slot and a queue of one: each
+    request's submitted_at <= arrival <= admitted_at <= first_token_at <=
+    finished_at; the two held in the server's backlog (queue full) count
+    that wait (their arrival is later than their submit, their queue wait
+    longer than the backlog); the record stays on the finished Request after
+    ``result(forget=True)``; the summary and the registry show the queue
+    waits and the window's phase totals."""
+    from repro_torch.serve.api import StreamingServer
+    _, _, tcfg, tparams = nectar
+    eng = Engine(tcfg, tparams, ServeConfig(
+        paged=True, max_batch=1, max_queue=1, max_seq=64, block_size=8,
+        prefill_chunk=16), device="cpu")
+    srv = StreamingServer(eng)
+    rids = [srv.submit(p, max_new=4) for p in _prompts(tcfg, [6, 9, 5])]
+    assert len(srv._backlog) == 2
+    srv.drain()
+    recs = {}
+    for rid in rids:
+        req = srv.result(rid, forget=True)
+        r = recs[rid] = req.metrics
+        assert rid not in eng.metrics.requests and r.rid == rid
+        assert r.submitted_at <= r.arrival <= r.admitted_at \
+            <= r.first_token_at <= r.finished_at
+        assert r.queue_wait == r.admitted_at - r.submitted_at >= 0
+        assert set(r.phase_s) == set(PHASES)
+        assert r.phase_s["front_end"] > 0 and r.phase_s["admit"] > 0
+    for held in (recs[rid] for rid in rids[1:]):
+        assert held.arrival - held.submitted_at > 0
+        assert held.queue_wait > held.arrival - held.submitted_at
+    s = eng.metrics.summary()
+    waits = sorted(r.queue_wait for r in recs.values())
+    assert s["queue_wait_p50_ms"] == pytest.approx(waits[1] * 1e3)
+    assert s["engine_phase_s"]["front_end"] > 0
+    reg = eng.metrics.registry.collect()
+    assert reg["request_queue_wait_seconds"]["count"] == 3
+    assert reg['engine_phase_seconds_total{phase="device_dispatch"}'] \
+        == s["engine_phase_s"]["device_dispatch"] > 0
+    eng.reset_metrics()
+    assert eng.metrics.summary()["queue_wait_p50_ms"] is None
+
+
+@pytest.mark.parametrize("case", ["paged", "overlap", "loop"])
+def test_recording_tracer_adds_no_wait(nectar, case, monkeypatch):
+    """With tracing on, every step's clock takes timing events (stubbed:
+    the CPU has none) and none is waited for; the ticks wait in
+    ``device_wait`` exactly as often as with tracing off, and the tokens
+    are the same."""
+    monkeypatch.setattr(torch.cuda, "Event", _StubTimingEvent,
+                        raising=False)
+    monkeypatch.setattr(_StubTimingEvent, "waits", 0)
+    waits, toks = {}, {}
+    for label, obs in (("off", None), ("on", {"enabled": True})):
+        eng, prompts, max_new = _port_engine(nectar, case, obs)
+        tr = eng.tracer
+        if obs is not None:
+            tr.device_clock = lambda device, tr=tr: DeviceClock(tr, True)
+        device_wait = tr.device_wait
+
+        def counted(label=label, device_wait=device_wait):
+            waits[label] = waits.get(label, 0) + 1
+            return device_wait()
+        tr.device_wait = counted
+        done = eng.run([Request(rid=i, prompt=p, max_new=max_new)
+                        for i, p in enumerate(prompts)], max_steps=2000)
+        toks[label] = {i: list(r.tokens_out) for i, r in done.items()}
+    assert toks["on"] == toks["off"]
+    assert waits["on"] == waits["off"] > 0
+    assert _StubTimingEvent.waits == 0
+    timed = [t for t in tr.tick_stats if t["device_ms"] > 0]
+    assert timed and all(t["device_ms"] % 5.0 == 0 for t in timed)
+
+
+# ---------------------------------------------------------------------------
 # the disabled fast path
 
 
 def test_null_tracer_shared_singletons():
-    assert make_tracer(None) is NULL_TRACER
-    assert make_tracer(ObsConfig(enabled=False)) is NULL_TRACER
-    assert NULL_TRACER.span("x", a=1) is NULL_SPAN
-    assert NULL_TRACER.tick() is NULL_SPAN
-    assert NULL_TRACER.device_clock(torch.device("cpu")) is None
-    assert NULL_TRACER.device_wait(None) is NULL_SPAN
-    NULL_TRACER.event(0, "arrival")
-    assert NULL_TRACER.events == ()
-    assert not NULL_TRACER.enabled
+    """Tracing off, an engine gets its own CountingTracer (its totals are
+    its own), whose hooks return one shared context manager: no Span,
+    event or clock."""
+    for cfg in (None, ObsConfig(enabled=False)):
+        ct = make_tracer(cfg)
+        assert type(ct) is CountingTracer and not ct.enabled
+        assert ct.span("schedule", rows=2) is ct.span("admit") is ct.tick()
+        assert ct.device_wait() is ct.tick()
+        assert ct.device_clock(torch.device("cpu")) is None
+        ct.event(0, "arrival")
+        ct.tick_attrs(width=1)
+        assert ct.events == () and ct.spans == () and ct.tick_stats == ()
+    assert make_tracer(None) is not make_tracer(None)
     assert isinstance(make_tracer(ObsConfig(profile=True)), Tracer)
 
 
+@pytest.mark.parametrize("case", ["paged", "loop"])
+@pytest.mark.parametrize("enabled", [False, True])
+def test_engine_leaves_no_reference_cycle(nectar, case, enabled):
+    """An engine's runner, metrics collector and tracer go with the engine
+    by reference counting alone, tracing on or off: none waits for the
+    cyclic garbage collector, whose run may fall inside a later CUDA graph
+    capture, where freeing another graph is not allowed."""
+    cfg, _, tcfg, tparams = nectar
+    kw, lengths, max_new = CASES[case]
+    prompts = _case_prompts(cfg, lengths)
+    gc.collect()
+    gc.disable()
+    try:
+        eng = Engine(tcfg, tparams, _scfg("port", kw, dict(enabled=enabled)),
+                     device="cpu")
+        eng.run([Request(rid=i, prompt=p, max_new=max_new)
+                 for i, p in enumerate(prompts)], max_steps=2000)
+        refs = {name: weakref.ref(o) for name, o in (
+            ("engine", eng), ("runner", eng.runner),
+            ("metrics", eng.metrics), ("tracer", eng.tracer))}
+        del eng
+        assert {n: r() is None for n, r in refs.items()} \
+            == dict.fromkeys(refs, True)
+    finally:
+        gc.enable()
+
+
 def test_disabled_overhead_under_2pct(nectar):
-    """The per-tick cost of the disabled hooks (one tick() and the span,
-    event and device-clock calls a busy tick makes) is < 2% of a real
-    tick of the port's paged engine."""
+    """The per-tick cost of the hooks with tracing off (one tick() and the
+    span, event and device-clock calls a busy tick makes, through the
+    counting tracer's phase clock) is < 2% of a real tick of the port's
+    paged engine."""
     _, _, tcfg, tparams = nectar
     eng = Engine(tcfg, tparams, ServeConfig(paged=True, **BASE),
                  device="cpu")
-    assert eng.tracer is NULL_TRACER and eng.runner.tracer is NULL_TRACER
+    assert type(eng.tracer) is CountingTracer
+    assert eng.runner.tracer is eng.tracer
     eng.run([Request(rid=i, prompt=p, max_new=4)
              for i, p in enumerate(_prompts(tcfg, [8, 8]))], max_steps=200)
     reqs = [Request(rid=10 + i, prompt=p, max_new=8)
@@ -414,7 +746,7 @@ def test_disabled_overhead_under_2pct(nectar):
         n_ticks += 1
     tick_s = (time.perf_counter() - t0) / max(n_ticks, 1)
     N = 2000
-    tr = NULL_TRACER
+    tr = eng.tracer
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
     for _ in range(N):
@@ -425,11 +757,10 @@ def test_disabled_overhead_under_2pct(nectar):
             with tr.span("batch_assemble"):
                 tr.tick_attrs(width=1, pad_waste_frac=0.0)
             with tr.span("device_dispatch", width=1, has_prefill=False):
-                clock = tr.device_clock(cpu)
-            with tr.device_wait(clock):
-                pass
+                tr.device_clock(cpu)
             with tr.span("sample_sync", rows=2):
-                pass
+                with tr.device_wait():
+                    pass
             with tr.span("postprocess"):
                 tr.event(0, "first_token")
     hook_s = (time.perf_counter() - t0) / N
@@ -457,6 +788,7 @@ def test_exports_pass_check_trace(nectar, tmp_path):
     assert check_trace.check_perfetto(p) == []
     j = write_jsonl(eng.tracer, str(tmp_path / "t.events.jsonl"))
     assert check_trace.check_jsonl(j, expect_ordering=True) == []
+    assert _check_port_ordering(j, tmp_path) == []
     with open(j) as f:
         kinds = [json.loads(ln)["kind"] for ln in f]
     assert kinds[0] == "meta" and {"span", "event", "tick"} <= set(kinds)
@@ -519,6 +851,20 @@ def test_async_attribution(nectar, case, tmp_path):
         assert all(t["device_ms"] > 0 for t in bursts)
     j = write_jsonl(tr, str(tmp_path / "a.events.jsonl"))
     assert check_trace.check_jsonl(j, expect_ordering=True) == []
+    assert _check_port_ordering(j, tmp_path) == []
+    # a graph dispatch that closed after its tick's sample_sync began fails
+    recs = [json.loads(ln) for ln in open(j)]
+    spans = [r for r in recs if r["kind"] == "span"]
+    syncs = {(r.get("attrs") or {}).get("reconciles_tick", r["tick"]): r
+             for r in spans if r["name"] == "sample_sync"}
+    g = next(r for r in spans if r["name"] == "graph_dispatch"
+             and r["tick"] in syncs)
+    g["dur_us"] = syncs[g["tick"]]["ts_us"] - g["ts_us"] + 1.0
+    bad = tmp_path / "bad.events.jsonl"
+    bad.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    errs = _check_port_ordering(str(bad), tmp_path)
+    assert any("before that tick's device_dispatch closed" in e
+               for e in errs)
     p = write_perfetto(tr, str(tmp_path / "a.trace.json"))
     assert check_trace.check_perfetto(p) == []
 

@@ -195,6 +195,44 @@ def test_pool_and_index_match_reference_on_random_ops(seed):
     assert len(pool.free) + radix.n_reclaimable() == pool.n_blocks
 
 
+def test_radix_walk_of_a_2000_block_chain_under_the_default_limit():
+    """A cached sequence of 2,000 blocks under CPython's default recursion
+    limit (1,000 frames): the reclaimable count walks the chain without a
+    frame a block, with the reference's counts (its recursive walk run
+    under a raised limit) whole, with a slot mapping its first 100 blocks,
+    and after LRU reclaim, which evicts leaf-first from the chain's tail
+    in both packages."""
+    import sys
+    n = 2000
+    sides = _pools(n_blocks=n + 1, block_size=4, max_batch=2, mbs=n)
+    toks = np.arange(4 * n, dtype=np.int32) % 64
+    query = np.concatenate([toks[:400], [7]]).astype(np.int32)
+    counts, evicted = [], []
+    limit = sys.getrecursionlimit()
+    try:
+        for raised, (pool, radix) in ((True, sides[0]), (False, sides[1])):
+            sys.setrecursionlimit(3 * n if raised else 1000)
+            assert pool.allocate(0, 4 * n)
+            chain = list(pool.owned[0])
+            radix.insert(toks, chain)
+            seen = [radix.n_reclaimable()]
+            pool.free_slot(0)
+            seen.append(radix.n_reclaimable())
+            blocks, m = radix.match(query)
+            assert m == 400 and blocks == chain[:100]
+            pool.share(1, blocks)
+            seen.append(radix.n_reclaimable())
+            freed = radix.reclaim(3)
+            assert freed == chain[:-4:-1]
+            seen.append(radix.n_reclaimable())
+            counts.append(seen)
+            evicted.append(freed)
+    finally:
+        sys.setrecursionlimit(limit)
+    assert counts[1] == counts[0] == [0, n, n - 100, n - 103]
+    assert evicted[1] == evicted[0]
+
+
 def test_defrag_remaps_index_and_shared_blocks():
     """Defrag with an active sharer and cached reclaimable blocks: tables,
     refcounts and the radix follow the permutation in both packages, and

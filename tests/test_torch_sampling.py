@@ -124,10 +124,11 @@ def test_sample_batch_tokens_equal_reference(seed):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
                                atol=LOGPROB_ATOL, rtol=0)
     B = len(temp)
-    tok, lp = sampling.Sampler()(torch.tensor(logits), presence,
-                                 np.zeros(B, np.float32), top_k, top_p,
-                                 np.ones(B, np.float32), keys)
-    np.testing.assert_array_equal(tok, np.argmax(logits, axis=-1))
+    tok, lp = sampling.Sampler().launch(torch.tensor(logits), presence,
+                                        np.zeros(B, np.float32), top_k,
+                                        top_p, np.ones(B, np.float32), keys)
+    np.testing.assert_array_equal(tok.cpu().numpy(),
+                                  np.argmax(logits, axis=-1))
 
 
 @pytest.mark.parametrize("sp_kw", [
